@@ -4,7 +4,7 @@
 Run from the root of a checkout, on a machine with a card, ``nvcc`` and
 PyTorch built for CUDA:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases (each prints one JSON line with its seconds):
 
@@ -20,13 +20,27 @@ Phases (each prints one JSON line with its seconds):
    against "xla" as in phase 2, PageRank against a float64 numpy power
    iteration, ``triangle_count(u, backend="bsr")`` equal to the oriented
    intersection exactly, and ``connected_components`` against scipy.
-4. every kernel against its plain PyTorch version at the shapes phases 2-3
+4. serving, kernel K4: ``qwen2.5-3b`` at full width and depth (36
+   layers, d_model 2048) with random weights from a seeded generator,
+   behind ``Engine`` with ``ServeConfig(batch=4, max_seq=2080)``: 4 prompts
+   of 2048, 1536, 1024 and 512 token ids (numpy seed 0), 32 new tokens
+   each.  K4 must launch once per layer in the prefill (36 times in the
+   ``generate``), every output must hold its prompt plus 32 ids in
+   ``[0, vocab)`` with finite logits, a second ``generate`` must give the
+   same tokens, and ``decode_step`` after ``prefill`` must agree with
+   ``forward``'s last position (batch 2, S = 256) within 5e-2 of the
+   largest logit.  One more prefill and one decode step run under
+   ``torch.profiler``: their device-busy share and K4's part of it.
+5. every kernel against its plain PyTorch version at the shapes phases 2-4
    gave it, with its time, the plain version's, a library call's where one
    computes the same function, and the card's lower bound.  Printed as one
-   ``{"kernels": [...]}`` line.
+   ``{"kernels": [...]}`` line.  K4 in bf16 must match its plain version
+   element by element within one bf16 ulp (``|got - want| <= 2^-7·|want| +
+   1e-6``): both round the same float32 sums once.
 
-The launch counts of phases 2-3 are the main path's: they are zeroed just
-before phase 2 and read just after phase 3.  Any failed check raises, and
+The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
+path's: each window's counts are zeroed just before it and read just after
+it.  Any failed check raises, and
 the script exits non-zero without its last line, which on success is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it fails before any phase.
@@ -34,6 +48,7 @@ checkout of the repository, it fails before any phase.
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -59,12 +74,18 @@ REPLACES = {
     "bsr_spmv": "src/repro/kernels/bsr_spmv.py:53",
     "segment_sum_chunked": "src/repro/kernels/segment_sum.py:97",
     "bsr_tricount": "src/repro/kernels/bsr_tricount.py:46",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention.py:84",
 }
 SOURCES = {
     "bsr_spmv": "src/repro_torch/kernels/csrc/bsr_spmv.cu",
     "segment_sum_chunked": "src/repro_torch/kernels/csrc/segment_sum.cu",
     "bsr_tricount": "src/repro_torch/kernels/csrc/bsr_tricount.cu",
+    "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
+SERVE_PROMPTS = (2048, 1536, 1024, 512)   # prompt lengths of phase 4
+SERVE_NEW = 32
+DECODE_TOL = 5e-2   # decode vs forward, relative to the largest logit
+BF16_ULP = 2.0 ** -7   # one bf16 ulp relative to the value (8 significant bits)
 
 
 def emit(obj) -> None:
@@ -238,6 +259,166 @@ def phase_bsr(dev, scale):
     return g, u
 
 
+def device_busy(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler``: its synchronised wall
+    seconds, the summed device time of the kernels it ran, and K4's."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in ev) / 1e6
+    k4 = sum(e.device_time for e in ev if "flash_fwd_kernel" in e.name) / 1e6
+    return {"wall_seconds": wall, "kernels": len(ev), "device_seconds": busy,
+            "busy_share": busy / wall, "k4_device_seconds": k4}
+
+
+def phase_serve(dev, kernels, profile):
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine, ServeConfig
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2.5-3b")          # full width and depth
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, t_init = timed(lambda: Transformer.init_params(cfg, gen,
+                                                          device=dev))
+    check(len(model.layers) == cfg.n_layers == 36 and cfg.d_model == 2048,
+          "qwen2.5-3b at full depth and width")
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = nbytes(*model.parameters())
+    eng, t_engine = timed(lambda: Engine(cfg, model, ServeConfig(
+        batch=4, max_seq=max(SERVE_PROMPTS) + SERVE_NEW), device=dev))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SERVE_PROMPTS]
+
+    for k in kernels:
+        k.launches = 0
+    out, t_gen = timed(lambda: eng.generate(prompts, SERVE_NEW))
+    launches = {k.__name__: k.launches for k in kernels}
+    stats = dict(eng.stats)
+    check(launches["flash_attention_fwd"] == cfg.n_layers,
+          f"K4 launched {launches['flash_attention_fwd']} times in one "
+          f"generate, not once per layer ({cfg.n_layers})")
+    check(all(len(o) == len(p) + SERVE_NEW for o, p in zip(out, prompts)),
+          "each output holds its prompt plus the new tokens")
+    check(all(o[:len(p)] == p for o, p in zip(out, prompts)),
+          "each output starts with its prompt")
+    check(all(0 <= t < cfg.vocab_size for o in out for t in o),
+          "token ids in [0, vocab)")
+    check(bool(torch.isfinite(eng.last_logits).all()), "finite logits")
+    again, t_again = timed(lambda: eng.generate(prompts, SERVE_NEW))
+    check(again == out, "a second generate gives the same tokens")
+    peak = torch.cuda.max_memory_allocated()
+
+    # decode agrees with forward (tests/test_models.py's check, on the card)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)
+                                         ).astype(np.int32)).to(dev)
+    full, _ = model({"tokens": toks})
+    _, cache = model.prefill({"tokens": toks[:, :-1]}, 260)
+    dec, _ = model.decode_step(cache, toks[:, -1:], 255)
+    want, got = full[:, -1].float(), dec[:, 0].float()
+    check(bool(torch.isfinite(want).all() and torch.isfinite(got).all()),
+          "finite forward and decode logits")
+    err = max_abs(got, want)
+    scale = float(want.abs().max())
+    check(err <= DECODE_TOL * scale, f"decode vs forward: max|d| {err} > "
+          f"{DECODE_TOL} * {scale}")
+
+    rec = {}
+    if profile:   # where the time goes: one prefill of the batch, one decode
+        plen = max(SERVE_PROMPTS)
+        padded = np.zeros((4, plen), np.int32)
+        for i, p in enumerate(prompts):
+            padded[i, plen - len(p):] = p
+        batch = {"tokens": torch.from_numpy(padded).to(dev)}
+        held = {}
+        rec["profile_prefill"] = device_busy(lambda: held.update(zip(
+            ("logits", "cache"), eng.model.prefill(batch, eng.scfg.max_seq))))
+        cur = torch.argmax(held["logits"][:, -1], dim=-1)[:, None]
+        rec["profile_decode_step"] = device_busy(
+            lambda: eng.model.decode_step(held["cache"], cur, plen))
+    new_tokens = len(prompts) * stats["decode_steps"]
+    emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": n_params,
+          "param_bytes": param_bytes, "param_dtype": cfg.param_dtype,
+          "compute_dtype": cfg.compute_dtype,
+          "memory_allocated_before": mem_before,
+          "max_memory_allocated": peak, "seconds_init": t_init,
+          "seconds_engine": t_engine, "prompt_lens": list(SERVE_PROMPTS),
+          "new_tokens": SERVE_NEW, "seconds_generate": t_gen,
+          "seconds_generate_again": t_again,
+          "prefill_seconds": stats["prefill_seconds"],
+          "decode_seconds_per_token": stats["decode_seconds"]
+          / stats["decode_steps"],
+          "decode_tokens_per_second": new_tokens / stats["decode_seconds"],
+          "tokens_per_second": new_tokens / t_gen,
+          "launches": launches,
+          "decode_vs_forward": {"max_abs_diff": err, "max_abs_logit": scale,
+                                "tolerance": DECODE_TOL * scale},
+          **rec, "seconds": time.perf_counter() - t0})
+    return launches["flash_attention_fwd"]
+
+
+def kernel_k4(launches):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def qkv(shape, dtype):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for _ in range(3)]
+
+    def measure(shape, dtype, reps):
+        q, k, v = qkv(shape, dtype)
+        out = flash_attention_fwd(q, k, v, causal=True)
+        want = flash_attention_fwd_plain(q, k, v, causal=True)
+        err = max_abs(out, want)
+        if dtype == torch.bfloat16:
+            # both sides round the same float32 sums to bf16 once: one ulp
+            tol = f"{BF16_ULP}*|want| + 1e-6 per element"
+            limit = BF16_ULP * want.double().abs() + 1e-6
+        else:
+            tol = 2e-5   # the reference kernel's float32 tolerance
+            limit = torch.full_like(want, tol, dtype=torch.float64)
+        ratio = float(((out.double() - want.double()).abs() / limit).max())
+        check(ratio <= 1.0, f"K4 {dtype} {shape}: max|d|/limit {ratio} > 1 "
+              f"(max|d| {err}, limit {tol})")
+        b, s, h, d = shape
+        flops = 2 * d * s * (s + 1) * b * h   # causal q·kᵀ and p·v
+        bnd, by = bound_ms(nbytes(q, k, v, out), flops, dtype)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return {"max_abs_err": err, "tolerance": tol,
+                "max_err_over_limit": ratio,
+                "ms": cuda_ms(lambda: flash_attention_fwd(q, k, v), reps),
+                "plain_ms": cuda_ms(
+                    lambda: flash_attention_fwd_plain(q, k, v), 3),
+                "bound_ms": bnd, "bound_by": by,
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), reps),
+                "library_max_abs_diff": max_abs(lib.transpose(1, 2), want),
+                "shape": list(shape), "dtype": str(dtype)}
+
+    # the prefill's shape (B=4, S=2048, 16 heads after the GQA repeat)
+    row = measure((4, 2048, 16, 128), torch.bfloat16, 10)
+    f32 = measure((1, 1024, 16, 128), torch.float32, 5)
+    row.update(name="flash_attention_fwd", launches=launches,
+               library="scaled_dot_product_attention(is_causal=True) on "
+                       "(B, H, S, D) views",
+               f32=f32)
+    return row
+
+
 def kernel_k1(g14, launches):
     from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_plain
     tiles, rows, cols, nb = g14.plan().bsr()
@@ -337,6 +518,10 @@ def kernel_k3(u14, launches):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one prefill and one decode step")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -346,6 +531,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.bsr_spmv import bsr_spmv
     from repro_torch.kernels.bsr_tricount import bsr_tricount
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.segment_sum import segment_sum_chunked
 
     # float32 products in the plain versions run in full float32, not TF32
@@ -366,19 +552,23 @@ def main() -> int:
           "build_dir": str(_build.build_dir().relative_to(ROOT)),
           "seconds": time.perf_counter() - t0})
 
-    kernels = (bsr_spmv, segment_sum_chunked, bsr_tricount)
+    kernels = (bsr_spmv, segment_sum_chunked, bsr_tricount,
+               flash_attention_fwd)
     for k in kernels:
         k.launches = 0
     g22 = phase_pagerank_scale(dev, 22)
     g14, u14 = phase_bsr(dev, 14)
-    path = {k.__name__: k.launches for k in kernels}
+    path = {k.__name__: k.launches for k in kernels[:3]}
+    path["flash_attention_fwd"] = phase_serve(dev, kernels, args.profile)
     for name, n in path.items():
         check(n > 0, f"kernel {name} never launched on the main path")
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     rows = [kernel_k1(g14, path["bsr_spmv"]),
             kernel_k2(g22, path["segment_sum_chunked"]),
-            kernel_k3(u14, path["bsr_tricount"])]
+            kernel_k3(u14, path["bsr_tricount"]),
+            kernel_k4(path["flash_attention_fwd"])]
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]])

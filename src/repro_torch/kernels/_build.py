@@ -39,6 +39,9 @@ SIGNATURES = {
     "segment_sum_chunked": [_P, _P, _P, _P, _I, _I, _P],
     # tiles, t_ij, t_ik, t_kj, out, n_triples, block, stream
     "bsr_tricount": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # q, k, v, out, B, Sq, Sk, H, D, causal, stream
+    "flash_attention_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "flash_attention_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -151,3 +151,31 @@ def np_triangle_count(edges, n):
             if v > u:
                 total += len(adj[u] & adj[v] - {u, v})
     return total // 3
+
+
+# ---------------------------------------------------------------------------
+# dense LM parameters shared by the reference and the port
+# ---------------------------------------------------------------------------
+
+
+def lm_arrays(ref_cfg, seed=0):
+    """The reference's ``init_params(PRNGKey(seed))`` as numpy arrays, with
+    every bias and norm parameter (zeros and ones at init) replaced by
+    seeded numpy values, so the parity tests exercise them."""
+    import jax
+    from repro.models.transformer import init_params
+
+    params = jax.tree.map(np.array, init_params(ref_cfg, jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed + 1000)
+
+    def perturb(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                perturb(v)
+            elif k == "scale":
+                tree[k] = (1.0 + 0.2 * rng.normal(size=v.shape)).astype(v.dtype)
+            elif k in ("b", "bias"):
+                tree[k] = (0.2 * rng.normal(size=v.shape)).astype(v.dtype)
+
+    perturb(params)
+    return params

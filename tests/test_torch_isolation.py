@@ -18,8 +18,11 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs.base import get_config, reduced
 from repro_torch.core.graph import Graph
 from repro_torch.device import resolve
+from repro_torch.models.transformer import Transformer
+from repro_torch.serve.engine import Engine, ServeConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -45,7 +48,7 @@ def test_port_modules_import_no_jax_and_no_reference():
                          text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(PORT_MODULES) >= 12
+    assert len(PORT_MODULES) >= 27
 
 
 def test_no_source_file_names_jax_or_the_reference():
@@ -68,6 +71,21 @@ def test_no_device_means_the_card_or_an_error(monkeypatch):
     g = Graph.from_edges(np.asarray([0], np.int32), np.asarray([1], np.int32),
                          device="cpu")
     assert g.device.type == "cpu" and resolve("cpu") == torch.device("cpu")
+
+
+def test_model_and_engine_without_device_need_the_card(monkeypatch):
+    cfg = reduced(get_config("qwen2.5-3b"))
+    model = Transformer.init_params(cfg, device="cpu")
+    arrays = model.to_arrays()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Transformer.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Transformer.from_arrays(cfg, arrays)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, model, ServeConfig())
+    eng = Engine(cfg, model, ServeConfig(batch=1, max_seq=8), device="cpu")
+    assert len(eng.generate([[1, 2]], max_new_tokens=2)[0]) == 4
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repository(tmp_path):

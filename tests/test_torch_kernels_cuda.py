@@ -16,6 +16,8 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_plain
 from repro_torch.kernels.bsr_tricount import bsr_tricount, bsr_tricount_plain
+from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                 flash_attention_fwd_plain)
 from repro_torch.kernels.segment_sum import (chunk_layout, segment_sum_chunked,
                                              segment_sum_chunked_plain)
 
@@ -131,3 +133,44 @@ def test_bsr_tricount_kernel_exact(dev, n, b):
     assert bsr_tricount.launches == before + 1
     assert int(got) == int(bsr_tricount_plain(tiles, tij, tik, tkj))
     assert int(got) % 6 == 0
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 64, 64, 3, 16), (1, 100, 100, 2, 32),
+                                         (2, 96, 96, 1, 8), (1, 77, 130, 2, 64),
+                                         (1, 130, 77, 2, 64), (2, 200, 200, 2, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(dev, b, sq, sk, h, d, causal,
+                                              dtype):
+    rng = np.random.default_rng(sq * 1000 + sk + d)
+    q, k, v = (_t(rng.normal(size=(b, s, h, d)).astype(np.float32),
+                  dev).to(dtype) for s in (sq, sk, sk))
+    before = flash_attention_fwd.launches
+    got = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_fwd_plain(q, k, v, causal=causal).double()
+    err = (got.double() - want).abs()
+    if dtype == torch.float32:   # the reference kernel's tolerance
+        assert float(err.max()) <= 2e-5, float(err.max())
+    else:
+        # both sides round the same float32 sums to bf16 once, so each
+        # element is within one bf16 ulp (2^-7 of its value) of the other
+        ratio = float((err / (2.0 ** -7 * want.abs() + 1e-6)).max())
+        assert ratio <= 1.0, (ratio, float(err.max()))
+
+
+def test_flash_attention_kernel_rejects_head_dim(dev):
+    q = torch.zeros((1, 8, 1, 24), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_fwd(q, q, q)
+
+
+def test_flash_attention_kernel_strided_input(dev):
+    rng = np.random.default_rng(3)
+    x = _t(rng.normal(size=(1, 3, 70, 2, 32)).astype(np.float32), dev)
+    q, k, v = x[:, 0], x[:, 1], x[:, 2]      # views at offsets, not contiguous
+    got = flash_attention_fwd(q, k, v)
+    want = flash_attention_fwd_plain(q, k, v)
+    assert float((got - want).abs().max()) <= 2e-5
