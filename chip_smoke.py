@@ -26,7 +26,8 @@ Phases (each prints one JSON line with its seconds):
    of 2048, 1536, 1024 and 512 token ids (numpy seed 0), 32 new tokens
    each.  K4 must launch once per layer in the prefill (36 times in the
    ``generate``), every output must hold its prompt plus 32 ids in
-   ``[0, vocab)`` with finite logits, a second ``generate`` must give the
+   ``[0, vocab)`` with finite logits, all 36 K4 launches must take the
+   ``"sm90_wgmma"`` variant, a second ``generate`` must give the
    same tokens, and ``decode_step`` after ``prefill`` must agree with
    ``forward``'s last position (batch 2, S = 256) within 5e-2 of the
    largest logit.  One more prefill and one decode step run under
@@ -34,9 +35,14 @@ Phases (each prints one JSON line with its seconds):
 5. every kernel against its plain PyTorch version at the shapes phases 2-4
    gave it, with its time, the plain version's, a library call's where one
    computes the same function, and the card's lower bound.  Printed as one
-   ``{"kernels": [...]}`` line.  K4 in bf16 must match its plain version
-   element by element within one bf16 ulp (``|got - want| <= 2^-7·|want| +
-   1e-6``): both round the same float32 sums once.
+   ``{"kernels": [...]}`` line.  K4's wgmma variant at the prefill shape
+   must pass ``attention_error_ratios`` (max and mean error against the
+   float32 plain version within twice those of the plain version that
+   rounds p to bf16) and give the same bits twice; the CUDA-core variant at
+   the same shape (the "before" time) must match its plain version within
+   one bf16 ulp per element (``|got - want| <= 2^-7·|want| + 1e-6``), and
+   in float32 within 2e-5.  K2 must give the same bits twice; its row
+   also times other piece sizes.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
 path's: each window's counts are zeroed just before it and read just after
@@ -80,7 +86,7 @@ SOURCES = {
     "bsr_spmv": "src/repro_torch/kernels/csrc/bsr_spmv.cu",
     "segment_sum_chunked": "src/repro_torch/kernels/csrc/segment_sum.cu",
     "bsr_tricount": "src/repro_torch/kernels/csrc/bsr_tricount.cu",
-    "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
 }
 SERVE_PROMPTS = (2048, 1536, 1024, 512)   # prompt lengths of phase 4
 SERVE_NEW = 32
@@ -273,7 +279,7 @@ def device_busy(fn) -> dict:
     ev = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time for e in ev) / 1e6
-    k4 = sum(e.device_time for e in ev if "flash_fwd_kernel" in e.name) / 1e6
+    k4 = sum(e.device_time for e in ev if "flash_fwd" in e.name) / 1e6
     return {"wall_seconds": wall, "kernels": len(ev), "device_seconds": busy,
             "busy_share": busy / wall, "k4_device_seconds": k4}
 
@@ -302,12 +308,19 @@ def phase_serve(dev, kernels, profile):
 
     for k in kernels:
         k.launches = 0
+    by_variant = flash_attention_fwd.launches_by_variant
+    for name in by_variant:
+        by_variant[name] = 0
     out, t_gen = timed(lambda: eng.generate(prompts, SERVE_NEW))
     launches = {k.__name__: k.launches for k in kernels}
+    k4_variants = dict(by_variant)
     stats = dict(eng.stats)
     check(launches["flash_attention_fwd"] == cfg.n_layers,
           f"K4 launched {launches['flash_attention_fwd']} times in one "
           f"generate, not once per layer ({cfg.n_layers})")
+    check(k4_variants["sm90_wgmma"] == cfg.n_layers,
+          f"K4 launches by variant {k4_variants}: not all {cfg.n_layers} "
+          f"through sm90_wgmma")
     check(all(len(o) == len(p) + SERVE_NEW for o, p in zip(out, prompts)),
           "each output holds its prompt plus the new tokens")
     check(all(o[:len(p)] == p for o, p in zip(out, prompts)),
@@ -361,61 +374,92 @@ def phase_serve(dev, kernels, profile):
           / stats["decode_steps"],
           "decode_tokens_per_second": new_tokens / stats["decode_seconds"],
           "tokens_per_second": new_tokens / t_gen,
-          "launches": launches,
+          "launches": launches, "k4_launches_by_variant": k4_variants,
           "decode_vs_forward": {"max_abs_diff": err, "max_abs_logit": scale,
                                 "tolerance": DECODE_TOL * scale},
           **rec, "seconds": time.perf_counter() - t0})
-    return launches["flash_attention_fwd"]
+    return launches["flash_attention_fwd"], k4_variants
 
 
-def kernel_k4(launches):
+def one_ulp_ratio(got, want) -> float:
+    """Largest |got - want| / (2^-7·|want| + 1e-6): <= 1 is one bf16 ulp."""
+    limit = BF16_ULP * want.double().abs() + 1e-6
+    return float(((got.double() - want.double()).abs() / limit).max())
+
+
+def kernel_k4(launches, by_variant):
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
-        flash_attention_fwd, flash_attention_fwd_plain)
+        attention_error_ratios, flash_attention_fwd, flash_attention_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def qkv(shape, dtype):
         return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
                 for _ in range(3)]
 
-    def measure(shape, dtype, reps):
-        q, k, v = qkv(shape, dtype)
-        out = flash_attention_fwd(q, k, v, causal=True)
-        want = flash_attention_fwd_plain(q, k, v, causal=True)
-        err = max_abs(out, want)
-        if dtype == torch.bfloat16:
-            # both sides round the same float32 sums to bf16 once: one ulp
-            tol = f"{BF16_ULP}*|want| + 1e-6 per element"
-            limit = BF16_ULP * want.double().abs() + 1e-6
-        else:
-            tol = 2e-5   # the reference kernel's float32 tolerance
-            limit = torch.full_like(want, tol, dtype=torch.float64)
-        ratio = float(((out.double() - want.double()).abs() / limit).max())
-        check(ratio <= 1.0, f"K4 {dtype} {shape}: max|d|/limit {ratio} > 1 "
-              f"(max|d| {err}, limit {tol})")
-        b, s, h, d = shape
+    def common(q, k, v, out, want, reps):
+        b, s, h, d = q.shape
         flops = 2 * d * s * (s + 1) * b * h   # causal q·kᵀ and p·v
-        bnd, by = bound_ms(nbytes(q, k, v, out), flops, dtype)
+        bnd, by = bound_ms(nbytes(q, k, v, out), flops, q.dtype)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        return {"max_abs_err": err, "tolerance": tol,
-                "max_err_over_limit": ratio,
-                "ms": cuda_ms(lambda: flash_attention_fwd(q, k, v), reps),
+        return {"ms": cuda_ms(lambda: flash_attention_fwd(q, k, v), reps),
                 "plain_ms": cuda_ms(
                     lambda: flash_attention_fwd_plain(q, k, v), 3),
                 "bound_ms": bnd, "bound_by": by,
                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True), reps),
                 "library_max_abs_diff": max_abs(lib.transpose(1, 2), want),
-                "shape": list(shape), "dtype": str(dtype)}
+                "gflop": flops / 1e9, "shape": list(q.shape),
+                "dtype": str(q.dtype)}
 
     # the prefill's shape (B=4, S=2048, 16 heads after the GQA repeat)
-    row = measure((4, 2048, 16, 128), torch.bfloat16, 10)
-    f32 = measure((1, 1024, 16, 128), torch.float32, 5)
+    shape = (4, 2048, 16, 128)
+    q, k, v = qkv(shape, torch.bfloat16)
+    which = fa.variant(q.dtype, shape[3])
+    check(which == "sm90_wgmma", f"the prefill shape takes {which}")
+    out = flash_attention_fwd(q, k, v, causal=True)
+    again = flash_attention_fwd(q, k, v, causal=True)
+    sync()
+    check(torch.equal(out, again), "K4 wgmma: two launches differ")
+    ref = flash_attention_fwd_plain(q.float(), k.float(), v.float())
+    base = flash_attention_fwd_plain(q, k, v, round_p=True)
+    rule = attention_error_ratios(out, ref, base)
+    check(rule["ok"], f"K4 wgmma {shape}: error ratios {rule}")
+    row = common(q, k, v, out, ref, 20)
     row.update(name="flash_attention_fwd", launches=launches,
+               launches_by_variant=by_variant, variant=which,
+               max_abs_err=rule["max_abs_err"],
+               tolerance="max|got-ref| <= 2*max|base-ref| + 1e-6 and "
+                         "mean|got-ref| <= 2*mean|base-ref| (ref: plain f32,"
+                         " base: plain with p rounded to bf16)",
+               error_ratios=rule, target_ms=0.6,
                library="scaled_dot_product_attention(is_causal=True) on "
-                       "(B, H, S, D) views",
-               f32=f32)
+                       "(B, H, S, D) views")
+    row["meets_target"] = row["ms"] <= row["target_ms"]
+    # the CUDA-core kernel at the same bf16 shape: the time before this PR
+    cc = fa.launch("cuda_core", q, k, v, causal=True)
+    want = flash_attention_fwd_plain(q, k, v)
+    cc_ratio = one_ulp_ratio(cc, want)
+    check(cc_ratio <= 1.0, f"K4 cuda_core bf16 {shape}: max|d|/limit "
+          f"{cc_ratio} > 1")
+    row["cuda_core_bf16"] = {
+        "ms": cuda_ms(lambda: fa.launch("cuda_core", q, k, v), 5),
+        "max_abs_err": max_abs(cc, want), "max_err_over_limit": cc_ratio,
+        "tolerance": f"{BF16_ULP}*|want| + 1e-6 per element"}
+    del q, k, v, out, again, ref, base, cc, want
+
+    f32_shape = (1, 1024, 16, 128)
+    q, k, v = qkv(f32_shape, torch.float32)
+    out = flash_attention_fwd(q, k, v, causal=True)
+    want = flash_attention_fwd_plain(q, k, v)
+    err = max_abs(out, want)
+    check(err <= 2e-5, f"K4 float32 {f32_shape}: max|d| {err} > 2e-5")
+    f32 = common(q, k, v, out, want, 5)
+    f32.update(variant=fa.variant(q.dtype, f32_shape[3]), max_abs_err=err,
+               tolerance=2e-5)
+    row["f32"] = f32
     return row
 
 
@@ -467,6 +511,7 @@ def kernel_k2(g22, launches):
     from repro_torch.core import engine
     from repro_torch.kernels.segment_sum import (segment_sum_chunked,
                                                  segment_sum_chunked_plain)
+    from repro_torch.kernels import segment_sum as ss
     ex = engine.get_exec(g22.plan(), "pallas")
     lids, blk, nb = ex.p_lids, ex.p_blk, ex.nb_in
     dev = lids.device
@@ -475,11 +520,42 @@ def kernel_k2(g22, launches):
     vals = torch.zeros(lids.shape, dtype=torch.float32, device=dev)
     vals.view(-1)[ex.p_pos] = ev
     y = segment_sum_chunked(vals, lids, blk, nb)
+    y_again = segment_sum_chunked(vals, lids, blk, nb)
     y_plain = segment_sum_chunked_plain(vals, lids, blk, nb)
+    check(torch.equal(y, y_again), "K2: two launches differ")
     err = max_abs(y, y_plain)
     tol = 1e-5 * max(1.0, float(y_plain.abs().max()))
     check(err <= tol, f"K2: {err} > {tol}")
-    ms = cuda_ms(lambda: segment_sum_chunked(vals, lids, blk, nb), 10)
+    block_start = torch.searchsorted(
+        blk, torch.arange(nb + 1, dtype=torch.int32, device=dev))
+    longest = int((block_start[1:] - block_start[:-1]).max())
+    pieces = int(ss.piece_table(block_start.to(torch.int32),
+                                ss.PIECE_CHUNKS)[-1])
+    sweep = {}   # piece size -> ms: how PIECE_CHUNKS was chosen
+    for piece in (4, 8, 16, 32, 64):
+        yp = ss.launch(vals, lids, blk, nb, piece)
+        check(max_abs(yp, y_plain) <= tol, f"K2 piece {piece}: differs")
+        sweep[piece] = cuda_ms(lambda: ss.launch(vals, lids, blk, nb, piece),
+                               10)
+    ms = cuda_ms(lambda: segment_sum_chunked(vals, lids, blk, nb), 20)
+    # the C entry point alone (its four kernels), the wrapper's
+    # allocations and checks left out
+    from repro_torch.kernels import _build
+    tables = torch.empty((2 * (nb + 1),), dtype=torch.int32, device=dev)
+    max_pieces = nb + -(-vals.shape[0] // ss.PIECE_CHUNKS)
+    part = torch.empty((max_pieces, 128), device=dev)
+    y_k = torch.empty_like(y)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernel_ms = cuda_ms(lambda: _build.launch(
+        "segment_sum_chunked", vals.data_ptr(), lids.data_ptr(),
+        blk.data_ptr(), tables.data_ptr(), part.data_ptr(), y_k.data_ptr(),
+        vals.shape[0], nb, vals.shape[1], ss.PIECE_CHUNKS, max_pieces,
+        stream), 20)
+    check(torch.equal(y_k, y), "K2 kernels alone differ from the wrapper")
+    bs32 = block_start.to(torch.int32)
+    check(torch.equal(tables[:nb + 1], bs32) and torch.equal(
+        tables[nb + 1:], ss.piece_table(bs32, ss.PIECE_CHUNKS)),
+        "K2's device-built tables differ from piece_table")
     plain_ms = cuda_ms(lambda: segment_sum_chunked_plain(vals, lids, blk, nb), 3)
     keep = lids < 128
     gid = (blk.long()[:, None] * 128 + lids.long())[keep]
@@ -493,6 +569,10 @@ def kernel_k2(g22, launches):
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib_ms,
             "library": "index_add_ over precomputed global ids (includes a zero_)",
+            "bit_equal_twice": True, "piece_chunks": ss.PIECE_CHUNKS,
+            "pieces": pieces, "longest_block_run_chunks": longest,
+            "piece_sweep_ms": sweep, "kernels_only_ms": kernel_ms,
+            "faster_than_library": ms < lib_ms,
             "shape": {"chunks": list(vals.shape), "n_out_blocks": nb}}
 
 
@@ -559,7 +639,8 @@ def main() -> int:
     g22 = phase_pagerank_scale(dev, 22)
     g14, u14 = phase_bsr(dev, 14)
     path = {k.__name__: k.launches for k in kernels[:3]}
-    path["flash_attention_fwd"] = phase_serve(dev, kernels, args.profile)
+    path["flash_attention_fwd"], k4_variants = phase_serve(dev, kernels,
+                                                            args.profile)
     for name, n in path.items():
         check(n > 0, f"kernel {name} never launched on the main path")
     torch.cuda.empty_cache()
@@ -568,7 +649,7 @@ def main() -> int:
     rows = [kernel_k1(g14, path["bsr_spmv"]),
             kernel_k2(g22, path["segment_sum_chunked"]),
             kernel_k3(u14, path["bsr_tricount"]),
-            kernel_k4(path["flash_attention_fwd"])]
+            kernel_k4(path["flash_attention_fwd"], k4_variants)]
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]])

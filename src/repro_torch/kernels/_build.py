@@ -35,13 +35,16 @@ SIGNATURES = {
     # tiles, row_start, cols, x, y, n_row_blocks, block, stream
     "bsr_spmv_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
     "bsr_spmv_bf16": [_P, _P, _P, _P, _P, _I, _I, _P],
-    # vals, local_ids, block_start, out, n_out_blocks, chunk, stream
-    "segment_sum_chunked": [_P, _P, _P, _P, _I, _I, _P],
+    # vals, local_ids, chunk_block, tables, partial, out, n_chunks,
+    # n_out_blocks, chunk, piece, max_pieces, stream
+    "segment_sum_chunked": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # tiles, t_ij, t_ik, t_kj, out, n_triples, block, stream
     "bsr_tricount": [_P, _P, _P, _P, _P, _I, _I, _P],
     # q, k, v, out, B, Sq, Sk, H, D, causal, stream
     "flash_attention_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "flash_attention_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "flash_attention_fwd_bf16_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

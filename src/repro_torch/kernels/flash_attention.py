@@ -1,11 +1,19 @@
 """Flash-attention forward: prefill and full-sequence attention, kernel K4.
 
-Counterpart of ``repro/kernels/flash_attention.py``.  ``csrc/
-flash_attention.cu`` runs one CTA per (64-row query tile, batch·head) and
-walks the key tiles up to the diagonal with an online softmax, staging K
-and V in shared memory (see the note at the top of that file).  It
-replaces the reference's pure-XLA chunked attention on the model's path
-(``models/attention.flash_attention``).
+Counterpart of ``repro/kernels/flash_attention.py``.  Two kernels, chosen
+by dtype and head dim (``variant``):
+
+- ``"sm90_wgmma"`` (``csrc/flash_attention_sm90.cu``) for bfloat16 with
+  D in {64, 128}: TMA-fed tiles, ``wgmma`` on the tensor cores, one CTA per
+  (128-row query tile, batch·head) with two consumer warpgroups and a
+  producer warp.  p is rounded to bf16 before p·v, as every tensor-core
+  flash kernel and the reference's model attention do.
+- ``"cuda_core"`` (``csrc/flash_attention.cu``) for float32, and for
+  D in {8, 16, 32}: float32 FMAs, p kept in float32.
+
+Each walks the key tiles up to the diagonal with an online softmax (see
+the notes at the top of the sources).  K4 replaces the reference's pure-XLA
+chunked attention on the model's path (``models/attention.flash_attention``).
 
 The chunk arguments keep the reference's signature.  The kernel's tiles are
 fixed; ``q_chunk`` only sets how many query rows the plain version scores at
@@ -18,13 +26,18 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_fwd", "flash_attention_fwd_plain", "HEAD_DIMS"]
+__all__ = ["flash_attention_fwd", "flash_attention_fwd_plain", "HEAD_DIMS",
+           "SM90_HEAD_DIMS", "VARIANTS", "variant", "launch",
+           "attention_error_ratios"]
 
-HEAD_DIMS = (8, 16, 32, 64, 128)   # head dims the kernel is built for
+HEAD_DIMS = (8, 16, 32, 64, 128)   # head dims the kernels are built for
+SM90_HEAD_DIMS = (64, 128)         # head dims of the wgmma kernel (bf16)
+VARIANTS = ("sm90_wgmma", "cuda_core")
 NEG_INF = -1e30
-_ENTRY = {torch.float32: "flash_attention_fwd_f32",
-          torch.bfloat16: "flash_attention_fwd_bf16"}
-_BQ = 64                           # the kernel's query rows per CTA
+_ENTRY = {("cuda_core", torch.float32): "flash_attention_fwd_f32",
+          ("cuda_core", torch.bfloat16): "flash_attention_fwd_bf16",
+          ("sm90_wgmma", torch.bfloat16): "flash_attention_fwd_bf16_sm90"}
+_BQ = {"cuda_core": 64, "sm90_wgmma": 128}   # query rows per CTA
 _MAX_GRID_Y = 65535
 
 
@@ -33,7 +46,7 @@ def _check(q, k, v):
         if t.dim() != 4:
             raise ValueError(f"{name} must be (B, S, H, D), got "
                              f"{tuple(t.shape)}")
-        if t.dtype not in _ENTRY:
+        if t.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"{name} must be float32 or bfloat16, got "
                              f"{t.dtype}")
     b, _, h, d = q.shape
@@ -59,46 +72,83 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel a CUDA call takes: the wgmma kernel for bf16 with
+    D in ``SM90_HEAD_DIMS``, the CUDA-core kernel otherwise."""
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "sm90_wgmma"
+    return "cuda_core"
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, q_chunk: int = 512,
                         k_chunk: int = 512) -> torch.Tensor:
     """q, k, v: (B, S, H, D) with equal head counts (repeat GQA first).
 
-    Returns (B, Sq, H, D) in q's dtype; products, softmax and p·v in
-    float32.  The causal mask is ``qpos >= kpos`` by absolute index.  A
-    CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-    plain version.
+    Returns (B, Sq, H, D) in q's dtype; products, softmax and the
+    denominator in float32, p·v accumulated in float32 from p rounded to
+    bf16 on the ``"sm90_wgmma"`` variant and from float32 p otherwise.  The
+    causal mask is ``qpos >= kpos`` by absolute index.  A CUDA tensor
+    launches the kernel of ``variant(dtype, D)`` (or raises); a CPU tensor
+    takes the plain version.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, q_chunk, k_chunk)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if (sq + _BQ - 1) // _BQ > _MAX_GRID_Y or b * h >= 2 ** 31:
-        raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
-    q, k, v = (_aligned(t) for t in (q, k, v))
-    out = torch.empty_like(q)
-    _build.launch(_ENTRY[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), b, sq, sk, h, d, int(bool(causal)),
-                  torch.cuda.current_stream(q.device).cuda_stream)
-    flash_attention_fwd.launches += 1
-    return out
+    return _launch(variant(q.dtype, q.shape[3]), q, k, v, causal)
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+def launch(which: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool = True) -> torch.Tensor:
+    """Launch one variant's kernel on CUDA tensors and count the launch in
+    ``flash_attention_fwd.launches`` and its ``launches_by_variant``.  The
+    wrapper calls it with ``variant(dtype, D)``; ``chip_smoke.py`` also
+    times the CUDA-core kernel at a bf16 shape the wrapper sends to wgmma."""
+    _check(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    return _launch(which, q, k, v, causal)
+
+
+def _launch(which, q, k, v, causal):
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    heads = SM90_HEAD_DIMS if which == "sm90_wgmma" else HEAD_DIMS
+    if (which, q.dtype) not in _ENTRY:
+        raise ValueError(f"variant {which!r} takes no {q.dtype}")
+    if d not in heads:
+        raise ValueError(f"head dim {d} not in {heads}")
+    if (sq + _BQ[which] - 1) // _BQ[which] > _MAX_GRID_Y or b * h >= 2 ** 31:
+        raise ValueError(f"shape {tuple(q.shape)} exceeds the kernel's grid")
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    out = torch.empty_like(q)
+    _build.launch(_ENTRY[which, q.dtype], q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), b, sq, sk, h, d,
+                  int(bool(causal)),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_variant[which] += 1
+    return out
 
 
 def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, causal: bool = True,
-                              q_chunk: int = 512,
-                              k_chunk: int = 512) -> torch.Tensor:
+                              q_chunk: int = 512, k_chunk: int = 512,
+                              round_p: bool = False) -> torch.Tensor:
     """Plain K4: softmax(q·kᵀ·scale + mask)·v in float32, ``q_chunk`` query
     rows at a time (their (B, H, q_chunk, Sk) score block is the largest
-    buffer); the result is cast to q's dtype."""
+    buffer); the result is cast to q's dtype.
+
+    ``round_p=True`` follows the wgmma kernel's rounding: p = exp(s - max)
+    in float32 is rounded to v's dtype before p·v, and the float32 sum of
+    the unrounded p divides the product.  In float32 it rounds nothing.
+    """
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = 1.0 / (d ** 0.5)
@@ -114,5 +164,41 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
         if causal:
             qpos = torch.arange(q0, q1, device=q.device)
             s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
-        out[:, :, q0:q1] = torch.matmul(torch.softmax(s, dim=-1), vf)
+        if round_p:
+            p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+            pv = torch.matmul(p.to(v.dtype).float(), vf)
+            out[:, :, q0:q1] = pv / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        else:
+            out[:, :, q0:q1] = torch.matmul(torch.softmax(s, dim=-1), vf)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def attention_error_ratios(got: torch.Tensor, ref: torch.Tensor,
+                           base: torch.Tensor) -> dict:
+    """The wgmma variant's accuracy rule, in float64.
+
+    ``ref``: the plain version in float32 from the same bf16 inputs, not
+    rounded (``flash_attention_fwd_plain(q.float(), k.float(), v.float())``);
+    ``base``: the plain version with ``round_p=True`` in bf16.  ``got``
+    passes when max|got − ref| ≤ 2·max|base − ref| + 1e-6 and
+    mean|got − ref| ≤ 2·mean|base − ref|; each ratio is the error over its
+    limit, so both ≤ 1 pass.  The kernel rounds p against the running max,
+    not the row's, so it cannot match ``base`` bit for bit; the factor 2
+    leaves room for that and nothing more.
+    """
+    r = ref.double()
+    d_got = (got.double() - r).abs()
+    d_base = (base.double() - r).abs()
+    max_limit = 2.0 * float(d_base.max()) + 1e-6
+    mean_got, mean_base = float(d_got.mean()), float(d_base.mean())
+    if mean_base > 0:
+        mean_ratio = mean_got / (2.0 * mean_base)
+    else:
+        mean_ratio = 0.0 if mean_got == 0 else float("inf")
+    out = {"max_abs_err": float(d_got.max()),
+           "base_max_abs_err": float(d_base.max()),
+           "mean_abs_err": mean_got, "base_mean_abs_err": mean_base,
+           "max_ratio": float(d_got.max()) / max_limit,
+           "mean_ratio": mean_ratio}
+    out["ok"] = out["max_ratio"] <= 1.0 and out["mean_ratio"] <= 1.0
+    return out

@@ -2,8 +2,12 @@
 
 Counterpart of ``repro/kernels/segment_sum.py``.  The reference's TPU kernel
 turns each chunk of sorted entries into a one-hot matrix product on the MXU;
-here ``csrc/segment_sum.cu`` sums each 128-wide output block's chunks in one
-CTA without float atomics (see the note at the top of that file).
+here ``csrc/segment_sum.cu`` reduces each chunk with one warp (a segmented
+scan over the sorted ids) and splits a block's run of chunks into pieces of
+at most ``PIECE_CHUNKS`` chunks, one CTA each, whose partials a second pass
+adds in order, with no float atomics (see the note at the top of that
+file).  The kernel builds its piece table on the device, with no host
+sync; ``piece_table`` is the plain version of that table.
 
 ``chunk_layout`` is the reference's host-side chunking, copied as numpy: the
 plan computes it once per graph and every reduction scatters fresh values
@@ -12,21 +16,23 @@ into it.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["chunk_layout", "segment_sum_chunked", "segment_sum_chunked_plain",
-           "DEFAULT_CHUNK", "DEFAULT_BLOCK"]
+__all__ = ["chunk_layout", "piece_table", "launch", "segment_sum_chunked",
+           "segment_sum_chunked_plain", "DEFAULT_CHUNK", "DEFAULT_BLOCK",
+           "PIECE_CHUNKS"]
 
 DEFAULT_CHUNK = 512
 DEFAULT_BLOCK = 128
-# one chunk's values and ids (8 bytes a slot) must fit the 48 KiB of shared
-# memory a CTA gets without opting in to more
-_MAX_CHUNK = 48 * 1024 // 8
+# most chunks one CTA of the kernel sums; a block with more is split (16
+# was the fastest of 4-64 on the H100 at RMAT scale 22: chip_smoke.py's
+# piece sweep)
+PIECE_CHUNKS = 16
 
 
 def chunk_layout(seg_ids: np.ndarray, n_segments: int,
@@ -63,6 +69,31 @@ def chunk_layout(seg_ids: np.ndarray, n_segments: int,
     return entry_chunk, entry_slot, local_ids, chunk_block, nb, total
 
 
+def piece_table(block_start: torch.Tensor, piece: int) -> torch.Tensor:
+    """(nb + 1,) int32 exclusive scan of each block's piece count.
+
+    Block b owns chunks ``block_start[b]:block_start[b + 1]``; it gets
+    ``max(ceil(n_b / piece), 1)`` pieces (a block with no chunk still gets
+    one, which writes zeros), and piece k of it covers chunks
+    ``block_start[b] + k * piece`` up to ``piece`` further.  The plain
+    version of the table the kernel builds on the device (pass 0 of
+    ``csrc/segment_sum.cu``).
+    """
+    if piece < 1:
+        raise ValueError("piece must be >= 1")
+    n = (block_start[1:] - block_start[:-1]).to(torch.int64)
+    counts = torch.clamp((n + piece - 1) // piece, min=1)
+    off = torch.zeros(block_start.shape, dtype=torch.int64,
+                      device=block_start.device)
+    torch.cumsum(counts, 0, out=off[1:])
+    return off.to(torch.int32)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """The kernel reads 16-byte vectors from each chunk's start."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check(vals, local_ids, chunk_block, n_out_blocks):
     if vals.dim() != 2 or vals.dtype != torch.float32:
         raise ValueError(f"vals must be (C, L) float32, got "
@@ -96,23 +127,50 @@ def segment_sum_chunked(vals: torch.Tensor, local_ids: torch.Tensor,
                                          n_out_blocks)
     if vals.device.type != "cuda":
         raise ValueError(f"no kernel for device {vals.device}")
-    c, l = vals.shape
-    if l > _MAX_CHUNK:
-        raise ValueError(f"chunk length {l} exceeds {_MAX_CHUNK}")
-    dev = vals.device
-    block_start = torch.searchsorted(
-        chunk_block, torch.arange(n_out_blocks + 1, dtype=torch.int32,
-                                  device=dev)).to(torch.int32)
-    out = torch.empty((n_out_blocks, DEFAULT_BLOCK), dtype=torch.float32,
-                      device=dev)
-    _build.launch("segment_sum_chunked", vals.data_ptr(), local_ids.data_ptr(),
-                  block_start.data_ptr(), out.data_ptr(), n_out_blocks, l,
-                  torch.cuda.current_stream(dev).cuda_stream)
-    segment_sum_chunked.launches += 1
-    return out
+    return _launch(vals, local_ids, chunk_block, n_out_blocks, PIECE_CHUNKS,
+                   None)
 
 
 segment_sum_chunked.launches = 0
+
+
+def launch(vals: torch.Tensor, local_ids: torch.Tensor,
+           chunk_block: torch.Tensor, n_out_blocks: int, piece: int,
+           tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """All passes of the kernel on CUDA tensors, at most ``piece`` chunks a
+    CTA; counts one launch.  The wrapper passes ``PIECE_CHUNKS``;
+    ``chip_smoke.py`` also times other piece sizes.  ``tables``, if given,
+    is a (2 * (n_out_blocks + 1),) int32 CUDA tensor that receives the
+    device-built ``block_start`` and ``piece_table(block_start, piece)``."""
+    _check(vals, local_ids, chunk_block, n_out_blocks)
+    if vals.device.type != "cuda":
+        raise ValueError(f"no kernel for device {vals.device}")
+    return _launch(vals, local_ids, chunk_block, n_out_blocks, piece, tables)
+
+
+def _launch(vals, local_ids, chunk_block, n_out_blocks, piece, tables):
+    c, l = vals.shape
+    dev = vals.device
+    if tables is None:
+        tables = torch.empty((2 * (n_out_blocks + 1),), dtype=torch.int32,
+                             device=dev)
+    elif (tables.shape != (2 * (n_out_blocks + 1),)
+          or tables.dtype != torch.int32 or tables.device != dev):
+        raise ValueError("tables must be (2 * (n_out_blocks + 1),) int32")
+    # sum over blocks of max(ceil(n_b / piece), 1) <= nb + ceil(C / piece)
+    max_pieces = n_out_blocks + (c + piece - 1) // piece
+    partial = torch.empty((max_pieces, DEFAULT_BLOCK), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((n_out_blocks, DEFAULT_BLOCK), dtype=torch.float32,
+                      device=dev)
+    vals, local_ids = _aligned(vals), _aligned(local_ids)
+    _build.launch("segment_sum_chunked", vals.data_ptr(), local_ids.data_ptr(),
+                  chunk_block.data_ptr(), tables.data_ptr(),
+                  partial.data_ptr(), out.data_ptr(), c, n_out_blocks, l,
+                  piece, max_pieces,
+                  torch.cuda.current_stream(dev).cuda_stream)
+    segment_sum_chunked.launches += 1
+    return out
 
 
 def segment_sum_chunked_plain(vals: torch.Tensor, local_ids: torch.Tensor,

@@ -22,7 +22,8 @@ from repro.kernels.segment_sum import segment_sum_chunked as r_segsum
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_plain
 from repro_torch.kernels.bsr_tricount import bsr_tricount
-from repro_torch.kernels.segment_sum import (chunk_layout, segment_sum_chunked,
+from repro_torch.kernels.segment_sum import (chunk_layout, piece_table,
+                                             segment_sum_chunked,
                                              segment_sum_chunked_plain)
 
 torch.set_num_threads(2)
@@ -119,6 +120,38 @@ def test_segment_sum_sorted_sweep(rng, e, n_seg, chunk):
     for a, b in zip(chunk_layout(seg, n_seg, chunk),
                     r_chunk_layout(seg, n_seg, chunk)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("piece", [1, 4, 16, 64])
+def test_piece_table_matches_numpy(rng, piece):
+    # a chunk layout with a hub block, empty-looking runs and single chunks
+    seg = np.sort(np.concatenate([rng.integers(0, 2000, 6000),
+                                  np.full(40000, 517)]))
+    _, _, lids, cblk, nb, total = chunk_layout(seg, 2000, 64)
+    blk = torch.from_numpy(cblk)
+    block_start = torch.searchsorted(
+        blk, torch.arange(nb + 1, dtype=torch.int32)).to(torch.int32)
+    got = piece_table(block_start, piece)
+    runs = np.diff(np.searchsorted(cblk, np.arange(nb + 1)))
+    want = np.concatenate([[0], np.cumsum(np.maximum(-(-runs // piece), 1))])
+    assert got.dtype == torch.int32 and got.shape == (nb + 1,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # pieces tile every block's chunks: block, first chunk, chunk count
+    cover = np.zeros(total, np.int64)
+    for b_ in range(nb):
+        for k_ in range(want[b_ + 1] - want[b_]):
+            c0 = block_start[b_].item() + k_ * piece
+            c1 = min(block_start[b_ + 1].item(), c0 + piece)
+            cover[c0:c1] += 1
+    assert (cover == 1).all()
+    assert runs.max() >= 625          # the hub: 40,000 entries / 64
+    # the wrapper's grid bound holds
+    assert want[-1] <= nb + -(-total // piece)
+
+
+def test_piece_table_gives_an_empty_block_one_piece():
+    got = piece_table(torch.tensor([0, 3, 3, 40, 41], dtype=torch.int32), 16)
+    assert got.tolist() == [0, 1, 2, 5, 6]
 
 
 @pytest.mark.parametrize("n,b", [(64, 8), (300, 16), (260, 128)])

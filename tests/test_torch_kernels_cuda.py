@@ -16,7 +16,9 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_plain
 from repro_torch.kernels.bsr_tricount import bsr_tricount, bsr_tricount_plain
-from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.flash_attention import (attention_error_ratios,
+                                                 flash_attention_fwd,
                                                  flash_attention_fwd_plain)
 from repro_torch.kernels.segment_sum import (chunk_layout, segment_sum_chunked,
                                              segment_sum_chunked_plain)
@@ -101,6 +103,75 @@ def test_segment_sum_kernel_unsorted_ids(dev, c, l, nb):
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("piece", [1, 16, 64])
+def test_segment_sum_kernel_hub_block_bit_equal(dev, piece):
+    # one hub block of >= 2,000 chunks among small ones, as RMAT makes them
+    rng = np.random.default_rng(piece)
+    seg = np.sort(np.concatenate([rng.integers(0, 5000, 20000),
+                                  np.full(2000 * 512, 1234)]))
+    vals = rng.random(seg.shape[0]).astype(np.float32)
+    ec, es, lids, cblk, nb, total = chunk_layout(seg, 5000, 512)
+    assert np.bincount(cblk).max() >= 2000
+    cv = np.zeros(lids.shape, np.float32)
+    cv[ec, es] = vals
+    cv, lids, cblk = _t(cv, dev), _t(lids, dev), _t(cblk, dev)
+    from repro_torch.kernels import segment_sum as ss
+    before = segment_sum_chunked.launches
+    tables = torch.zeros((2 * (nb + 1),), dtype=torch.int32, device=dev)
+    a = ss.launch(cv, lids, cblk, nb, piece, tables=tables)
+    b_ = ss.launch(cv, lids, cblk, nb, piece)
+    torch.cuda.synchronize()
+    assert segment_sum_chunked.launches == before + 2
+    assert torch.equal(a, b_)
+    # the tables built on the device equal the plain piece table
+    block_start = torch.searchsorted(
+        cblk, torch.arange(nb + 1, dtype=torch.int32, device=dev)
+    ).to(torch.int32)
+    assert torch.equal(tables[:nb + 1], block_start)
+    assert torch.equal(tables[nb + 1:], ss.piece_table(block_start, piece))
+    want = segment_sum_chunked_plain(cv, lids, cblk, nb)
+    tol = 1e-5 * float(want.abs().max())
+    assert float((a - want).abs().max()) <= tol
+    exact = np.zeros(nb * 128, np.float64)
+    np.add.at(exact, seg, vals.astype(np.float64))
+    assert np.abs(a.reshape(-1).cpu().numpy() - exact).max() <= tol
+
+
+def test_segment_sum_kernel_blocks_without_chunks(dev):
+    # chunk_block skips blocks 0, 2 and 5: their sums are 0, as in the plain
+    rng = np.random.default_rng(4)
+    blk = _t(np.asarray([1, 1, 3, 4, 4, 4], np.int32), dev)
+    lids = _t(np.sort(rng.integers(0, 129, size=(6, 64)), axis=1
+                      ).astype(np.int32), dev)
+    cv = _t(rng.normal(size=(6, 64)).astype(np.float32), dev)
+    got = segment_sum_chunked(cv, lids, blk, 6)
+    want = segment_sum_chunked_plain(cv, lids, blk, 6)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    assert not got[[0, 2, 5]].any()
+
+
+def test_segment_sum_kernel_long_and_odd_chunks(dev):
+    # chunks longer than a warp's 512-slot span, and lengths not a
+    # multiple of 16 (scalar loads), sorted and not
+    rng = np.random.default_rng(9)
+    for l in (1500, 37):
+        seg = np.sort(rng.integers(0, 600, 20000))
+        vals = rng.normal(size=20000).astype(np.float32)
+        got = ops.segment_sum_sorted(_t(vals, dev), seg, 600, chunk=l)
+        want = np.zeros(600, np.float64)
+        np.add.at(want, seg, vals)
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-5,
+                                   atol=1e-4)
+        lids = _t(rng.integers(0, 129, size=(9, l)).astype(np.int32), dev)
+        cv = _t(rng.normal(size=(9, l)).astype(np.float32), dev)
+        blk = _t(np.asarray([0, 0, 1, 1, 1, 2, 2, 3, 3], np.int32), dev)
+        np.testing.assert_allclose(
+            segment_sum_chunked(cv, lids, blk, 4).cpu().numpy(),
+            segment_sum_chunked_plain(cv, lids, blk, 4).cpu().numpy(),
+            rtol=1e-5, atol=1e-4)
+
+
 def test_segment_sum_kernel_sorted_layout(dev):
     rng = np.random.default_rng(7)
     seg = np.sort(rng.integers(0, 700, 5000))
@@ -135,9 +206,18 @@ def test_bsr_tricount_kernel_exact(dev, n, b):
     assert int(got) % 6 == 0
 
 
+def _assert_one_bf16_ulp(got, want):
+    # both sides round the same float32 sums to bf16 once, so each element
+    # is within one bf16 ulp (2^-7 of its value) of the other
+    err = (got.double() - want.double()).abs()
+    ratio = float((err / (2.0 ** -7 * want.double().abs() + 1e-6)).max())
+    assert ratio <= 1.0, (ratio, float(err.max()))
+
+
 @pytest.mark.parametrize("b,sq,sk,h,d", [(2, 64, 64, 3, 16), (1, 100, 100, 2, 32),
                                          (2, 96, 96, 1, 8), (1, 77, 130, 2, 64),
-                                         (1, 130, 77, 2, 64), (2, 200, 200, 2, 128)])
+                                         (1, 130, 77, 2, 64), (2, 200, 200, 2, 128),
+                                         (1, 2048, 2048, 2, 128)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(dev, b, sq, sk, h, d, causal,
@@ -145,20 +225,52 @@ def test_flash_attention_kernel_matches_plain(dev, b, sq, sk, h, d, causal,
     rng = np.random.default_rng(sq * 1000 + sk + d)
     q, k, v = (_t(rng.normal(size=(b, s, h, d)).astype(np.float32),
                   dev).to(dtype) for s in (sq, sk, sk))
+    which = fa.variant(dtype, d)
     before = flash_attention_fwd.launches
+    by_variant = dict(flash_attention_fwd.launches_by_variant)
     got = flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention_fwd.launches == before + 1
+    assert flash_attention_fwd.launches_by_variant[which] == \
+        by_variant[which] + 1
     assert got.dtype == dtype and got.shape == q.shape
-    want = flash_attention_fwd_plain(q, k, v, causal=causal).double()
-    err = (got.double() - want).abs()
     if dtype == torch.float32:   # the reference kernel's tolerance
-        assert float(err.max()) <= 2e-5, float(err.max())
-    else:
-        # both sides round the same float32 sums to bf16 once, so each
-        # element is within one bf16 ulp (2^-7 of its value) of the other
-        ratio = float((err / (2.0 ** -7 * want.abs() + 1e-6)).max())
-        assert ratio <= 1.0, (ratio, float(err.max()))
+        want = flash_attention_fwd_plain(q, k, v, causal=causal).double()
+        assert float((got.double() - want).abs().max()) <= 2e-5
+    elif which == "cuda_core":   # D <= 32: p kept in float32, as the plain
+        _assert_one_bf16_ulp(got, flash_attention_fwd_plain(q, k, v,
+                                                            causal=causal))
+    else:   # wgmma: p rounds to bf16 against the running max
+        assert which == "sm90_wgmma"
+        ref = flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                        causal=causal)
+        base = flash_attention_fwd_plain(q, k, v, causal=causal, round_p=True)
+        r = attention_error_ratios(got, ref, base)
+        assert r["ok"], r
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [(1, 77, 130, 2, 64),
+                                         (2, 200, 200, 2, 128)])
+def test_flash_attention_cuda_core_variant_bf16_one_ulp(dev, b, sq, sk, h, d):
+    # the CUDA-core kernel at head dims the wrapper sends to wgmma in bf16
+    rng = np.random.default_rng(sq + d)
+    q, k, v = (_t(rng.normal(size=(b, s, h, d)).astype(np.float32),
+                  dev).to(torch.bfloat16) for s in (sq, sk, sk))
+    got = fa.launch("cuda_core", q, k, v, causal=True)
+    _assert_one_bf16_ulp(got, flash_attention_fwd_plain(q, k, v))
+
+
+def test_flash_attention_wgmma_is_deterministic_and_strided(dev):
+    rng = np.random.default_rng(5)
+    x = _t(rng.normal(size=(2, 3, 300, 4, 128)).astype(np.float32),
+           dev).to(torch.bfloat16)
+    q, k, v = x[:, 0], x[:, 1], x[:, 2]      # views, not contiguous
+    a = flash_attention_fwd(q, k, v)
+    b_ = flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(a, b_)
+    ref = flash_attention_fwd_plain(q.float(), k.float(), v.float())
+    base = flash_attention_fwd_plain(q, k, v, round_p=True)
+    assert attention_error_ratios(a, ref, base)["ok"]
 
 
 def test_flash_attention_kernel_rejects_head_dim(dev):
