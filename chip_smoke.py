@@ -19,7 +19,11 @@ Phases (each prints one JSON line with its seconds):
    the reference's ceiling for the BSR layout.  PageRank and HITS on "bsr"
    against "xla" as in phase 2, PageRank against a float64 numpy power
    iteration, ``triangle_count(u, backend="bsr")`` equal to the oriented
-   intersection exactly, and ``connected_components`` against scipy.
+   intersection exactly, with its one K3 launch through ``"sm90_wgmma"``,
+   and ``connected_components`` against scipy.  K1 must launch 69 times
+   (``K1_PATH_LAUNCHES``).  With ``--profile``, one more 10-round "bsr"
+   PageRank runs under ``torch.profiler``: its device-busy share and K1's
+   part of it.
 4. serving, kernel K4: ``qwen2.5-3b`` at full width and depth (36
    layers, d_model 2048) with random weights from a seeded generator,
    behind ``Engine`` with ``ServeConfig(batch=4, max_seq=2080)``: 4 prompts
@@ -30,8 +34,9 @@ Phases (each prints one JSON line with its seconds):
    ``"sm90_wgmma"`` variant, a second ``generate`` must give the
    same tokens, and ``decode_step`` after ``prefill`` must agree with
    ``forward``'s last position (batch 2, S = 256) within 5e-2 of the
-   largest logit.  One more prefill and one decode step run under
-   ``torch.profiler``: their device-busy share and K4's part of it.
+   largest logit.  With ``--profile``, one more prefill and one decode
+   step run under ``torch.profiler``: their device-busy share and K4's
+   part of it.
 5. every kernel against its plain PyTorch version at the shapes phases 2-4
    gave it, with its time, the plain version's, a library call's where one
    computes the same function, and the card's lower bound.  Printed as one
@@ -42,7 +47,16 @@ Phases (each prints one JSON line with its seconds):
    the same shape (the "before" time) must match its plain version within
    one bf16 ulp per element (``|got - want| <= 2^-7·|want| + 1e-6``), and
    in float32 within 2e-5.  K2 must give the same bits twice; its row
-   also times other piece sizes.
+   also times other piece sizes.  K1 must give the same bits twice, beat
+   ``torch.sparse_bsr_tensor @ x`` and equal its device-built tables'
+   plain versions; its row times piece sizes 2-32 and its C entry point
+   alone.
+   K3 must equal its plain version exactly on the sorted and on a shuffled
+   triple order, build the plain ``run_table`` on the device, and be at
+   least 8x faster than its ``"wmma"`` variant timed at the same shape;
+   its row also times, as a yardstick only, ``torch.mm`` of the dense
+   fp16 adjacency.  The
+   ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
 path's: each window's counts are zeroed just before it and read just after
@@ -56,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -88,6 +103,9 @@ SOURCES = {
     "bsr_tricount": "src/repro_torch/kernels/csrc/bsr_tricount.cu",
     "flash_attention_fwd": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
 }
+# K1 on phase 3's path: PageRank 10 rounds, 9 rounds to tol, HITS 20
+# rounds (a pull and a push each), the float64 check's 10 rounds
+K1_PATH_LAUNCHES = 69
 SERVE_PROMPTS = (2048, 1536, 1024, 512)   # prompt lengths of phase 4
 SERVE_NEW = 32
 DECODE_TOL = 5e-2   # decode vs forward, relative to the largest logit
@@ -237,10 +255,15 @@ def phase_bsr(dev, scale):
     u = g.to_undirected()
     tri_xla, t_xla = timed(lambda: A.triangle_count(u))
     before = bsr_tricount.launches
+    by_variant = bsr_tricount.launches_by_variant
+    variants_before = dict(by_variant)
     tri_bsr, t_bsr = timed(lambda: A.triangle_count(u, backend="bsr"))
     k3 = bsr_tricount.launches - before
+    k3_variants = {k: by_variant[k] - variants_before[k] for k in by_variant}
     check(tri_bsr == tri_xla, f"triangles bsr {tri_bsr} != xla {tri_xla}")
     check(k3 == 1, f"K3 launched {k3} times for one triangle count")
+    check(k3_variants["sm90_wgmma"] == 1,
+          f"K3's launch on the path took {k3_variants}, not sm90_wgmma")
 
     labels, t_cc = timed(lambda: A.connected_components(g))
     n = g.n_nodes
@@ -260,14 +283,17 @@ def phase_bsr(dev, scale):
           "pagerank_vs_float64_max_abs": err_np,
           "triangles": tri_xla, "seconds_triangles_xla": t_xla,
           "seconds_triangles_bsr": t_bsr, "k3_launches": k3,
+          "k3_launches_by_variant": k3_variants,
           "components": int(len(np.unique(comp))), "seconds_cc": t_cc,
           "seconds": time.perf_counter() - t0})
-    return g, u
+    return g, u, k3_variants
 
 
-def device_busy(fn) -> dict:
+def device_busy(fn, parts) -> dict:
     """Run ``fn`` once under ``torch.profiler``: its synchronised wall
-    seconds, the summed device time of the kernels it ran, and K4's."""
+    seconds, the summed device time of the kernels it ran, and for each
+    ``parts`` key the device seconds of the kernels whose names contain
+    one of its strings."""
     from torch.profiler import ProfilerActivity, profile
     sync()
     with profile(activities=[ProfilerActivity.CPU,
@@ -279,9 +305,23 @@ def device_busy(fn) -> dict:
     ev = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time for e in ev) / 1e6
-    k4 = sum(e.device_time for e in ev if "flash_fwd" in e.name) / 1e6
-    return {"wall_seconds": wall, "kernels": len(ev), "device_seconds": busy,
-            "busy_share": busy / wall, "k4_device_seconds": k4}
+    out = {"wall_seconds": wall, "kernels": len(ev), "device_seconds": busy,
+           "busy_share": busy / wall}
+    for key, names in parts.items():
+        part = sum(e.device_time for e in ev
+                   if any(n in e.name for n in names)) / 1e6
+        out[f"{key}_device_seconds"] = part
+        out[f"{key}_share_of_busy"] = part / busy if busy else 0.0
+    return out
+
+
+def profile_bsr(g14):
+    """Where the time of one 10-round "bsr" PageRank goes: device-busy
+    share and K1's part of the busy time (its kernels and its tables')."""
+    from repro_torch.core import algorithms as A
+    emit({"phase": "profile_bsr", "pagerank_n10": device_busy(
+        lambda: A.pagerank(g14, n_iter=10, backend="bsr"),
+        {"k1": ("bsr_spmv", "piece_")})})
 
 
 def phase_serve(dev, kernels, profile):
@@ -354,11 +394,13 @@ def phase_serve(dev, kernels, profile):
             padded[i, plen - len(p):] = p
         batch = {"tokens": torch.from_numpy(padded).to(dev)}
         held = {}
+        k4 = {"k4": ("flash_fwd",)}
         rec["profile_prefill"] = device_busy(lambda: held.update(zip(
-            ("logits", "cache"), eng.model.prefill(batch, eng.scfg.max_seq))))
+            ("logits", "cache"), eng.model.prefill(batch, eng.scfg.max_seq))),
+            k4)
         cur = torch.argmax(held["logits"][:, -1], dim=-1)[:, None]
         rec["profile_decode_step"] = device_busy(
-            lambda: eng.model.decode_step(held["cache"], cur, plen))
+            lambda: eng.model.decode_step(held["cache"], cur, plen), k4)
     new_tokens = len(prompts) * stats["decode_steps"]
     emit({"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers,
           "d_model": cfg.d_model, "params": n_params,
@@ -463,14 +505,19 @@ def kernel_k4(launches, by_variant):
     return row
 
 
-def kernel_k1(g14, launches):
+def kernel_k1(g14, launches, ptxas):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bsr_spmv as k1
     from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_plain
+    from repro_torch.kernels.pieces import piece_table
     tiles, rows, cols, nb = g14.plan().bsr()
-    b = tiles.shape[1]
-    gen = torch.Generator(device=tiles.device).manual_seed(0)
-    x = torch.rand((nb, b), generator=gen, device=tiles.device)
+    b, nnzb, dev = tiles.shape[1], tiles.shape[0], tiles.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((nb, b), generator=gen, device=dev)
     y = bsr_spmv(tiles, rows, cols, x, nb)
+    y_again = bsr_spmv(tiles, rows, cols, x, nb)
     y_plain = bsr_spmv_plain(tiles, rows, cols, x, nb)
+    check(torch.equal(y, y_again), "K1: two launches differ")
     err = max_abs(y, y_plain)
     tol = 1e-5 * max(1.0, float(y_plain.abs().max()))
     check(err <= tol, f"K1 f32: {err} > {tol}")
@@ -479,13 +526,36 @@ def kernel_k1(g14, launches):
                      bsr_spmv_plain(tiles_bf, rows, cols, x, nb))
     tol_bf = 5e-2 * max(1.0, float(y_plain.abs().max()))
     check(err_bf <= tol_bf, f"K1 bf16: {err_bf} > {tol_bf}")
+    # piece size -> ms: how PIECE_TILES was chosen
+    sweep = {}
+    for piece in (2, 4, 8, 16, 32):
+        yp = k1.launch(tiles, rows, cols, x, nb, piece)
+        check(max_abs(yp, y_plain) <= tol, f"K1 piece {piece}: differs")
+        sweep[piece] = cuda_ms(lambda: k1.launch(
+            tiles, rows, cols, x, nb, piece), 10)
     ms = cuda_ms(lambda: bsr_spmv(tiles, rows, cols, x, nb), 20)
+    # the C entry point alone (its four kernels), the wrapper's
+    # allocations and checks left out
+    tables = torch.empty((2 * (nb + 1),), dtype=torch.int32, device=dev)
+    max_pieces = nb + -(-nnzb // k1.PIECE_TILES)
+    part = torch.empty((max_pieces, b), device=dev)
+    y_k = torch.empty_like(y)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernel_ms = cuda_ms(lambda: _build.launch(
+        "bsr_spmv_f32", tiles.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+        x.data_ptr(), tables.data_ptr(), part.data_ptr(), y_k.data_ptr(),
+        nnzb, nb, b, k1.PIECE_TILES, max_pieces, stream), 20)
+    check(torch.equal(y_k, y), "K1 kernels alone differ from the wrapper")
+    row_start = torch.searchsorted(
+        rows, torch.arange(nb + 1, dtype=torch.int32, device=dev)
+    ).to(torch.int32)
+    check(torch.equal(tables[:nb + 1], row_start) and torch.equal(
+        tables[nb + 1:], piece_table(row_start, k1.PIECE_TILES)),
+        "K1's device-built tables differ from piece_table")
     plain_ms = cuda_ms(lambda: bsr_spmv_plain(tiles, rows, cols, x, nb), 5)
     lib_ms, lib_note = None, "torch.sparse_bsr_tensor @ x"
-    crow = torch.searchsorted(rows, torch.arange(nb + 1, dtype=torch.int32,
-                                                 device=rows.device))
     try:
-        a = torch.sparse_bsr_tensor(crow.to(torch.int32), cols, tiles,
+        a = torch.sparse_bsr_tensor(row_start, cols, tiles,
                                     size=(nb * b, nb * b))
         xv = x.reshape(-1, 1)
         lib_err = max_abs((a @ xv).reshape(nb, b), y_plain)
@@ -494,17 +564,26 @@ def kernel_k1(g14, launches):
     except (RuntimeError, NotImplementedError) as e:   # yardstick only
         lib_note += f" unavailable: {str(e).splitlines()[0][:160]}"
     bnd, by = bound_ms(nbytes(tiles, rows, cols, x, y),
-                       2 * tiles.shape[0] * b * b, torch.float32)
+                       2 * nnzb * b * b, torch.float32)
     ms_bf = cuda_ms(lambda: bsr_spmv(tiles_bf, rows, cols, x, nb), 20)
     bnd_bf, _ = bound_ms(nbytes(tiles_bf, rows, cols, x, y),
-                         2 * tiles.shape[0] * b * b, torch.bfloat16)
+                         2 * nnzb * b * b, torch.bfloat16)
+    if lib_ms is not None:
+        check(ms < lib_ms, f"K1 {ms} ms not faster than the library's "
+              f"{lib_ms} ms")
     return {"name": "bsr_spmv", "launches": launches, "max_abs_err": err,
             "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
-            "library": lib_note,
+            "library": lib_note, "kernels_only_ms": kernel_ms,
+            "bit_equal_twice": True, "piece_tiles": k1.PIECE_TILES,
+            "pieces": int(piece_table(row_start, k1.PIECE_TILES)[-1]),
+            "piece_sweep_ms": sweep,
+            "faster_than_library": None if lib_ms is None else ms < lib_ms,
+            "share_of_byte_bound": bnd / ms, "ptxas": ptxas,
             "shape": {"tiles": list(tiles.shape), "n_row_blocks": nb},
             "bf16": {"max_abs_err": err_bf, "tolerance": tol_bf, "ms": ms_bf,
-                     "bound_ms": bnd_bf}}
+                     "bound_ms": bnd_bf,
+                     "share_of_byte_bound": bnd_bf / ms_bf}}
 
 
 def kernel_k2(g22, launches):
@@ -576,31 +655,92 @@ def kernel_k2(g22, launches):
             "shape": {"chunks": list(vals.shape), "n_out_blocks": nb}}
 
 
-def kernel_k3(u14, launches):
+def kernel_k3(u14, launches, by_variant, ptxas):
+    from repro_torch.kernels import bsr_tricount as k3
     from repro_torch.kernels.bsr_tricount import (bsr_tricount,
                                                   bsr_tricount_plain)
     plan = u14.plan()
-    tiles = torch.clamp(plan.bsr()[0], max=1.0)
+    tiles, rows, cols, nb = plan.bsr()
+    tiles = torch.clamp(tiles, max=1.0)
     t_ij, t_ik, t_kj = plan.tri_triples()
-    got = int(bsr_tricount(tiles, t_ij, t_ik, t_kj))
+    b, n_tri, dev = tiles.shape[1], int(t_ij.shape[0]), tiles.device
+    check(k3.variant(b) == "sm90_wgmma", f"K3 at B = {b} takes "
+          f"{k3.variant(b)}")
+    runs = torch.empty((n_tri + 2,), dtype=torch.int32, device=dev)
+    got = int(k3.launch("sm90_wgmma", tiles, t_ij, t_ik, t_kj, runs=runs))
     want = int(bsr_tricount_plain(tiles, t_ij, t_ik, t_kj))
     check(got == want, f"K3: kernel {got} != plain {want}")
+    table = k3.run_table(t_ij, k3.max_run(b))
+    check(torch.equal(runs[:table.numel()], table),
+          "K3's device-built run table differs from run_table")
+    check(int(bsr_tricount(tiles, t_ij, t_ik, t_kj)) == got,
+          "K3: two launches differ")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    order = torch.randperm(n_tri, generator=gen, device=dev)
+    shuffled = [t[order].contiguous() for t in (t_ij, t_ik, t_kj)]
+    got_shuffled = int(bsr_tricount(tiles, *shuffled))
+    check(got_shuffled == want, f"K3 on shuffled triples: {got_shuffled} "
+          f"!= {want}")
     ms = cuda_ms(lambda: bsr_tricount(tiles, t_ij, t_ik, t_kj), 5)
+    shuffled_ms = cuda_ms(lambda: bsr_tricount(tiles, *shuffled), 2)
+    got_wmma = int(k3.launch("wmma", tiles, t_ij, t_ik, t_kj))
+    check(got_wmma == want, f"K3 wmma: {got_wmma} != {want}")
+    wmma_ms = cuda_ms(lambda: k3.launch("wmma", tiles, t_ij, t_ik, t_kj), 3)
+    check(wmma_ms >= 8 * ms, f"K3 wgmma {ms} ms is not 8x faster than "
+          f"wmma {wmma_ms} ms")
     plain_ms = cuda_ms(lambda: bsr_tricount_plain(tiles, t_ij, t_ik, t_kj), 3)
-    b, n_tri = tiles.shape[1], int(t_ij.shape[0])
-    bnd, by = bound_ms(nbytes(tiles, t_ij, t_ik, t_kj) + 8,
-                       2 * b ** 3 * n_tri + b * b * n_tri, torch.float16)
+    flops = 2 * b ** 3 * n_tri + b * b * n_tri
+    bnd, by = bound_ms(nbytes(tiles, t_ij, t_ik, t_kj) + 8, flops,
+                       torch.float16)
+    # yardstick: the dense fp16 product A.A of the whole adjacency, the
+    # product alone (no mask, no sum); timed only
+    n = nb * b
+    dense = torch.zeros((n, n), dtype=torch.float16, device=dev)
+    dense.view(nb, b, nb, b)[rows.long(), :, cols.long(), :] = \
+        tiles.to(torch.float16)
+    lib_ms = cuda_ms(lambda: torch.mm(dense, dense), 5)
+    del dense
     return {"name": "bsr_tricount", "launches": launches,
+            "launches_by_variant": by_variant, "variant": k3.variant(b),
             "max_abs_err": float(abs(got - want)), "tolerance": 0.0,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-            "library_ms": None, "six_triangles": got,
+            "tflops": flops / (ms * 1e9),
+            "library_ms": lib_ms,
+            "library": f"torch.mm of the dense ({n}, {n}) fp16 0/1 adjacency "
+                       f"with itself: the product alone, timed only",
+            "six_triangles": got, "six_triangles_shuffled": got_shuffled,
+            "shuffled_ms": shuffled_ms, "runs": int(table[0]),
+            "wmma": {"ms": wmma_ms, "six_triangles": got_wmma,
+                     "speedup_of_wgmma": wmma_ms / ms},
+            "ptxas": ptxas,
             "shape": {"tiles": list(tiles.shape), "triples": n_tri}}
+
+
+def ptxas_report(source: str) -> dict:
+    """Registers and spills of each kernel ptxas compiled from ``source``
+    (from the build's ``-Xptxas -v`` log); fails on any spill."""
+    from repro_torch.kernels import _build
+    log = (_build.build_dir() / "build.log").read_text()
+    text = log.split(f"== {source}\n", 1)[1].split("\n== ", 1)[0]
+    out = {}
+    for part in text.split("Compiling entry function '")[1:]:
+        # the mangled name without its anonymous-namespace prefix
+        name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+", "",
+                      part.split("'", 1)[0])
+        regs = part.split("Used ", 1)[1].split(" registers", 1)[0]
+        spills = part.split("bytes stack frame, ", 1)[1].split("\n", 1)[0]
+        out[name] = {"registers": int(regs), "spills": spills.strip()}
+        check(spills.startswith("0 bytes spill stores, 0 bytes spill loads"),
+              f"{source} {name}: {spills}")
+    check(bool(out), f"no ptxas report for {source}")
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one prefill and one decode step")
+                    help="also profile a 10-round \"bsr\" PageRank, one "
+                         "prefill and one decode step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -637,8 +777,12 @@ def main() -> int:
     for k in kernels:
         k.launches = 0
     g22 = phase_pagerank_scale(dev, 22)
-    g14, u14 = phase_bsr(dev, 14)
+    g14, u14, k3_variants = phase_bsr(dev, 14)
     path = {k.__name__: k.launches for k in kernels[:3]}
+    check(path["bsr_spmv"] == K1_PATH_LAUNCHES, f"K1 launched "
+          f"{path['bsr_spmv']} times on the path, not {K1_PATH_LAUNCHES}")
+    if args.profile:
+        profile_bsr(g14)
     path["flash_attention_fwd"], k4_variants = phase_serve(dev, kernels,
                                                             args.profile)
     for name, n in path.items():
@@ -646,9 +790,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    rows = [kernel_k1(g14, path["bsr_spmv"]),
+    rows = [kernel_k1(g14, path["bsr_spmv"], ptxas_report("bsr_spmv.cu")),
             kernel_k2(g22, path["segment_sum_chunked"]),
-            kernel_k3(u14, path["bsr_tricount"]),
+            kernel_k3(u14, path["bsr_tricount"], k3_variants,
+                      ptxas_report("bsr_tricount.cu")),
             kernel_k4(path["flash_attention_fwd"], k4_variants)]
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],

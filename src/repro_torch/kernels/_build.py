@@ -30,16 +30,21 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# tiles, rows, cols, x, tables, partial, y, nnzb, n_row_blocks, block,
+# piece, max_pieces, stream
+_SPMV = [_P] * 7 + [_I] * 5 + [_P]
 # C entry points: argument types in order (every one returns a cudaError_t)
 SIGNATURES = {
-    # tiles, row_start, cols, x, y, n_row_blocks, block, stream
-    "bsr_spmv_f32": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "bsr_spmv_bf16": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "bsr_spmv_f32": _SPMV,
+    "bsr_spmv_bf16": _SPMV,
     # vals, local_ids, chunk_block, tables, partial, out, n_chunks,
     # n_out_blocks, chunk, piece, max_pieces, stream
     "segment_sum_chunked": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # tiles, t_ij, t_ik, t_kj, out, n_triples, block, stream
-    "bsr_tricount": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # tiles (f32), t_ij, t_ik, t_kj, out, n_triples, block, stream
+    "bsr_tricount_wmma": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # tiles (fp16), t_ij, t_ik, t_kj, runs, out, n_triples, nnzb, block,
+    # stream
+    "bsr_tricount_sm90": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, out, B, Sq, Sk, H, D, causal, stream
     "flash_attention_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "flash_attention_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -66,9 +71,10 @@ def _sources():
 
 
 def build_dir() -> Path:
-    """Directory keyed by the sources' contents and the compiler flags."""
+    """Directory keyed by the sources' and headers' contents and the
+    compiler flags."""
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

@@ -17,8 +17,8 @@
 // Pass 0 builds the tables on the device, with no host sync: block_start
 // (each block's first chunk, from the sorted chunk_block, one thread per
 // chunk boundary) and the piece table piece_off (one CTA: an exclusive scan
-// of max(ceil(n_b / P), 1)).  kernels/segment_sum.py's `piece_table` is
-// their plain version.
+// of max(ceil(n_b / P), 1)), by the kernels of pieces.cuh, which K1 shares.
+// kernels/pieces.py's `piece_table` is their plain version.
 //
 // Pass 1 splits each block's run of chunks into pieces of at most P chunks,
 // so a hub block that owns thousands of chunks spreads over many CTAs
@@ -39,13 +39,16 @@
 // warps' rows for id j in warp order into the piece's partial, or straight
 // into `out` when the block has one piece.
 //
-// Pass 2, one thread per (block, id) of a block with more than one piece,
-// sums the block's piece partials in piece order, Kahan-compensated.
+// Pass 2 (pieces.cuh's piece_combine), one thread per (block, id) of a
+// block with more than one piece, sums the block's piece partials in piece
+// order, Kahan-compensated.
 //
 // No float atomics; every sum has one order fixed by the layout and P, so
 // two launches give the same bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "pieces.cuh"
 
 namespace {
 
@@ -172,69 +175,6 @@ __device__ __forceinline__ void warp_span(const float* __restrict__ vals,
   __syncwarp();   // the row's next update may come from another lane
 }
 
-// block_start[b] = first c with chunk_block[c] >= b, for b in [0, nb]:
-// thread c in [0, C] writes the b in (chunk_block[c - 1], chunk_block[c]]
-__global__ void segment_sum_bounds(const int* __restrict__ chunk_block, int n_chunks,
-                                   int nb, int* __restrict__ block_start) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c > n_chunks) return;
-  const int lo = c == 0 ? 0 : max(0, __ldg(chunk_block + c - 1) + 1);
-  const int hi = c == n_chunks ? nb : min(nb, __ldg(chunk_block + c));
-  for (int b = lo; b <= hi; ++b) block_start[b] = c;
-}
-
-constexpr int kPlanThreads = 1024;
-
-// piece_off[b] = sum over b' < b of max(ceil(n_b' / piece), 1), one CTA:
-// each thread sums a contiguous range of blocks, then a block-wide scan
-__global__ void __launch_bounds__(kPlanThreads)
-segment_sum_plan(const int* __restrict__ block_start, int nb, int piece,
-                 int* __restrict__ piece_off) {
-  __shared__ int warp_sum[kPlanThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int per = (nb + kPlanThreads - 1) / kPlanThreads;
-  const int lo = min(nb, tid * per), hi = min(nb, lo + per);
-  int local = 0;
-  for (int b = lo; b < hi; ++b) {
-    const int n = block_start[b + 1] - block_start[b];
-    local += max((n + piece - 1) / piece, 1);
-  }
-  int incl = local;   // inclusive scan within the warp
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int o = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += o;
-  }
-  if (lane == 31) warp_sum[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = warp_sum[lane];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int o = __shfl_up_sync(kFull, w, off);
-      if (lane >= off) w += o;
-    }
-    warp_sum[lane] = w;   // inclusive over warps
-  }
-  __syncthreads();
-  int run = incl - local + (warp > 0 ? warp_sum[warp - 1] : 0);
-  for (int b = lo; b < hi; ++b) {
-    piece_off[b] = run;
-    const int n = block_start[b + 1] - block_start[b];
-    run += max((n + piece - 1) / piece, 1);
-  }
-  if (tid == kPlanThreads - 1) piece_off[nb] = warp_sum[kPlanThreads / 32 - 1];
-}
-
-__device__ __forceinline__ int find_block(const int* __restrict__ piece_off, int nb, int p) {
-  int lo = 0, hi = nb;   // largest b with piece_off[b] <= p
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(piece_off + mid) <= p) lo = mid; else hi = mid;
-  }
-  return lo;
-}
-
 __global__ void __launch_bounds__(kWarps * 32)
 segment_sum_pieces(const float* __restrict__ vals, const int* __restrict__ local_ids,
                    const int* __restrict__ block_start, const int* __restrict__ piece_off,
@@ -244,7 +184,7 @@ segment_sum_pieces(const float* __restrict__ vals, const int* __restrict__ local
   __shared__ float comp[kWarps][kBlock];
   const int p = blockIdx.x;
   if (p >= __ldg(piece_off + nb)) return;   // the grid is an upper bound
-  const int b = find_block(piece_off, nb, p);
+  const int b = piece_owner(piece_off, nb, p);
   const int k = p - __ldg(piece_off + b);
   const int n_pieces = __ldg(piece_off + b + 1) - __ldg(piece_off + b);
   const int c0 = __ldg(block_start + b) + k * piece;
@@ -278,22 +218,6 @@ segment_sum_pieces(const float* __restrict__ vals, const int* __restrict__ local
   }
 }
 
-__global__ void __launch_bounds__(kBlock)
-segment_sum_combine(const int* __restrict__ piece_off, const float* __restrict__ partial,
-                    float* __restrict__ out) {
-  const int b = blockIdx.x, j = threadIdx.x;
-  const int p0 = __ldg(piece_off + b), p1 = __ldg(piece_off + b + 1);
-  if (p1 - p0 <= 1) return;   // pass 1 wrote this block's sums
-  float s = 0.f, cs = 0.f;
-  for (int p = p0; p < p1; ++p) {
-    const float y = __ldg(partial + static_cast<size_t>(p) * kBlock + j) - cs;
-    const float t = s + y;
-    cs = (t - s) - y;
-    s = t;
-  }
-  out[static_cast<size_t>(b) * kBlock + j] = s;
-}
-
 }  // namespace
 
 // vals, local_ids: (C, chunk), 16-byte aligned; chunk_block: (C,) int32,
@@ -312,16 +236,16 @@ extern "C" int segment_sum_chunked(const void* vals, const void* local_ids,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* block_start = static_cast<int*>(tables);
   int* piece_off = block_start + n_out_blocks + 1;
-  segment_sum_bounds<<<n_chunks / 256 + 1, 256, 0, s>>>(
+  piece_bounds<<<n_chunks / 256 + 1, 256, 0, s>>>(
       static_cast<const int*>(chunk_block), n_chunks, n_out_blocks, block_start);
-  segment_sum_plan<<<1, kPlanThreads, 0, s>>>(block_start, n_out_blocks, piece, piece_off);
+  piece_plan<<<1, kPlanThreads, 0, s>>>(block_start, n_out_blocks, piece, piece_off);
   segment_sum_pieces<<<max_pieces, kWarps * 32, 0, s>>>(
       static_cast<const float*>(vals), static_cast<const int*>(local_ids),
       block_start, piece_off, static_cast<float*>(partial), static_cast<float*>(out),
       n_out_blocks, chunk, piece);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  segment_sum_combine<<<n_out_blocks, kBlock, 0, s>>>(
-      piece_off, static_cast<const float*>(partial), static_cast<float*>(out));
+  piece_combine<<<n_out_blocks, kBlock, 0, s>>>(
+      piece_off, static_cast<const float*>(partial), static_cast<float*>(out), kBlock);
   return cudaGetLastError();
 }

@@ -7,7 +7,7 @@ scan over the sorted ids) and splits a block's run of chunks into pieces of
 at most ``PIECE_CHUNKS`` chunks, one CTA each, whose partials a second pass
 adds in order, with no float atomics (see the note at the top of that
 file).  The kernel builds its piece table on the device, with no host
-sync; ``piece_table`` is the plain version of that table.
+sync; ``pieces.piece_table`` is the plain version of that table.
 
 ``chunk_layout`` is the reference's host-side chunking, copied as numpy: the
 plan computes it once per graph and every reduction scatters fresh values
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .pieces import aligned, piece_table
 
 __all__ = ["chunk_layout", "piece_table", "launch", "segment_sum_chunked",
            "segment_sum_chunked_plain", "DEFAULT_CHUNK", "DEFAULT_BLOCK",
@@ -67,31 +68,6 @@ def chunk_layout(seg_ids: np.ndarray, n_segments: int,
         local_ids[entry_chunk, entry_slot] = (seg % b).astype(np.int32)
     chunk_block = np.repeat(np.arange(nb), n_chunks).astype(np.int32)
     return entry_chunk, entry_slot, local_ids, chunk_block, nb, total
-
-
-def piece_table(block_start: torch.Tensor, piece: int) -> torch.Tensor:
-    """(nb + 1,) int32 exclusive scan of each block's piece count.
-
-    Block b owns chunks ``block_start[b]:block_start[b + 1]``; it gets
-    ``max(ceil(n_b / piece), 1)`` pieces (a block with no chunk still gets
-    one, which writes zeros), and piece k of it covers chunks
-    ``block_start[b] + k * piece`` up to ``piece`` further.  The plain
-    version of the table the kernel builds on the device (pass 0 of
-    ``csrc/segment_sum.cu``).
-    """
-    if piece < 1:
-        raise ValueError("piece must be >= 1")
-    n = (block_start[1:] - block_start[:-1]).to(torch.int64)
-    counts = torch.clamp((n + piece - 1) // piece, min=1)
-    off = torch.zeros(block_start.shape, dtype=torch.int64,
-                      device=block_start.device)
-    torch.cumsum(counts, 0, out=off[1:])
-    return off.to(torch.int32)
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """The kernel reads 16-byte vectors from each chunk's start."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(vals, local_ids, chunk_block, n_out_blocks):
@@ -163,7 +139,7 @@ def _launch(vals, local_ids, chunk_block, n_out_blocks, piece, tables):
                           device=dev)
     out = torch.empty((n_out_blocks, DEFAULT_BLOCK), dtype=torch.float32,
                       device=dev)
-    vals, local_ids = _aligned(vals), _aligned(local_ids)
+    vals, local_ids = aligned(vals), aligned(local_ids)
     _build.launch("segment_sum_chunked", vals.data_ptr(), local_ids.data_ptr(),
                   chunk_block.data_ptr(), tables.data_ptr(),
                   partial.data_ptr(), out.data_ptr(), c, n_out_blocks, l,

@@ -19,6 +19,8 @@ from repro.kernels.bsr_spmv import bsr_spmv as r_bsr_spmv
 from repro.kernels.bsr_tricount import bsr_tricount as r_bsr_tricount
 from repro.kernels.segment_sum import chunk_layout as r_chunk_layout
 from repro.kernels.segment_sum import segment_sum_chunked as r_segsum
+from repro_torch.kernels import bsr_spmv as k1
+from repro_torch.kernels import bsr_tricount as k3
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_plain
 from repro_torch.kernels.bsr_tricount import bsr_tricount
@@ -224,6 +226,10 @@ def _bad_calls():
             torch.zeros((2, 4)), lids, z3, 1),
         "tricount_dtype": lambda: bsr_tricount(t16.half(), z2, z2, z2),
         "tricount_triples": lambda: bsr_tricount(t16, z2, z2, z3),
+        # the variants' launchers take CUDA tensors only: no CPU fallback
+        "spmv_launch_cpu": lambda: k1.launch(t16, z2, z2, x16, 1, 8),
+        "tricount_launch_cpu": lambda: k3.launch("wmma", t16, z2, z2, z2),
+        "run_table_len": lambda: k3.run_table(z2, 0),
     }
 
 

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import bsr_spmv as k1
+from repro_torch.kernels import bsr_tricount as k3
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_spmv import bsr_spmv, bsr_spmv_plain
 from repro_torch.kernels.bsr_tricount import bsr_tricount, bsr_tricount_plain
@@ -20,7 +22,9 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import (attention_error_ratios,
                                                  flash_attention_fwd,
                                                  flash_attention_fwd_plain)
-from repro_torch.kernels.segment_sum import (chunk_layout, segment_sum_chunked,
+from repro_torch.kernels.pieces import piece_table
+from repro_torch.kernels.segment_sum import (chunk_layout,
+                                             segment_sum_chunked,
                                              segment_sum_chunked_plain)
 
 pytestmark = pytest.mark.cuda
@@ -77,6 +81,39 @@ def test_bsr_spmv_kernel_duplicates_and_zero_node(dev):
     tiles, rows, cols, nb = ops.edges_to_bsr(e, e, 0, device=dev)
     y = bsr_spmv(tiles, rows, cols, torch.zeros((nb, 128), device=dev), nb)
     assert nb == 1 and not y.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("piece", [1, 8, 32])
+def test_bsr_spmv_kernel_hub_row_block_bit_equal(dev, dtype, piece):
+    # a hub row block of 240 tiles (split into many pieces), single-tile
+    # row blocks and duplicate (row, col) tiles
+    rng = np.random.default_rng(piece)
+    rows = np.sort(np.concatenate([np.arange(6), np.full(240, 2),
+                                   np.full(3, 4)])).astype(np.int32)
+    cols = rng.integers(0, 5, rows.size).astype(np.int32)
+    cols[rows == 4] = 1                          # three duplicates add
+    tiles = _t(rng.normal(size=(rows.size, 128, 128)).astype(np.float32),
+               dev).to(dtype)
+    rows, cols = _t(rows, dev), _t(cols, dev)
+    x = _t(rng.normal(size=(5, 128)).astype(np.float32), dev)
+    tables = torch.zeros((2 * 7,), dtype=torch.int32, device=dev)
+    before = bsr_spmv.launches
+    a = k1.launch(tiles, rows, cols, x, 6, piece, tables=tables)
+    b_ = k1.launch(tiles, rows, cols, x, 6, piece)
+    torch.cuda.synchronize()
+    assert bsr_spmv.launches == before + 2
+    assert torch.equal(a, b_)
+    row_start = torch.searchsorted(
+        rows, torch.arange(7, dtype=torch.int32, device=dev)).to(torch.int32)
+    assert torch.equal(tables[:7], row_start)
+    assert torch.equal(tables[7:], piece_table(row_start, piece))
+    want = bsr_spmv_plain(tiles, rows, cols, x, 6)
+    tol = (5e-2 if dtype == torch.bfloat16 else 1e-5) * max(
+        1.0, float(want.abs().max()))
+    assert float((a - want).abs().max()) <= tol
+    if piece == k1.PIECE_TILES:
+        assert torch.equal(bsr_spmv(tiles, rows, cols, x, 6), a)
 
 
 def test_bsr_spmv_kernel_rejects_unsupported_block(dev):
@@ -198,12 +235,61 @@ def test_bsr_tricount_kernel_exact(dev, n, b):
     tiles = torch.clamp(tiles, max=1.0)
     tij, tik, tkj = ops.build_block_triples(rows.cpu().numpy(),
                                             cols.cpu().numpy(), device=dev)
+    which = k3.variant(b)
+    assert which == ("sm90_wgmma" if b >= 64 else "wmma")
     before = bsr_tricount.launches
+    by_variant = dict(bsr_tricount.launches_by_variant)
     got = bsr_tricount(tiles, tij, tik, tkj)
     torch.cuda.synchronize()
     assert bsr_tricount.launches == before + 1
+    assert bsr_tricount.launches_by_variant[which] == by_variant[which] + 1
     assert int(got) == int(bsr_tricount_plain(tiles, tij, tik, tkj))
     assert int(got) % 6 == 0
+    if b == 128:   # the WMMA kernel at the wgmma kernel's tile size
+        assert int(k3.launch("wmma", tiles, tij, tik, tkj)) == int(got)
+
+
+def _tricount_case(case, b, rng, dev):
+    """0/1 tiles and triples for one edge case of the wgmma kernel."""
+    if case == "placeholder":   # an empty graph's one zero tile
+        tiles = torch.zeros((1, b, b), device=dev)
+        z = torch.zeros((1,), dtype=torch.int32, device=dev)
+        return tiles, z, z, z
+    nnzb = 7
+    # not symmetric, and no tile equals its transpose: a transposed mask
+    # or operand changes the count
+    tiles = (rng.random((nnzb, b, b)) < 0.3).astype(np.float32)
+    n = {"shuffled": 300, "runs_of_one": 40, "not_symmetric": 120}[case]
+    tij = np.sort(rng.integers(0, nnzb, n))
+    tik, tkj = rng.integers(0, nnzb, n), rng.integers(0, nnzb, n)
+    if case == "shuffled":
+        order = rng.permutation(n)
+        tij, tik, tkj = tij[order], tik[order], tkj[order]
+    elif case == "runs_of_one":
+        tij = np.arange(n) % nnzb             # t_ij changes at every triple
+    return (_t(tiles, dev),) + tuple(_t(a.astype(np.int32), dev)
+                                     for a in (tij, tik, tkj))
+
+
+@pytest.mark.parametrize("b", [64, 128])
+@pytest.mark.parametrize("case", ["shuffled", "runs_of_one", "not_symmetric",
+                                  "placeholder"])
+def test_bsr_tricount_wgmma_edge_cases(dev, case, b):
+    rng = np.random.default_rng(b + len(case))
+    tiles, tij, tik, tkj = _tricount_case(case, b, rng, dev)
+    runs = torch.full((tij.shape[0] + 2,), -1, dtype=torch.int32, device=dev)
+    got = k3.launch("sm90_wgmma", tiles, tij, tik, tkj, runs=runs)
+    want = bsr_tricount_plain(tiles, tij, tik, tkj)
+    torch.cuda.synchronize()
+    assert int(got) == int(want)
+    table = k3.run_table(tij, k3.max_run(b))
+    assert torch.equal(runs[:table.numel()], table)
+    if case == "not_symmetric":   # the count a transposed operand would give
+        tt = tiles.transpose(1, 2).contiguous()
+        assert int(bsr_tricount_plain(tt, tij, tik, tkj)) != int(want)
+        assert int(bsr_tricount_plain(tiles, tij, tkj, tik)) != int(want)
+    if case == "runs_of_one":
+        assert int(table[0]) == tij.shape[0]
 
 
 def _assert_one_bf16_ulp(got, want):
