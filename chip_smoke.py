@@ -24,6 +24,29 @@ Phases (each prints one JSON line with its seconds):
    (``K1_PATH_LAUNCHES``).  With ``--profile``, one more 10-round "bsr"
    PageRank runs under ``torch.profiler``: its device-busy share and K1's
    part of it.
+3b. traversals and the rest of the analytics, in a launch window of its
+   own.  Scale 22: ``bfs`` from the vertex of largest out-degree must
+   auto-route to "frontier", equal "xla" bit for bit and equal a numpy
+   level-synchronous BFS over the host CSR; ``frontier_fixpoint`` alone
+   must read the host once a round (``torch.cuda.set_sync_debug_mode``);
+   weighted ``sssp`` (uniform in [0.5, 4), numpy seed 7),
+   ``connected_components`` and ``label_propagation(n_iter=20)`` on
+   "frontier" must equal "xla"; a batched ``bfs`` of 4 sources with caps
+   (1, 3, 8, none) must equal its rows' standalone runs;
+   ``eigenvector_centrality(n_iter=50)`` and a 4-source 10-round
+   ``personalized_pagerank`` on "pallas" must agree with "xla" and launch
+   K2 exactly 50 and 40 times.  Scale 14: the same two on "bsr" and
+   "pallas", ``k_core(k=8)`` and ``core_numbers`` equal to "xla" and to a
+   numpy peel; each checked eigenvector and PPR call must launch its
+   kernel 50 and 40 times, and the window K1 and K2 each (1 + WARM_REPS) x
+   (50 + 40) + the peels' rounds;
+   ``strongly_connected_components`` on "xla" and "bsr" equal to scipy's;
+   ``per_node_triangles`` summing to 3x the triangle count; 16-source
+   ``closeness_centrality`` on "frontier" equal to "xla".  Each comparison
+   of two backends times both on their first call and then ``WARM_REPS``
+   times more, the order alternating.  Its two lines print each analytic's
+   seconds (under ``"frontier"`` and ``"analytics"``), the frontier's
+   rounds and dense rounds, and the launches.
 4. serving, kernel K4: ``qwen2.5-3b`` at full width and depth (36
    layers, d_model 2048) with random weights from a seeded generator,
    behind ``Engine`` with ``ServeConfig(batch=4, max_seq=2080)``: 4 prompts
@@ -59,8 +82,8 @@ Phases (each prints one JSON line with its seconds):
    ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
-path's: each window's counts are zeroed just before it and read just after
-it.  Any failed check raises, and
+path's, and phase 3b's are its own: each window's counts are zeroed just
+before it and read just after it.  Any failed check raises, and
 the script exits non-zero without its last line, which on success is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it fails before any phase.
@@ -106,6 +129,7 @@ SOURCES = {
 # K1 on phase 3's path: PageRank 10 rounds, 9 rounds to tol, HITS 20
 # rounds (a pull and a push each), the float64 check's 10 rounds
 K1_PATH_LAUNCHES = 69
+WARM_REPS = 3   # phase 3b: timed calls of each backend after the checked one
 SERVE_PROMPTS = (2048, 1536, 1024, 512)   # prompt lengths of phase 4
 SERVE_NEW = 32
 DECODE_TOL = 5e-2   # decode vs forward, relative to the largest logit
@@ -322,6 +346,273 @@ def profile_bsr(g14):
     emit({"phase": "profile_bsr", "pagerank_n10": device_busy(
         lambda: A.pagerank(g14, n_iter=10, backend="bsr"),
         {"k1": ("bsr_spmv", "piece_")})})
+
+
+def np_bfs_levels(ptr, idx, n, source):
+    """Level-synchronous BFS over a host CSR (numpy): int32 levels, -1
+    where unreachable.  Independent of the port's code."""
+    level = np.full(n, -1, np.int32)
+    level[source] = 0
+    front, depth = np.asarray([source]), 0
+    while front.size:
+        starts, lens = ptr[front], ptr[front + 1] - ptr[front]
+        lane = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens,
+                                                      lens)
+        nbr = idx[np.repeat(starts, lens) + lane]
+        depth += 1
+        level[nbr[level[nbr] < 0]] = depth
+        front = np.flatnonzero(level == depth)
+    return level
+
+
+def np_peel(row, col, n, k):
+    """k-core peel over an undirected edge list (numpy): the alive mask and
+    the number of rounds an until-unchanged fixpoint runs (the last one sees
+    no change)."""
+    alive, rounds = np.ones(n, bool), 0
+    while True:
+        rounds += 1
+        deg = np.bincount(row, weights=alive[col], minlength=n)
+        new = alive & (deg >= k)
+        if np.array_equal(new, alive):
+            return alive, rounds
+        alive = new
+
+
+def np_core_numbers(row, col, n, k_max):
+    """``core_numbers``'s sweep in numpy: core numbers and total rounds."""
+    core, total = np.zeros(n, np.int32), 0
+    for k in range(1, k_max + 1):
+        alive, rounds = np_peel(row, col, n, k)
+        total += rounds
+        if not alive.any():
+            break
+        core[alive] = k
+    return core, total
+
+
+def count_syncs(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result and the synchronizing CUDA calls it made, counted by the
+    ``file:line`` of the Python call that made them."""
+    import collections
+    import warnings
+    sync()
+    # switching the monitor on syncs once itself: not part of ``fn``
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    return out, dict(collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message)))
+
+
+def phase_traversal(dev, g22, g14, u14, scales=(22, 14)):
+    """Phase 3b: the frontier backend and the rest of the analytics, on the
+    graphs of phases 2 (``g22``) and 3 (``g14`` and its undirected ``u14``),
+    whose R-MAT ``scales`` the lines print."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components as sp_cc
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import engine
+    from repro_torch.kernels.bsr_spmv import bsr_spmv
+    from repro_torch.kernels.segment_sum import segment_sum_chunked
+    ff = engine.frontier_fixpoint
+    t0 = time.perf_counter()
+
+    def warm(fns, reps=WARM_REPS):
+        """Seconds of ``reps`` further calls of each ``fns[backend]``, the
+        backends' order alternating from call to call."""
+        order, out = list(fns), {be: [] for be in fns}
+        for i in range(reps):
+            for be in (order if i % 2 == 0 else order[::-1]):
+                out[be].append(timed(fns[be])[1])
+        return out
+
+    def frontier_vs_xla(name, fn, rec):
+        """``fn(backend)`` on "frontier" and "xla": equal bits, the first
+        call's rounds, each backend's first and warm seconds."""
+        r0, d0 = ff.rounds, ff.dense_rounds
+        got, t_f = timed(lambda: fn("frontier"))
+        rounds, dense = ff.rounds - r0, ff.dense_rounds - d0
+        want, t_x = timed(lambda: fn("xla"))
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"{name}: frontier != xla")
+        check(rounds > 0, f"{name}: no frontier round ran")
+        w = warm({be: (lambda b=be: fn(b)) for be in ("frontier", "xla")})
+        rec[name] = {"seconds_first_frontier": t_f, "seconds_first_xla": t_x,
+                     "seconds_frontier": w["frontier"],
+                     "seconds_xla": w["xla"], "rounds": rounds,
+                     "dense_rounds": dense}
+        return got
+
+    def float_vs_xla(name, fn, backend, rec):
+        """``fn(backend)`` within ``TOL`` of ``fn("xla")``; returns the K1/K2
+        launches of that one checked call, then times both warm."""
+        want, t_x = timed(lambda: fn("xla"))
+        before = [k.launches for k in kernels]
+        got, t_b = timed(lambda: fn(backend))
+        used = {k.__name__: k.launches - b for k, b in zip(kernels, before)}
+        err, scale = max_abs(got, want), float(want.abs().max())
+        check(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+              f"{name} {backend}: finite, shaped as xla")
+        check(err <= TOL * scale, f"{name} {backend} vs xla: max|d| {err} > "
+              f"{TOL} * {scale}")
+        w = warm({be: (lambda b=be: fn(b)) for be in (backend, "xla")})
+        rec.setdefault(name, {})[backend] = {
+            "seconds_first": t_b, "seconds_first_xla": t_x,
+            "seconds": w[backend], "seconds_xla": w["xla"],
+            "max_abs_diff": err, "launches": used}
+        return used
+
+    kernels = (bsr_spmv, segment_sum_chunked)
+    for k in kernels:
+        k.launches = 0
+
+    # -- scale 22: the frontier against "xla"; K2 under two more analytics
+    plan = g22.plan()
+    n = g22.n_nodes
+    src = int(torch.argmax(plan.out_deg))
+    check(engine.select_backend(plan, None, op="bfs") == "frontier",
+          "bfs at scale 22 does not auto-route to frontier")
+    _, t_exec = timed(lambda: engine.get_exec(plan, "frontier"))
+    r22 = {}
+    lv = frontier_vs_xla("bfs", lambda be: A.bfs(
+        g22, src, backend=None if be == "frontier" else be), r22)
+    ptr = g22.out_ptr[: n + 1].cpu().numpy().astype(np.int64)
+    idx = g22.out_idx[: g22.n_edges].cpu().numpy()
+    want_lv, t_np = timed(lambda: np_bfs_levels(ptr, idx, n, src))
+    check(np.array_equal(lv.cpu().numpy(), want_lv),
+          "bfs at scale 22 vs the numpy level-synchronous BFS")
+    r22["bfs"].update(seconds_numpy=t_np, reached=int((want_lv >= 0).sum()),
+                      depth=int(want_lv.max()))
+    # one host read per round: the fixpoint alone under the sync monitor
+    init = torch.full((n,), float("inf"), device=dev)
+    init[src] = 0.0
+    seed = torch.zeros((n,), dtype=torch.bool, device=dev)
+    seed[src] = True
+    hop = torch.ones((), device=dev)
+    r0 = ff.rounds
+    _, syncs = count_syncs(lambda: ff(plan, init, seed, weights=hop))
+    rounds = ff.rounds - r0
+    check(sum(syncs.values()) == rounds + 1, f"frontier_fixpoint: host "
+          f"syncs {syncs} in {rounds} rounds, not one a round plus the read "
+          f"that ends it")
+    _, entry_syncs = count_syncs(lambda: A.bfs(g22, src))
+    r22["bfs"].update(fixpoint_syncs=syncs, fixpoint_rounds=rounds,
+                      entry_syncs=entry_syncs)
+    w = torch.from_numpy(np.random.default_rng(7).uniform(
+        0.5, 4.0, g22.n_edges).astype(np.float32)).to(dev)
+    frontier_vs_xla("sssp_weighted",
+                    lambda be: A.sssp(g22, src, w, backend=be), r22)
+    def undirected_execs():
+        uplan = g22.plan().undirected().plan()
+        for be in ("frontier", "xla"):
+            engine.get_exec(uplan, be)
+        return uplan
+    u22, t_u22 = timed(undirected_execs)
+    frontier_vs_xla("connected_components",
+                    lambda be: A.connected_components(g22, backend=be), r22)
+    frontier_vs_xla("label_propagation_n20", lambda be: A.label_propagation(
+        g22, n_iter=20, backend=be), r22)
+    srcs = torch.tensor([src, 0, n // 2, n - 1], device=dev)
+    caps = np.asarray([1, 3, 8, 1 << 30])      # the last row runs uncapped
+    batched = A.bfs(g22, srcs, n_iter=caps, backend="frontier")
+    for i, c in enumerate(caps):
+        one = A.bfs(g22, int(srcs[i]), n_iter=None if i == 3 else int(c),
+                    backend="frontier")
+        check(torch.equal(batched[i], one), f"batched bfs row {i} != its "
+              f"standalone run")
+
+    srcs4 = torch.tensor([src, 1, n // 3, n - 2], device=dev)
+    f22 = {}
+    k2_eig = float_vs_xla("eigenvector_n50", lambda be: A.eigenvector_centrality(
+        g22, n_iter=50, backend=be), "pallas", f22)["segment_sum_chunked"]
+    k2_ppr = float_vs_xla("ppr_4x10", lambda be: A.personalized_pagerank(
+        g22, srcs4, n_iter=10, backend=be), "pallas", f22)["segment_sum_chunked"]
+    check((k2_eig, k2_ppr) == (50, 4 * 10), f"K2 launched {k2_eig} times "
+          f"for 50 eigenvector rounds and {k2_ppr} for 4 x 10 PPR rounds")
+    emit({"phase": "traversal_scale", "scale": scales[0], "nodes": n,
+          "edges": g22.n_edges, "undirected_edges": u22.n_edges,
+          "source": src, "seconds_frontier_exec": t_exec,
+          "seconds_undirected": t_u22, "frontier": r22, "analytics": f22,
+          "k2_launches": {"eigenvector_n50": k2_eig, "ppr_4x10": k2_ppr},
+          "seconds": time.perf_counter() - t0})
+
+    # -- scale 14: K1 and K2 under eigenvector, PPR, k-core, core numbers
+    n14 = g14.n_nodes
+    srcs14 = torch.tensor([0, 1, n14 // 2, n14 - 1], device=dev)
+    us, ud = (t.cpu().numpy() for t in u14.out_edges())
+    un = u14.n_nodes
+    core_np, core_rounds = np_core_numbers(
+        us, ud, un, int(u14.plan().out_deg.max()))
+    alive8, kcore_rounds = np_peel(us, ud, un, 8)
+    f14 = {}
+    for k in kernels:
+        k.launches = 0
+    for be, kname in (("bsr", "bsr_spmv"), ("pallas", "segment_sum_chunked")):
+        used = (float_vs_xla("eigenvector_n50", lambda b: A.eigenvector_centrality(
+            g14, n_iter=50, backend=b), be, f14)[kname],
+            float_vs_xla("ppr_4x10", lambda b: A.personalized_pagerank(
+                g14, srcs14, n_iter=10, backend=b), be, f14)[kname])
+        check(used == (50, 4 * 10), f"{kname} launched {used} times for 50 "
+              f"eigenvector and 4 x 10 PPR rounds at scale 14")
+        for name, fn in (("k_core_8", lambda b: A.k_core(g14, 8, backend=b)),
+                         ("core_numbers",
+                          lambda b: A.core_numbers(g14, backend=b))):
+            want, t_x = timed(lambda: fn("xla"))
+            got, t_b = timed(lambda: fn(be))
+            check(torch.equal(got, want), f"{name} {be} != xla")
+            f14.setdefault(name, {"seconds_xla": t_x})[f"seconds_{be}"] = t_b
+    launches = {k.__name__: k.launches for k in kernels}
+    # each float_vs_xla call: one checked call and WARM_REPS timed ones
+    want_launches = (1 + WARM_REPS) * (50 + 4 * 10) + kcore_rounds + core_rounds
+    check(launches == {"bsr_spmv": want_launches,
+                       "segment_sum_chunked": want_launches},
+          f"K1/K2 launches {launches} at scale 14, not {1 + WARM_REPS} x "
+          f"(50 + 40) + "
+          f"{kcore_rounds} k-core + {core_rounds} core-number rounds")
+    # the port's mask and core numbers against the numpy peel, mapped back
+    # from the undirected view by original id
+    pos = u14.dense_of(g14.node_ids[:n14]).long().clamp(0, un - 1)
+    present = (u14.node_ids[pos] == g14.node_ids[:n14]).cpu().numpy()
+    pos = pos.cpu().numpy()
+    check(np.array_equal(A.k_core(g14, 8).cpu().numpy(),
+                         present & alive8[pos]), "k_core(8) vs numpy peel")
+    check(np.array_equal(A.core_numbers(g14).cpu().numpy(),
+                         np.where(present, core_np[pos], 0)),
+          "core_numbers vs numpy peel")
+
+    s, d = (t.cpu().numpy() for t in g14.out_edges())
+    _, comp = sp_cc(sp.coo_matrix((np.ones(len(s)), (s, d)),
+                                  shape=(n14, n14)),
+                    directed=True, connection="strong")
+    max_id = np.full(comp.max() + 1, -1)
+    np.maximum.at(max_id, comp, np.arange(n14))
+    scc = {}
+    for be in ("xla", "bsr"):
+        lab, scc[f"seconds_{be}"] = timed(
+            lambda: A.strongly_connected_components(g14, backend=be))
+        check(np.array_equal(lab.cpu().numpy(), max_id[comp]),
+              f"scc {be} vs scipy")
+    scc["components"] = int(comp.max() + 1)
+    tri, t_tri = timed(lambda: A.per_node_triangles(u14))
+    check(int(tri.sum()) == 3 * A.triangle_count(u14),
+          "per-node triangles do not sum to 3 x triangle_count")
+    c14 = {}
+    frontier_vs_xla("closeness_16", lambda be: A.closeness_centrality(
+        g14, n_samples=16, backend=be), c14)
+    emit({"phase": "traversal_bsr", "scale": scales[1], "nodes": n14,
+          "analytics": f14, "launches": launches,
+          "k_core_8_rounds": kcore_rounds, "core_number_rounds": core_rounds,
+          "max_core": int(core_np.max()), "scc": scc,
+          "seconds_per_node_triangles": t_tri, "frontier": c14,
+          "seconds": time.perf_counter() - t0})
 
 
 def phase_serve(dev, kernels, profile):
@@ -783,6 +1074,7 @@ def main() -> int:
           f"{path['bsr_spmv']} times on the path, not {K1_PATH_LAUNCHES}")
     if args.profile:
         profile_bsr(g14)
+    phase_traversal(dev, g22, g14, u14)
     path["flash_attention_fwd"], k4_variants = phase_serve(dev, kernels,
                                                             args.profile)
     for name, n in path.items():

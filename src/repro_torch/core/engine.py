@@ -1,63 +1,115 @@
 """Layer 2 of the traversal engine: backend-dispatched push/pull.
 
-Counterpart of ``repro/core/engine.py:152-397, 641-895``:
+Counterpart of ``repro/core/engine.py:133-430, 641-1091``:
 
     core/graph.py       Graph         static-shape dual-CSR storage
         |  .plan()  (identity-memoized)
         v
     core/plan.py        GraphPlan     sorted edges, degrees, oriented
-        |                             adjacency, BSR tiles, chunk layouts
+        |                             adjacency, BSR tiles, chunk layouts,
+        |                             frontier CSR
         v
     core/engine.py      Exec          gather + segment-reduce primitives
         |   push / pull / fixpoint    with backend dispatch:
-        |                               "xla"    sorted segmented reductions
-        |                               "pallas" kernel K2 (sum reductions)
-        v                               "bsr"    kernel K1 (fused pulls/pushes)
-    core/algorithms.py  pagerank, hits, connected_components, triangle_count
+        |   frontier_fixpoint           "xla"      sorted segmented reductions
+        |                               "pallas"   kernel K2 (sum reductions)
+        |                               "bsr"      kernel K1 (fused pulls/pushes)
+        |                               "frontier" compacted-frontier
+        v                                          relaxation (monotone min)
+    core/algorithms.py  pagerank, hits, eigenvector centrality, PPR, CC,
+                        SCC, sssp/bfs, k-core, label propagation, triangles
 
 The backend names are the reference's, so one parity test runs over both
 packages; a name means the same data layout and fallback rules, not the
 same hardware.  A (combine, dtype, ndim) cell a backend does not serve falls
 back to the "xla" primitives, so backend choice never changes semantics:
 
-    backend    pull/push sum      min/max     weighted    batched
-    "xla"      segment reduce     yes         yes         yes
-    "pallas"   kernel K2          fallback    yes (f32)   fallback
-    "bsr"      kernel K1          fallback    fallback    fallback
+    backend    pull/push sum      min/max     weighted    batched   frontier
+    "xla"      segment reduce     yes         yes         yes       —
+    "pallas"   kernel K2          fallback    yes (f32)   fallback  —
+    "bsr"      kernel K1          fallback    fallback    fallback  —
+    "frontier" fallback (xla)     fallback    —           —         sparse
 
 ``fixpoint`` iterates a body a fixed number of rounds, until the state
 stops changing, or until the L1 residual drops to ``tol``: a Python loop in
 place of the reference's ``fori_loop`` / ``while_loop``.
+
+``frontier_fixpoint`` is its sparse dual for monotone min-relaxations
+(BFS / SSSP / min-label propagation): each round relaxes only the out-edges
+of the vertices whose value changed last round, gathered from the plan's
+CSR through a compacted index array, and switches to a dense pull over all
+in-edges once the frontier's out-edges reach a quarter of |E|.  For a
+monotone relaxation the two are equal round for round, so the result is
+the dense backends' bit for bit.
+
+``select_backend(plan, backend, op=...)`` resolves an explicit backend,
+then ``REPRO_ENGINE_BACKEND``, then the size rule; an op a backend has no
+path for (``_FRONTIER_OPS`` for "frontier") resolves to "xla".
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..kernels.bsr_spmv import bsr_spmv
 from ..kernels.segment_sum import (DEFAULT_BLOCK, DEFAULT_CHUNK,
                                    segment_sum_chunked)
+from .table import next_capacity
 
-__all__ = ["BACKENDS", "select_backend", "get_exec", "push", "pull",
-           "fixpoint", "XlaExec", "PallasExec", "BsrExec"]
+__all__ = ["BACKENDS", "select_backend", "backend_supports", "get_exec",
+           "push", "pull", "fixpoint", "frontier_fixpoint", "XlaExec",
+           "PallasExec", "BsrExec", "FrontierExec"]
 
 BACKENDS = ("xla", "pallas", "bsr", "frontier", "sharded")
 
 # backends of the reference that later slices port (ROADMAP.md Queue 1)
-_NOT_PORTED = {"frontier": "Queue 1 item 7", "sharded": "Queue 1 item 14"}
+_NOT_PORTED = {"sharded": "Queue 1 item 14"}
+
+# below this the frontier path's per-round host read outweighs the edge
+# relaxations it saves (the reference's threshold, from a CPU measurement;
+# no H100 measurement has replaced it)
+_FRONTIER_MIN_EDGES = 1 << 15
+# ops auto-routed to "frontier" on large graphs: single-source traversals
+# only (a batch's union frontier densifies fast; CC's dense body
+# pointer-jumps in O(log n) rounds), so algorithms pass these op tags only
+# for single-source calls
+_FRONTIER_AUTO_OPS = frozenset({"bfs", "sssp"})
+# ops with a sparse monotone-relaxation formulation; any other op on
+# "frontier" resolves to "xla" (same results, dense speed)
+_FRONTIER_OPS = frozenset({"bfs", "sssp", "connected_components",
+                           "label_propagation"})
 
 
-def select_backend(plan, backend: Optional[str] = None) -> str:
-    """Resolve the backend: an explicit choice, else ``"xla"``.
+def backend_supports(backend: str, op: Optional[str]) -> bool:
+    """Whether ``backend`` has a dedicated path for ``op`` (None = generic)."""
+    if backend == "frontier" and op is not None:
+        return op in _FRONTIER_OPS
+    return True
 
-    ``None`` takes the reference's non-TPU rule.  No H100 measurement yet
-    says when the kernels beat the plain reductions, so they run only when
-    asked for.
+
+def select_backend(plan, backend: Optional[str] = None,
+                   op: Optional[str] = None) -> str:
+    """Resolve the backend: per-call override > ``REPRO_ENGINE_BACKEND`` >
+    size rule.
+
+    The size rule is the reference's off-TPU one: single-source ``bfs`` and
+    ``sssp`` on graphs of at least 2^15 edges take ``"frontier"``,
+    everything else ``"xla"``.  No H100 measurement yet says when the
+    kernels beat the plain reductions, so they run only when asked for.
+    ``op`` (an algorithm name) resolves a backend without a path for it to
+    ``"xla"``, so the call succeeds with the same results.
     """
     if backend is None:
+        env = os.environ.get("REPRO_ENGINE_BACKEND")
+        if env:
+            return select_backend(plan, env, op)
+        if op in _FRONTIER_AUTO_OPS and plan.n_edges >= _FRONTIER_MIN_EDGES:
+            return "frontier"
         return "xla"
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; want one of {BACKENDS}")
@@ -65,7 +117,7 @@ def select_backend(plan, backend: Optional[str] = None) -> str:
         raise NotImplementedError(
             f"backend {backend!r} is not ported yet (ROADMAP.md "
             f"{_NOT_PORTED[backend]})")
-    return backend
+    return backend if backend_supports(backend, op) else "xla"
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +182,12 @@ class XlaExec:
     # -- edge-order gathers -----------------------------------------------------
     def in_src_vals(self, x: torch.Tensor) -> torch.Tensor:
         return x.index_select(0, self.in_src)
+
+    def in_dst_vals(self, x: torch.Tensor) -> torch.Tensor:
+        return x.index_select(0, self.in_dst)
+
+    def out_src_vals(self, x: torch.Tensor) -> torch.Tensor:
+        return x.index_select(0, self.out_src)
 
     def out_dst_vals(self, x: torch.Tensor) -> torch.Tensor:
         return x.index_select(0, self.out_dst)
@@ -251,6 +309,22 @@ class BsrExec(XlaExec):
         return self._spmv(self.tiles_t, self.rows_t, self.cols_t, x)
 
 
+@dataclass
+class FrontierExec(XlaExec):
+    """CSR-slice gathers for :func:`frontier_fixpoint`.
+
+    Generic ``pull``/``push`` inherit the "xla" reductions (the fallback
+    for ops without a sparse formulation); the frontier state is the
+    plan's trimmed out-CSR and ``w_perm``, the in-order -> out-order weight
+    permutation.
+    """
+
+    out_ptr: torch.Tensor = None   # (n+1,) trimmed row pointers
+    adj: torch.Tensor = None       # capacity-padded out-neighbour array
+    deg_pad: torch.Tensor = None   # (n+1,) out-degrees, sentinel row n = 0
+    w_perm: torch.Tensor = None    # (E,) in-order position of each out edge
+
+
 # ---------------------------------------------------------------------------
 # exec construction (cached on the plan)
 # ---------------------------------------------------------------------------
@@ -278,6 +352,9 @@ def get_exec(plan, backend: Optional[str] = None, *,
             plan.out_deg.long())
     if backend == "xla":
         ex = XlaExec(*base)
+    elif backend == "frontier":
+        ptr, idx, deg_pad = plan.csr_out()
+        ex = FrontierExec(*base, ptr, idx, deg_pad, plan.in_perm_out())
     elif backend == "pallas":
         p_chunk, p_slot, p_lids, p_blk, nb_in, _ = plan.chunk_layout_in(chunk)
         q_chunk, q_slot, q_lids, q_blk, nb_out, _ = plan.chunk_layout_out(chunk)
@@ -370,3 +447,139 @@ def fixpoint(plan_or_exec, body: Callable, init, *,
         if not go:
             break
     return state
+
+
+# ---------------------------------------------------------------------------
+# frontier fixpoint — sparse monotone min-relaxation
+# ---------------------------------------------------------------------------
+
+# direction-optimization switch: dense pull once the frontier's out-edges
+# reach |E| / _DENSE_EDGE_DIV (the dense round costs ~|E|, the sparse round
+# ~frontier edges plus compaction)
+_DENSE_EDGE_DIV = 4
+_MIN_BUCKET = 16
+
+
+def _stats_of(mask: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
+    """(frontier size, frontier out-edge count): the host's planning pair."""
+    return torch.stack([mask.sum(), torch.where(mask, deg, 0).sum()])
+
+
+def _frontier_round_out(ex, state, new, caps, t):
+    """Shared step epilogue: freeze capped rows; next mask and its stats."""
+    new = torch.where((t < caps)[:, None], new, state)
+    mask = (new < state).any(dim=0)
+    return new, mask, _stats_of(mask, ex.deg_pad[: ex.n_nodes])
+
+
+def _frontier_push_step(ex, state, f_idx, w_out, caps, t, e_budget):
+    """One sparse push round over the compacted frontier.
+
+    ``f_idx`` is the frontier padded with the sentinel vertex ``n`` (degree
+    0 in ``deg_pad``, so pad slots own no edge lanes); ``e_budget`` lanes
+    (a bucketed power of two >= the frontier's out-edges) each find their
+    frontier slot by a prefix-sum search, gather the neighbour from the
+    CSR and scatter-min ``state[u] (+ w)`` into its column.  Min does not
+    depend on order, so the scatter gives the same bits on every run.
+    """
+    n = ex.n_nodes
+    k = state.shape[0]
+    deg = ex.deg_pad[f_idx]
+    off = ex.out_ptr[f_idx]
+    cum = torch.cumsum(deg, 0) - deg                    # exclusive prefix
+    total = deg.sum()
+    j = torch.arange(e_budget, dtype=cum.dtype, device=state.device)
+    owner = torch.clamp(torch.searchsorted(cum, j, right=True) - 1,
+                        0, f_idx.shape[0] - 1)
+    # lanes past the frontier's edges clamp to a real edge and write to
+    # the sentinel column n
+    pos = torch.clamp(off[owner] + (j - cum[owner]), 0, ex.n_edges - 1)
+    v = torch.where(j < total, ex.adj[pos].long(), n)
+    cand = state[:, torch.clamp(f_idx[owner], max=n - 1)]
+    if w_out is not None:
+        # scalar = uniform hop; array = per-edge, already in out order
+        cand = cand + (w_out if w_out.dim() == 0 else w_out[pos])
+    new = torch.nn.functional.pad(state, (0, 1)).scatter_reduce_(
+        1, v.expand(k, -1), cand, "amin", include_self=True)[:, :n]
+    return _frontier_round_out(ex, state, new, caps, t)
+
+
+def _frontier_dense_step(ex, state, w_in, caps, t):
+    """One dense pull round (the direction-optimized big-frontier path).
+
+    Equal to the sparse push round for round: re-relaxing an edge whose
+    source did not change last round is a no-op for a monotone min.
+    """
+    relaxed = torch.stack([ex.pull(s, "min", w_in, "add") for s in state])
+    return _frontier_round_out(ex, state, torch.minimum(state, relaxed),
+                               caps, t)
+
+
+def frontier_fixpoint(plan_or_exec, init, frontier, *,
+                      weights=None, caps=None) -> torch.Tensor:
+    """Sparse monotone min-relaxation to fixpoint (BFS / SSSP / min-label).
+
+    Iterates ``state[v] <- min(state[v], min over frontier in-neighbours u
+    of state[u] (+ w(u, v)))``, where the frontier is the set of vertices
+    whose value changed last round, until the frontier empties or every
+    row reaches its cap.  ``init`` is ``(n,)`` or batched ``(k, n)``;
+    ``frontier`` an ``(n,)`` bool mask seeding round 0 (batched: the union
+    over rows).
+    ``weights`` is a scalar hop or per-edge in in-edge order (the sssp
+    convention), re-keyed to out order through ``w_perm``.  ``caps``
+    (scalar or ``(k,)``) freezes row ``i`` after ``caps[i]`` rounds: the
+    same as running that row alone for ``caps[i]`` rounds.
+
+    The host plans each round from one read of the (frontier size,
+    frontier out-edges) pair; everything else stays on the device.
+    ``frontier_fixpoint.rounds`` and ``.dense_rounds`` count the rounds run
+    and those that took the dense pull.
+    """
+    ex = (plan_or_exec if isinstance(plan_or_exec, FrontierExec)
+          else get_exec(plan_or_exec, "frontier"))
+    dev = ex.in_src.device
+    init = torch.as_tensor(init, device=dev)
+    batched = init.dim() == 2
+    state = init if batched else init[None, :]
+    k, n = state.shape
+    if n == 0 or k == 0 or ex.n_edges == 0:
+        return init                     # no edges: nothing can relax
+    w_in = w_out = None
+    if weights is not None:
+        w_in = torch.as_tensor(weights, device=dev)
+        w_out = w_in if w_in.dim() == 0 else w_in[ex.w_perm]
+    big = int(np.iinfo(np.int32).max)
+    if caps is None:          # made on the device: no copy, no host sync
+        caps_t = torch.full((k,), big, dtype=torch.int64, device=dev)
+        bound = big
+    else:
+        caps_np = np.minimum(np.broadcast_to(np.atleast_1d(
+            np.asarray(caps, dtype=np.int64)), (k,)), big)
+        caps_t = torch.from_numpy(caps_np).to(dev)
+        bound = int(caps_np.max())
+
+    mask = torch.as_tensor(frontier, dtype=torch.bool, device=dev)
+    stats = _stats_of(mask, ex.deg_pad[:n])
+    t = 0
+    while t < bound:
+        cnt, fe = stats.tolist()          # the one host read of the round
+        if cnt == 0:
+            break
+        frontier_fixpoint.rounds += 1
+        if fe * _DENSE_EDGE_DIV >= ex.n_edges:
+            frontier_fixpoint.dense_rounds += 1
+            state, mask, stats = _frontier_dense_step(ex, state, w_in,
+                                                      caps_t, t)
+        else:
+            b = min(next_capacity(cnt, minimum=_MIN_BUCKET),
+                    next_capacity(max(n, 1)))
+            f_idx = torch.nonzero_static(mask, size=b, fill_value=n)[:, 0]
+            eb = next_capacity(max(fe, 1), minimum=_MIN_BUCKET)
+            state, mask, stats = _frontier_push_step(ex, state, f_idx, w_out,
+                                                     caps_t, t, eb)
+        t += 1
+    return state if batched else state[0]
+
+
+frontier_fixpoint.rounds = 0
+frontier_fixpoint.dense_rounds = 0

@@ -21,9 +21,11 @@ Lazily built and cached on first use:
     tri_triples(block) BSR tile triples for K3
     chunk_layout_in / chunk_layout_out
                        chunk structure for K2 (pull / push order)
+    csr_out / csr_in   trimmed CSR with a degree-0 sentinel row (frontier)
+    in_perm_out        in-order -> out-order edge permutation (frontier
+                       weights)
 
-Not in this slice: ``patch``, ``sharded``, the frontier's CSR families and
-byte accounting / eviction.
+Not in this slice: ``patch``, ``sharded`` and byte accounting / eviction.
 """
 
 from __future__ import annotations
@@ -69,6 +71,10 @@ class GraphPlan:
     _tri_triples: Dict = field(default_factory=dict, repr=False, compare=False)
     _chunks_in: Dict = field(default_factory=dict, repr=False, compare=False)
     _chunks_out: Dict = field(default_factory=dict, repr=False, compare=False)
+    _csr_out: Optional[Tuple] = field(default=None, repr=False, compare=False)
+    _csr_in: Optional[Tuple] = field(default=None, repr=False, compare=False)
+    _in_perm_out: Optional[torch.Tensor] = field(default=None, repr=False,
+                                                 compare=False)
 
     @classmethod
     def build(cls, g: Graph) -> "GraphPlan":
@@ -125,6 +131,46 @@ class GraphPlan:
             nbr[s_sorted, slot] = d_sorted
             self._oriented = (osrc, odst, nbr, odeg.to(torch.int32))
         return self._oriented
+
+    def csr_out(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Out-CSR for frontier gathers: ``(ptr, idx, deg_pad)``.
+
+        ``ptr`` is the trimmed ``(n+1,)`` row-pointer prefix, ``idx`` the
+        capacity-padded neighbour array, and ``deg_pad`` an ``(n+1,)``
+        degree vector whose sentinel row ``n`` (the frontier's pad vertex)
+        has degree 0, so padded frontier slots own no edges.
+        """
+        if self._csr_out is None:
+            self._csr_out = self._csr(self.graph.out_ptr,
+                                      self.graph.out_idx, self.out_deg)
+        return self._csr_out
+
+    def csr_in(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """In-CSR ``(ptr, idx, deg_pad)``, the pull-side dual of
+        :meth:`csr_out`; the dense pull reduces over the sorted edge arrays,
+        so nothing in the engine reads it yet."""
+        if self._csr_in is None:
+            self._csr_in = self._csr(self.graph.in_ptr, self.graph.in_idx,
+                                     self.in_deg)
+        return self._csr_in
+
+    def _csr(self, ptr, idx, deg):
+        deg_pad = torch.cat([deg, torch.zeros((1,), dtype=deg.dtype,
+                                              device=deg.device)])
+        return ptr[: self.n_nodes + 1], idx, deg_pad
+
+    def in_perm_out(self) -> torch.Tensor:
+        """Permutation ``p`` with ``w_out = w_in[p]`` (int32).
+
+        Per-edge values follow the sssp convention (in-edge order); the
+        frontier push walks out-edge CSR order.  ``p[j]`` is the in-order
+        position of the j-th out-order edge: sorting the in-order edges by
+        (src, dst) gives out order.
+        """
+        if self._in_perm_out is None:
+            self._in_perm_out = _lexsort(self.in_dst, self.in_src).to(
+                torch.int32)
+        return self._in_perm_out
 
     def bsr(self, block: int = DEFAULT_BLOCK
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:

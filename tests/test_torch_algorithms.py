@@ -1,11 +1,15 @@
 """The port's algorithms against the reference's and the NumPy oracles (CPU).
 
 The same edge arrays build both packages' graphs.  PageRank (``n_iter`` and
-``tol``) and HITS must match the reference on the same backend within 1e-5
-and PageRank the NumPy power iteration within 2e-5; connected components
-and triangle counts must match exactly.  On the CPU the port's "pallas" and
-"bsr" backends run the kernels' plain versions; the reference runs its
-Pallas kernels in interpret mode.
+``tol``), HITS, personalized PageRank and eigenvector centrality must match
+the reference on the same backend within 1e-5 and PageRank the NumPy power
+iteration within 2e-5; connected components, k-cores, core numbers, SCCs,
+per-node triangles, degree histograms and triangle counts must match
+exactly.  The integer results of the reference do not depend on its
+backend, so they are computed once per graph, on "xla", and every backend
+of the port is held to them.  On the CPU the port's "pallas" and "bsr"
+backends run the kernels' plain versions; the reference runs its Pallas
+kernels in interpret mode.
 """
 
 import functools
@@ -15,7 +19,7 @@ import pytest
 import torch
 
 from _torch_oracles import (build, corpus, edge_list, np_connected_components,
-                            np_pagerank, np_triangle_count)
+                            np_k_core, np_pagerank, np_triangle_count)
 from repro.core import algorithms as RA
 from repro.core.graph import Graph as RGraph
 from repro_torch.core import algorithms as A
@@ -157,9 +161,13 @@ def test_empty_segments_keep_the_reference_identities():
 
 def test_unported_backends_raise():
     _, g = _pair("rmat")
-    for be in ("frontier", "sharded"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item"):
-            A.pagerank(g, backend=be)
+    # "frontier" is ported: PageRank has no sparse formulation and runs
+    # through FrontierExec's inherited dense pull, as in the reference
+    assert type(engine.get_exec(g.plan(), "frontier")) is engine.FrontierExec
+    np.testing.assert_array_equal(A.pagerank(g, backend="frontier").numpy(),
+                                  A.pagerank(g, backend="xla").numpy())
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        A.pagerank(g, backend="sharded")
     with pytest.raises(NotImplementedError):
         A.triangle_count(g.to_undirected(), backend="sharded")
     with pytest.raises(ValueError):
@@ -208,3 +216,166 @@ def test_hits_pagerank_on_the_zero_edge_graph():
     assert not hub.any() and not auth.any()
     np.testing.assert_allclose(A.pagerank(g).numpy(), np.full(8, 1 / 8),
                                atol=1e-7)
+
+
+
+# ---------------------------------------------------------------------------
+# the rest of the analytics: k-core, core numbers, SCC, PPR, eigenvector
+# centrality, per-node triangles, degree measures
+# ---------------------------------------------------------------------------
+
+ALL_BACKENDS = BACKENDS + ["frontier"]
+ALL_CASES = [(name, be) for name in NAMES for be in ALL_BACKENDS]
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_int(name, what):
+    """The reference's integer result for one graph, on "xla" (numpy)."""
+    r, _ = _pair(name)
+    if what == "k_core":
+        return [np.asarray(RA.k_core(r, k, backend="xla")) for k in (0, 2, 3)]
+    if what == "core_numbers":
+        return np.asarray(RA.core_numbers(r, backend="xla"))
+    if what == "scc":
+        return np.asarray(RA.strongly_connected_components(r, backend="xla"))
+    raise KeyError(what)
+
+
+def _float_backend(backend):
+    # the reference's "frontier" pulls are its "xla" ones: compare to those
+    # instead of compiling the same fixpoint again
+    return "xla" if backend == "frontier" else backend
+
+
+@pytest.mark.parametrize("name,backend", ALL_CASES)
+def test_k_core_and_core_numbers_exact(name, backend):
+    _, g = _pair(name)
+    for k, want in zip((0, 2, 3), _ref_int(name, "k_core")):
+        got = A.k_core(g, k, backend=backend)
+        assert got.dtype == torch.bool and got.shape == (g.n_nodes,)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"k={k}")
+    got = A.core_numbers(g, backend=backend)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), _ref_int(name, "core_numbers"))
+
+
+@pytest.mark.parametrize("name,backend", ALL_CASES)
+def test_strongly_connected_components_exact(name, backend):
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components as sp_cc
+    _, g = _pair(name)
+    got = A.strongly_connected_components(g, backend=backend).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, _ref_int(name, "scc"))
+    n = g.n_nodes
+    s, d = (t.numpy() for t in g.out_edges())
+    _, comp = sp_cc(coo_matrix((np.ones(len(s)), (s, d)), shape=(n, n)),
+                    directed=True, connection="strong")
+    max_id = np.full(comp.max() + 1 if n else 0, -1)
+    np.maximum.at(max_id, comp, np.arange(n))
+    np.testing.assert_array_equal(got, max_id[comp])
+
+
+@pytest.mark.parametrize("name,backend", ALL_CASES)
+def test_eigenvector_centrality_parity(name, backend):
+    r, g = _pair(name)
+    got = A.eigenvector_centrality(g, n_iter=50, backend=backend)
+    want = RA.eigenvector_centrality(r, n_iter=50,
+                                     backend=_float_backend(backend),
+                                     interpret=True)
+    assert got.dtype == torch.float32 and got.shape == (g.n_nodes,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("name,backend", ALL_CASES)
+def test_personalized_pagerank_parity(name, backend):
+    r, g = _pair(name)
+    sources = np.asarray([0, g.n_nodes - 1], np.int32)
+    got = A.personalized_pagerank(g, torch.from_numpy(sources),
+                                  backend=backend)
+    want = RA.personalized_pagerank(r, sources,
+                                    backend=_float_backend(backend),
+                                    interpret=True)
+    assert got.shape == (2, g.n_nodes)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    for i, s in enumerate(sources):   # each row is a standalone call
+        np.testing.assert_array_equal(
+            got[i].numpy(),
+            A.personalized_pagerank(g, int(s), backend=backend).numpy())
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_personalized_pagerank_caps_and_tol(name):
+    r, g = _pair(name)
+    sources = np.asarray([0, g.n_nodes // 2, g.n_nodes - 1], np.int32)
+    caps = np.asarray([1, 4, 12], np.int32)
+    got = A.personalized_pagerank(g, torch.from_numpy(sources), n_iter=caps)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(RA.personalized_pagerank(r, sources,
+                                                         n_iter=caps)),
+        atol=1e-5)
+    for i, (s, c) in enumerate(zip(sources, caps)):
+        np.testing.assert_array_equal(
+            got[i].numpy(),
+            A.personalized_pagerank(g, int(s), n_iter=int(c)).numpy())
+    init = np.full((3, g.n_nodes), 1.0 / g.n_nodes, np.float32)
+    got = A.personalized_pagerank(g, torch.from_numpy(sources), tol=1e-6,
+                                  init=torch.from_numpy(init))
+    want = RA.personalized_pagerank(r, sources, tol=1e-6, init=init)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    got = A.personalized_pagerank(g, int(sources[1]), tol=1e-6)
+    want = RA.personalized_pagerank(r, int(sources[1]), tol=1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_per_node_triangles_and_clustering(name):
+    r, g = _pair(name)
+    u, ru = (g.to_undirected(), r.to_undirected()) if g.n_edges else (g, r)
+    tri = A.per_node_triangles(u, edge_chunk=64)
+    assert tri.dtype == torch.int32
+    np.testing.assert_array_equal(tri.numpy(),
+                                  np.asarray(RA.per_node_triangles(ru)))
+    assert int(tri.sum()) == 3 * A.triangle_count(u)
+    np.testing.assert_allclose(A.clustering_coefficient(u).numpy(),
+                               np.asarray(RA.clustering_coefficient(ru)),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_degree_measures(name):
+    r, g = _pair(name)
+    for direction in ("out", "in"):
+        got = A.degree_histogram(g, direction)
+        want = np.asarray(RA.degree_histogram(r, direction))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_allclose(A.degree_centrality(g, direction).numpy(),
+                                   np.asarray(RA.degree_centrality(
+                                       r, direction)), atol=1e-5)
+
+
+@pytest.mark.parametrize("name,backend", ORACLE_CASES)
+def test_k_core_matches_numpy_peel(name, backend):
+    g = build(Graph, BY_NAME[name], device=CPU)
+    edges, n = _edges(g), g.n_nodes
+    for k in (1, 2, 3):
+        np.testing.assert_array_equal(A.k_core(g, k, backend=backend).numpy(),
+                                      np_k_core(edges, n, k))
+
+
+def test_isolated_vertices_map_back_from_the_undirected_view():
+    # ids 3 and 4 have no non-loop edges: absent from to_undirected()
+    g = Graph.from_dense_edges(np.asarray([0, 1, 4], np.int32),
+                               np.asarray([1, 2, 4], np.int32), 5, device=CPU)
+    assert A.k_core(g, 1).tolist() == [True, True, True, False, False]
+    assert A.k_core(g, 0).tolist() == [True] * 5
+    assert A.core_numbers(g).tolist() == [1, 1, 1, 0, 0]
+    assert A.label_propagation(g).tolist() == [0, 0, 0, 3, 4]
+    empty = Graph.from_edges(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                             device=CPU)
+    for fn in (A.k_core, A.core_numbers, A.strongly_connected_components,
+               A.per_node_triangles, A.label_propagation,
+               A.eigenvector_centrality, A.clustering_coefficient):
+        out = fn(empty, 2) if fn is A.k_core else fn(empty)
+        assert out.shape == (0,)

@@ -6,13 +6,20 @@ The file imports no jax, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Inputs come from numpy seeds, as in ``tests/test_kernels.py``'s sweeps, and
-go through the kernel and its plain version on the same card.
+go through the kernel and its plain version on the same card.  The last
+tests drive the engine on the card: ``frontier_fixpoint`` on CUDA tensors
+against the same call on the CPU, bit for bit, over the parity corpus, and
+K1 and K2 under ``eigenvector_centrality`` and ``k_core`` against "xla".
 """
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_oracles import build, corpus
+from repro_torch.core import algorithms as A
+from repro_torch.core.graph import Graph
+from repro_torch.data.rmat import rmat_edges
 from repro_torch.kernels import bsr_spmv as k1
 from repro_torch.kernels import bsr_tricount as k3
 from repro_torch.kernels import ops
@@ -372,3 +379,53 @@ def test_flash_attention_kernel_strided_input(dev):
     got = flash_attention_fwd(q, k, v)
     want = flash_attention_fwd_plain(q, k, v)
     assert float((got - want).abs().max()) <= 2e-5
+
+
+
+# ---------------------------------------------------------------------------
+# the engine on the card
+# ---------------------------------------------------------------------------
+
+GRAPHS = corpus() + [("rmat9", "edges", *rmat_edges(9, 8, seed=9), None)]
+
+
+@pytest.mark.parametrize("entry", GRAPHS, ids=[e[0] for e in GRAPHS])
+def test_frontier_fixpoint_on_the_card_equals_cpu(dev, entry):
+    gc = build(Graph, entry, device="cpu")
+    gd = build(Graph, entry, device=dev)
+    s = int(torch.argmax(gc.plan().out_deg))
+    w = np.random.default_rng(7).uniform(0.5, 4.0, gc.n_edges).astype(
+        np.float32)
+    srcs = np.asarray([0, s, gc.n_nodes - 1], np.int32)
+    caps = np.asarray([1, 3, 10_000], np.int32)
+    runs = (
+        lambda g: A.bfs(g, s, backend="frontier"),
+        lambda g: A.sssp(g, s, torch.from_numpy(w).to(g.device),
+                         backend="frontier"),
+        lambda g: A.bfs(g, torch.from_numpy(srcs).to(g.device), n_iter=caps,
+                        backend="frontier"),
+        lambda g: A.connected_components(g, backend="frontier"),
+        lambda g: A.label_propagation(g, n_iter=3, backend="frontier"),
+    )
+    for i, fn in enumerate(runs):
+        got, want = fn(gd), fn(gc)
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        assert torch.equal(got.cpu(), want), f"run {i}"
+
+
+@pytest.mark.parametrize("backend,kernel", [("bsr", bsr_spmv),
+                                            ("pallas", segment_sum_chunked)])
+def test_k1_k2_under_eigenvector_centrality_and_k_core(dev, backend, kernel):
+    g = Graph.from_edges(*rmat_edges(9, 8, seed=9), device=dev)
+    before = kernel.launches
+    got = A.eigenvector_centrality(g, n_iter=50, backend=backend)
+    assert kernel.launches - before == 50
+    want = A.eigenvector_centrality(g, n_iter=50, backend="xla")
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    for k in (2, 3, 8):
+        before = kernel.launches
+        got = A.k_core(g, k, backend=backend)
+        assert kernel.launches > before
+        assert torch.equal(got, A.k_core(g, k, backend="xla")), f"k={k}"
+    assert torch.equal(A.core_numbers(g, backend=backend),
+                       A.core_numbers(g, backend="xla"))
