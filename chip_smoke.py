@@ -47,6 +47,23 @@ Phases (each prints one JSON line with its seconds):
    times more, the order alternating.  Its two lines print each analytic's
    seconds (under ``"frontier"`` and ``"analytics"``), the frontier's
    rounds and dense rounds, and the launches.
+3c. the table front end and provenance, in a launch window of its own.
+   (a) Phase 2's ``rmat_edges(22, 16)`` as a 67,108,864-row edge table
+   (capacity 2^26; ``weight`` uniform in [1, 10), numpy seed 7):
+   ``select`` weight >= 5, ``to_graph`` (self loops dropped), a 10-round
+   "pallas" PageRank (K2 exactly 10 launches) within 1e-5 of "xla",
+   ``table_from_map``, ``group_by`` src (count, int sum, mean; the same
+   bits twice), ``join`` of the top 1,000 nodes with the selected edges,
+   ``graph_to_edge_table`` + ``order``; every step against numpy.  (b)
+   the paper's §4.1 StackOverflow pipeline on 4,000,000 synthetic posts
+   (12,000 users; numpy seed 0): three selects, the AnswerId = PostId
+   join, ``to_graph`` on the users, a 10-round "bsr" PageRank (K1 exactly
+   10 launches), "bsr" triangles of the undirected user graph (one K3
+   launch) equal to "xla"'s, ``table_from_map``.  In both, the result's
+   provenance chain is exported (the script must compile) and replayed
+   against the root table: bit-identical, K2 or K1 10 more launches; a
+   tracked "xla" PageRank must make as many host syncs as an untracked
+   one.  Window: K1 20, K2 20, K3 1.
 4. serving, kernel K4: ``qwen2.5-3b`` at full width and depth (36
    layers, d_model 2048) with random weights from a seeded generator,
    behind ``Engine`` with ``ServeConfig(batch=4, max_seq=2080)``: 4 prompts
@@ -82,7 +99,7 @@ Phases (each prints one JSON line with its seconds):
    ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
-path's, and phase 3b's are its own: each window's counts are zeroed just
+path's, and phases 3b's and 3c's are their own: each window's counts are zeroed just
 before it and read just after it.  Any failed check raises, and
 the script exits non-zero without its last line, which on success is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -248,7 +265,7 @@ def phase_pagerank_scale(dev, scale):
           "edges": g.n_edges, "seconds_rmat": t_gen,
           "seconds_graph": t_build, "runs": res,
           "seconds": time.perf_counter() - t0})
-    return g
+    return g, (src, dst)
 
 
 def phase_bsr(dev, scale):
@@ -614,6 +631,304 @@ def phase_traversal(dev, g22, g14, u14, scales=(22, 14)):
           "seconds_per_node_triangles": t_tri, "frontier": c14,
           "seconds": time.perf_counter() - t0})
 
+
+SO_USERS = 12_000   # the user graph stays under the "bsr" ceiling of 2^14 nodes
+SO_POSTS = 4_000_000
+
+
+def tracked_syncs(g):
+    """Host syncs of one tracked ``pagerank`` and of one untracked call (the
+    function under ``@track``), on "xla" so that no kernel launch enters
+    the window."""
+    from repro_torch.core import algorithms as A
+    _, tracked = count_syncs(lambda: A.pagerank(g, n_iter=10, backend="xla"))
+    _, plain = count_syncs(lambda: A.pagerank.__wrapped__(g, n_iter=10,
+                                                           backend="xla"))
+    check(sum(tracked.values()) == sum(plain.values()),
+          f"tracked pagerank syncs {tracked}, untracked {plain}")
+    return {"tracked": tracked, "untracked": plain}
+
+
+def check_ranked(ranked, g, pr, what):
+    """``table_from_map``'s table against numpy's stable argsort of -pr."""
+    pr_np = pr.cpu().numpy()
+    order = np.argsort(-pr_np, kind="stable")
+    cols = ranked.schema.names
+    check(ranked.n_valid == g.n_nodes and np.array_equal(
+        ranked.column_np(cols[0]), g.node_ids[:g.n_nodes].cpu().numpy()[order])
+        and np.array_equal(ranked.column_np(cols[1]), pr_np[order]),
+        f"{what}: table_from_map vs numpy's stable argsort of -pr")
+    return pr_np, order
+
+
+def check_replay(ranked, root_table, counter, want_launches, what):
+    """``replay`` of ``ranked``'s chain against its root: bit-identical, with
+    ``want_launches`` launches of ``counter``; the exported script compiles."""
+    from repro_torch.core import provenance as P
+    recs = P.records_of(ranked)
+    (root,) = P.roots_of(recs)
+    check(root == root_table.version, f"{what}: chain root is not the table")
+    script = P.export_script(ranked, embed_roots=False)
+    compile(script, "<export_script>", "exec")
+    check("jax" not in script, f"{what}: exported script names jax")
+    before = counter.launches
+    again, t_replay = timed(lambda: P.replay(recs, {root: root_table}))
+    launches = counter.launches - before
+    check(launches == want_launches, f"{what}: replay launched "
+          f"{counter.__name__} {launches} times, not {want_launches}")
+    check(all(torch.equal(again.columns[c], ranked.columns[c])
+              for c in ranked.schema.names)
+          and torch.equal(again.row_ids, ranked.row_ids),
+          f"{what}: replay is not bit-identical")
+    return {"ops": [r.op for r in recs], "script_lines": script.count("\n"),
+            "seconds_replay": t_replay, "replay_launches": launches}
+
+
+def phase_tables_edges(dev, edges):
+    """Phase 3c (a): the R-MAT scale-22 edge list as a 67,108,864-row table
+    (self loops and duplicates as generated) -> select -> to_graph ->
+    "pallas" PageRank (K2) -> table_from_map, plus group_by, join, the
+    graph's edge table in order, export and replay; every step against
+    numpy."""
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import relational as R
+    from repro_torch.core.convert import (graph_to_edge_table,
+                                          table_from_map, to_graph)
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.table import INT, Table, next_capacity
+    from repro_torch.kernels.segment_sum import segment_sum_chunked as k2
+    t0 = time.perf_counter()
+    src, dst = edges
+    n = int(src.shape[0])
+    weight = np.random.default_rng(7).integers(1, 10, n, dtype=np.int32)
+    secs = {}
+
+    def step(name, fn):
+        out, secs[name] = timed(fn)
+        return out
+
+    t = step("from_columns", lambda: Table.from_columns(
+        {"src": INT, "dst": INT, "weight": INT},
+        {"src": src, "dst": dst, "weight": weight}, device=dev))
+    check(t.n_valid == n and t.capacity == next_capacity(n) == 1 << 26,
+          f"edge table: {t.n_valid} rows, capacity {t.capacity}")
+    strong = step("select", lambda: R.select(t, "weight", ">=", 5))
+    keep = np.flatnonzero(weight >= 5)
+    ss, sd, sw = src[keep], dst[keep], weight[keep]
+    check(strong.n_valid == keep.size and strong.capacity == t.capacity
+          and np.array_equal(strong.row_ids[:keep.size].cpu().numpy(), keep)
+          and np.array_equal(strong.column_np("dst"), sd),
+          "select weight >= 5 vs numpy")
+
+    g = step("to_graph", lambda: to_graph(strong, "src", "dst",
+                                          drop_self_loops=True))
+    ref = Graph.from_edges(ss, sd, drop_self_loops=True, device=dev)
+    check(g.n_nodes == ref.n_nodes and g.n_edges == ref.n_edges and
+          all(torch.equal(a, b) for a, b in zip(g.out_edges(), ref.out_edges()))
+          and torch.equal(g.node_ids, ref.node_ids),
+          "to_graph vs Graph.from_edges of the numpy-selected edges")
+    del ref
+
+    before = k2.launches
+    pr = step("pagerank_pallas", lambda: A.pagerank(g, n_iter=10,
+                                                    backend="pallas"))
+    k2_pr = k2.launches - before
+    want = step("pagerank_xla", lambda: A.pagerank(g, n_iter=10,
+                                                   backend="xla"))
+    err, scale = max_abs(pr, want), float(want.abs().max())
+    check(err <= TOL * scale, f"pagerank pallas vs xla: {err} > {TOL} * {scale}")
+    check(k2_pr == 10, f"K2 launched {k2_pr} times in 10 PageRank rounds")
+    ranked = step("table_from_map", lambda: table_from_map(
+        g, pr, "node", "pagerank"))
+    pr_np, order = check_ranked(ranked, g, pr, "edges")
+
+    aggs = {"deg": ("dst", "count"), "w": ("weight", "sum"),
+            "wm": ("weight", "mean")}
+    gb = step("group_by", lambda: R.group_by(strong, "src", aggs))
+    keys = np.unique(ss)
+    deg = np.bincount(ss, minlength=1 << 22)
+    w = np.bincount(ss, weights=sw, minlength=1 << 22)
+    wm_err = float(np.abs(gb.column_np("wm").astype(np.float64)
+                          - w[keys] / deg[keys]).max())
+    check(gb.n_valid == keys.size
+          and np.array_equal(gb.column_np("src"), keys)
+          and np.array_equal(gb.column_np("deg"), deg[keys])
+          and np.array_equal(gb.column_np("w"), w[keys].astype(np.int64))
+          and wm_err <= 1e-6, f"group_by vs numpy (mean max|d| {wm_err})")
+    gb2 = step("group_by_again", lambda: R.group_by(strong, "src", aggs))
+    check(all(torch.equal(gb.columns[c], gb2.columns[c]) for c in aggs)
+          and torch.equal(gb.columns["src"], gb2.columns["src"]),
+          "group_by twice: not the same bits")
+
+    n_top = min(1000, ranked.n_valid)
+    top = ranked.gathered(torch.arange(n_top, device=dev), n_top)
+    j = step("join", lambda: R.join(top, strong, "node", "src"))
+    top_nodes, top_pr = ranked.column_np("node")[:n_top], pr_np[order][:n_top]
+    hit = np.isin(ss, top_nodes)
+    by = np.argsort(top_nodes)
+    score = top_pr[by][np.searchsorted(top_nodes[by], ss[hit])]
+    want_rows = (ss[hit], score, ss[hit], sd[hit], sw[hit])
+    got_rows = tuple(j.column_np(c) for c in j.schema.names)
+    check(j.n_valid == int(deg[top_nodes].sum()) == int(hit.sum()),
+          f"join: {j.n_valid} rows, not the top nodes' degree sum")
+    ow, og = np.lexsort(want_rows[::-1]), np.lexsort(got_rows[::-1])
+    check(j.schema.names == ("node", "pagerank", "src", "dst", "weight") and
+          all(np.array_equal(a[og], b[ow]) for a, b in zip(got_rows, want_rows)),
+          "join rows vs numpy as sorted multisets")
+
+    e = step("graph_to_edge_table", lambda: graph_to_edge_table(g))
+    o = step("order", lambda: R.order(e, ["src", "dst"]))
+    es, ed = e.column_np("src"), e.column_np("dst")
+    perm = np.lexsort((ed, es))
+    check(e.n_valid == g.n_edges and np.array_equal(o.column_np("src"), es[perm])
+          and np.array_equal(o.column_np("dst"), ed[perm])
+          and np.array_equal(o.row_ids[:e.n_valid].cpu().numpy(), perm),
+          "graph_to_edge_table + order vs np.lexsort")
+
+    rec = check_replay(ranked, t, k2, 10, "edges")
+    check(rec["ops"] == ["relational.select", "convert.to_graph",
+                         "algorithms.pagerank", "convert.table_from_map"],
+          f"ranked's chain is {rec['ops']}")
+    emit({"phase": "tables_edges", "rows": n, "capacity": t.capacity,
+          "selected": strong.n_valid, "nodes": g.n_nodes, "edges": g.n_edges,
+          "groups": gb.n_valid, "join_rows": j.n_valid,
+          "join_capacity": j.capacity, "table_bytes": t.nbytes(),
+          "seconds_per_op": secs, "k2_launches_pagerank": k2_pr,
+          "pagerank_max_abs_diff": err, "pagerank_max_abs_xla": scale,
+          "group_by_mean_max_abs_err": wm_err, **rec,
+          "syncs": tracked_syncs(g), "seconds": time.perf_counter() - t0})
+
+
+def synthetic_posts(n_posts, n_users, seed=0):
+    """numpy columns of a StackOverflow-shaped posts table (the shape of
+    ``examples/stackoverflow_experts.py:synthetic_stackoverflow``, made in
+    bulk): questions tagged Java/Python/C++ (p = .5/.3/.2) by uniform
+    askers, 60% with an accepted answer right after them, 70% of the
+    answers by one of 12 experts; cut to ``n_posts`` rows."""
+    rng = np.random.default_rng(seed)
+    experts = rng.choice(n_users, 12, replace=False)
+    nq = int(n_posts / 1.6 * 1.01) + 16
+    tag = rng.choice(3, nq, p=[0.5, 0.3, 0.2])
+    asker = rng.integers(0, n_users, nq)
+    answered = rng.random(nq) < 0.6
+    answerer = np.where(rng.random(nq) < 0.7,
+                        experts[rng.integers(0, 12, nq)],
+                        rng.integers(0, n_users, nq))
+    per_q = 1 + answered
+    q_pid = np.cumsum(per_q) - per_q
+    total = int(q_pid[-1] + per_q[-1])
+    check(total >= n_posts, f"{total} posts made, {n_posts} asked for")
+    a_pid = q_pid[answered] + 1
+    is_q = np.zeros(total, bool)
+    is_q[q_pid] = True
+    user = np.empty(total, np.int64)
+    user[q_pid], user[a_pid] = asker, answerer[answered]
+    answer_id = np.full(total, -1, np.int64)
+    answer_id[q_pid[answered]] = a_pid
+    cut = slice(0, n_posts)
+    return {"post_id": np.arange(n_posts), "is_q": is_q[cut],
+            "tag": np.repeat(tag, per_q)[cut], "user": user[cut],
+            "answer_id": answer_id[cut]}
+
+
+def phase_tables_stackoverflow(dev, n_posts=SO_POSTS, n_users=SO_USERS):
+    """Phase 3c (b): the paper's §4.1 pipeline on a synthetic posts table
+    (select Tag=Java, Type=question / answer, join AnswerId = PostId,
+    to_graph on the two users, "bsr" PageRank (K1), "bsr" triangles of the
+    undirected user graph (K3), table_from_map, export and replay)."""
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import relational as R
+    from repro_torch.core.convert import table_from_map, to_graph
+    from repro_torch.core.table import INT, STR, Table
+    from repro_torch.kernels.bsr_spmv import bsr_spmv as k1
+    from repro_torch.kernels.bsr_tricount import bsr_tricount as k3
+    t0 = time.perf_counter()
+    cols, t_gen = timed(lambda: synthetic_posts(n_posts, n_users))
+    tags, types = ("Java", "Python", "C++"), ("answer", "question")
+    secs = {"synthetic_posts": t_gen}
+
+    def step(name, fn):
+        out, secs[name] = timed(fn)
+        return out
+
+    posts = step("from_columns", lambda: Table.from_columns(
+        {"post_id": INT, "type": STR, "tag": STR, "user": INT,
+         "answer_id": INT},
+        {"post_id": cols["post_id"],
+         "type": [types[q] for q in cols["is_q"].tolist()],
+         "tag": [tags[c] for c in cols["tag"].tolist()],
+         "user": cols["user"], "answer_id": cols["answer_id"]}, device=dev))
+    java = cols["tag"] == 0
+    jp = step("select_java", lambda: R.select(posts, "tag", "==", "Java"))
+    q = step("select_question", lambda: R.select(jp, "type", "==", "question"))
+    a = step("select_answer", lambda: R.select(jp, "type", "==", "answer"))
+    jq, ja = java & cols["is_q"], java & ~cols["is_q"]
+    for tab, mask, what in ((jp, java, "Tag=Java"), (q, jq, "Type=question"),
+                            (a, ja, "Type=answer")):
+        check(tab.n_valid == int(mask.sum()) and np.array_equal(
+            tab.row_ids[:tab.n_valid].cpu().numpy(), np.flatnonzero(mask)),
+            f"select {what} vs numpy")
+    qa = step("join", lambda: R.join(q, a, "answer_id", "post_id"))
+    pairs = jq & np.isin(cols["answer_id"], cols["post_id"][ja])
+    asker = cols["user"][pairs]
+    answerer = cols["user"][cols["answer_id"][pairs]]
+    check(qa.n_valid == int(pairs.sum()) and np.array_equal(
+        np.sort(qa.column_np("user_1") * n_users + qa.column_np("user_2")),
+        np.sort(asker * n_users + answerer)), "join AnswerId = PostId vs numpy")
+    G = step("to_graph", lambda: to_graph(qa, "user_1", "user_2"))
+    key = np.unique(asker * n_users + answerer)
+    s, d = (G.original_of(x).cpu().numpy() for x in G.out_edges())
+    check(G.n_nodes <= 1 << 14 and np.array_equal(
+        s.astype(np.int64) * n_users + d, key), "user graph vs numpy")
+
+    before = k1.launches
+    pr = step("pagerank_bsr", lambda: A.pagerank(G, n_iter=10, backend="bsr"))
+    k1_pr = k1.launches - before
+    want = step("pagerank_xla", lambda: A.pagerank(G, n_iter=10, backend="xla"))
+    err, scale = max_abs(pr, want), float(want.abs().max())
+    check(err <= TOL * scale, f"pagerank bsr vs xla: {err} > {TOL} * {scale}")
+    check(k1_pr == 10, f"K1 launched {k1_pr} times in 10 PageRank rounds")
+    U = step("to_undirected", lambda: G.to_undirected())
+    before = k3.launches
+    tri = step("triangles_bsr", lambda: A.triangle_count(U, backend="bsr"))
+    k3_tri = k3.launches - before
+    tri_x = step("triangles_xla", lambda: A.triangle_count(U))
+    check(tri == tri_x and k3_tri == 1, f"triangles bsr {tri} vs xla {tri_x} "
+          f"with {k3_tri} K3 launches")
+    S = step("table_from_map", lambda: table_from_map(G, pr, "user", "score"))
+    check_ranked(S, G, pr, "stackoverflow")
+    rec = check_replay(S, posts, k1, 10, "stackoverflow")
+    check(rec["ops"] == ["relational.select"] * 3 + [
+        "relational.join", "convert.to_graph", "algorithms.pagerank",
+        "convert.table_from_map"], f"S's chain is {rec['ops']}")
+    emit({"phase": "tables_stackoverflow", "rows": posts.n_valid,
+          "capacity": posts.capacity, "users": n_users,
+          "java": jp.n_valid, "questions": q.n_valid, "answers": a.n_valid,
+          "join_rows": qa.n_valid, "nodes": G.n_nodes, "edges": G.n_edges,
+          "undirected_edges": U.n_edges, "triangles": tri,
+          "seconds_per_op": secs, "k1_launches_pagerank": k1_pr,
+          "k3_launches": k3_tri, "pagerank_max_abs_diff": err,
+          "pagerank_max_abs_xla": scale, **rec, "syncs": tracked_syncs(G),
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_tables(dev, edges, n_posts=SO_POSTS):
+    """Phase 3c: the table front end and provenance, in a launch window of
+    its own: K2 10 + 10 (part (a): PageRank and its replay), K1 10 + 10 and
+    K3 1 (part (b))."""
+    from repro_torch.kernels.bsr_spmv import bsr_spmv
+    from repro_torch.kernels.bsr_tricount import bsr_tricount
+    from repro_torch.kernels.segment_sum import segment_sum_chunked
+    kernels = (bsr_spmv, segment_sum_chunked, bsr_tricount)
+    for k in kernels:
+        k.launches = 0
+    phase_tables_edges(dev, edges)
+    phase_tables_stackoverflow(dev, n_posts)
+    launches = {k.__name__: k.launches for k in kernels}
+    check(launches == {"bsr_spmv": 20, "segment_sum_chunked": 20,
+                       "bsr_tricount": 1},
+          f"phase 3c launches {launches}")
+    emit({"phase": "tables", "launches": launches})
 
 def phase_serve(dev, kernels, profile):
     from repro_torch.configs.base import get_config
@@ -1067,7 +1382,7 @@ def main() -> int:
                flash_attention_fwd)
     for k in kernels:
         k.launches = 0
-    g22 = phase_pagerank_scale(dev, 22)
+    g22, edges22 = phase_pagerank_scale(dev, 22)
     g14, u14, k3_variants = phase_bsr(dev, 14)
     path = {k.__name__: k.launches for k in kernels[:3]}
     check(path["bsr_spmv"] == K1_PATH_LAUNCHES, f"K1 launched "
@@ -1075,6 +1390,8 @@ def main() -> int:
     if args.profile:
         profile_bsr(g14)
     phase_traversal(dev, g22, g14, u14)
+    phase_tables(dev, edges22)
+    del edges22
     path["flash_attention_fwd"], k4_variants = phase_serve(dev, kernels,
                                                             args.profile)
     for name, n in path.items():

@@ -12,6 +12,9 @@ Batched (multi-source) ``sssp``, ``bfs``, ``personalized_pagerank`` and
 dense backends (the reference ``vmap``s it), so row i equals a standalone
 call on the same backend, through the same kernels; on ``"frontier"`` the
 rows relax together in one ``(k, n)`` state.
+
+The fourteen analytics the reference tracks are tracked here under the same
+op names (``core/provenance.py``), so their results carry provenance.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from . import engine
 from .graph import Graph
+from .provenance import track
 from ..kernels.bsr_tricount import bsr_tricount
 
 __all__ = [
@@ -113,6 +117,7 @@ def _pagerank_body(ex, pr, damping, inv_deg, dangling):
     return (1.0 - damping) / n + damping * (summed + dang / n)
 
 
+@track("algorithms.pagerank", "A.pagerank")
 def pagerank(g: Graph, n_iter: int = 10, damping: float = 0.85, *,
              tol: Optional[float] = None,
              init: Optional[torch.Tensor] = None,
@@ -160,6 +165,7 @@ def _ppr_body(ex, pr, damping, inv_deg, dangling, restart):
     return (1.0 - damping) * restart + damping * (summed + dang * restart)
 
 
+@track("algorithms.personalized_pagerank", "A.personalized_pagerank")
 def personalized_pagerank(g: Graph, source, n_iter=10, damping: float = 0.85,
                           *, tol: Optional[float] = None,
                           init: Optional[torch.Tensor] = None,
@@ -250,6 +256,7 @@ def triangle_count(g: Graph, edge_chunk: int = 1 << 16, *,
     return total
 
 
+@track("algorithms.per_node_triangles", "A.per_node_triangles")
 def per_node_triangles(g: Graph, edge_chunk: int = 1 << 16) -> torch.Tensor:
     """Triangles incident to each node (undirected simple graph), int32."""
     n = g.n_nodes
@@ -269,6 +276,7 @@ def per_node_triangles(g: Graph, edge_chunk: int = 1 << 16) -> torch.Tensor:
     return counts
 
 
+@track("algorithms.clustering_coefficient", "A.clustering_coefficient")
 def clustering_coefficient(g: Graph) -> torch.Tensor:
     """Local clustering coefficient per node (undirected simple graph)."""
     tri = per_node_triangles(g).to(_F32)
@@ -292,6 +300,7 @@ def _cc_body(ex, labels):
     return new
 
 
+@track("algorithms.connected_components", "A.connected_components")
 def connected_components(g: Graph, *,
                          backend: Optional[str] = None) -> torch.Tensor:
     """Weakly-connected component labels (min dense node id in component).
@@ -325,6 +334,7 @@ def _sssp_body(ex, dist, w):
     return torch.minimum(dist, relaxed)
 
 
+@track("algorithms.sssp", "A.sssp")
 def sssp(g: Graph, source, weights: Optional[torch.Tensor] = None,
          n_iter=None, *, backend: Optional[str] = None) -> torch.Tensor:
     """Single- or multi-source shortest paths (relaxation to fixpoint).
@@ -373,6 +383,7 @@ def sssp(g: Graph, source, weights: Optional[torch.Tensor] = None,
     return dists[0] if scalar else dists
 
 
+@track("algorithms.bfs", "A.bfs")
 def bfs(g: Graph, source, n_iter=None, *,
         backend: Optional[str] = None) -> torch.Tensor:
     """BFS levels (unweighted SSSP), int32; -1 for unreachable.  Batched
@@ -393,6 +404,7 @@ def _k_core_body(ex, alive, k):
     return alive & (deg >= k)
 
 
+@track("algorithms.k_core", "A.k_core")
 def k_core(g: Graph, k: int, *, backend: Optional[str] = None
            ) -> torch.Tensor:
     """Boolean mask of nodes in the k-core (iterative parallel peeling).
@@ -410,6 +422,7 @@ def k_core(g: Graph, k: int, *, backend: Optional[str] = None
     return _undirected_values_to_g(g, u, alive, k <= 0)
 
 
+@track("algorithms.core_numbers", "A.core_numbers")
 def core_numbers(g: Graph, k_max: Optional[int] = None, *,
                  backend: Optional[str] = None) -> torch.Tensor:
     """Core number per node by sweeping k (exact; one peel per k), int32.
@@ -471,6 +484,7 @@ def _scc_round(ex, scc):
     return torch.where(un & reach, color, scc)
 
 
+@track("algorithms.strongly_connected_components", "A.strongly_connected_components")
 def strongly_connected_components(g: Graph, *,
                                   backend: Optional[str] = None
                                   ) -> torch.Tensor:
@@ -500,6 +514,7 @@ def _hits_body(ex, ha):
     return hub, auth
 
 
+@track("algorithms.hits", "A.hits")
 def hits(g: Graph, n_iter: int = 20, *, backend: Optional[str] = None
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """HITS hub/authority scores (paper §4.1 mentions Hits for experts)."""
@@ -536,6 +551,7 @@ def _eigen_body(ex, v):
     return nv / torch.clamp_min(torch.linalg.vector_norm(nv), 1e-30)
 
 
+@track("algorithms.eigenvector_centrality", "A.eigenvector_centrality")
 def eigenvector_centrality(g: Graph, n_iter: int = 50, *,
                            backend: Optional[str] = None) -> torch.Tensor:
     """Power-iteration eigenvector centrality over in-edges (one pull a
@@ -552,6 +568,7 @@ def _lp_body(ex, lab):
     return torch.minimum(lab, ex.pull(lab, "min"))
 
 
+@track("algorithms.label_propagation", "A.label_propagation")
 def label_propagation(g: Graph, n_iter: int = 20, *,
                       backend: Optional[str] = None) -> torch.Tensor:
     """Community labels by min-label propagation on the undirected view.
@@ -573,6 +590,7 @@ def label_propagation(g: Graph, n_iter: int = 20, *,
     return _undirected_ids_to_g(g, u, lab)
 
 
+@track("algorithms.closeness_centrality", "A.closeness_centrality")
 def closeness_centrality(g: Graph, sources=None, n_samples: int = 16, *,
                          backend: Optional[str] = None) -> torch.Tensor:
     """Sampled closeness: average reciprocal distance over sampled sources

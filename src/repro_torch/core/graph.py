@@ -11,9 +11,10 @@ arrays equal the reference's element for element:
 
 Storage is int32; indices widen to int64 only where they index.  The
 hash-table lookup ``id -> node`` is ``searchsorted(node_ids, id)``; updates
-are functional rebuilds by sorting.  Capacities are power-of-two buckets.
-Not in this slice: ``EdgeDelta``/``apply_delta``, lineage and byte
-accounting.
+are functional rebuilds by sorting, recorded by the provenance layer
+(``core/provenance.py``) under the reference's op names.  Capacities are
+power-of-two buckets.  Not in this slice: ``EdgeDelta``/``apply_delta``,
+lineage and byte accounting.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve
+from .provenance import track, version_of
 from .table import next_capacity
 
 __all__ = ["Graph", "INVALID_ID"]
@@ -167,6 +169,15 @@ class Graph:
             self._plan = GraphPlan.build(self)
         return self._plan
 
+    @property
+    def version(self) -> str:
+        """Provenance version token (Ringo §2.1 object metadata).
+
+        Graphs are immutable and the update methods return fresh objects, so
+        the token doubles as a cache key for any result computed against it.
+        """
+        return version_of(self)
+
     def dense_of(self, original_ids) -> torch.Tensor:
         """Vectorized id lookup (the hash-probe dual)."""
         q = _as_i32(original_ids, self.device)
@@ -176,6 +187,7 @@ class Graph:
         return self.node_ids[_as_i32(dense_ids, self.device).long()]
 
     # -- functional updates (the dynamism story) -----------------------------------
+    @track("graph.add_edges", "Graph.add_edges")
     def add_edges(self, src, dst, dedupe: bool = True) -> "Graph":
         """Merge new edges (original ids) — functional rebuild by sorting."""
         s, d = self.out_edges()
@@ -183,6 +195,7 @@ class Graph:
         dst = torch.cat([self.original_of(d), _as_i32(dst, self.device)])
         return Graph.from_edges(src, dst, dedupe=dedupe, device=self.device)
 
+    @track("graph.delete_edges", "Graph.delete_edges")
     def delete_edges(self, src, dst) -> "Graph":
         """Remove the given (original-id) edges; sort-based anti-join on
         exact 64-bit pair keys."""
@@ -195,6 +208,7 @@ class Graph:
         return Graph.from_edges(os_[keep], od[keep], dedupe=False,
                                 device=self.device)
 
+    @track("graph.to_undirected", "Graph.to_undirected")
     def to_undirected(self) -> "Graph":
         """Symmetrized simple graph (for triangles / WCC)."""
         s, d = self.out_edges()

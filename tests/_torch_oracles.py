@@ -179,3 +179,31 @@ def lm_arrays(ref_cfg, seed=0):
 
     perturb(params)
     return params
+
+
+# ---------------------------------------------------------------------------
+# tables: the reference's and the port's, element for element
+# ---------------------------------------------------------------------------
+
+FLOAT_TOL = 1e-5   # the reference's kernel tolerance
+
+
+def assert_tables_equal(ref, port):
+    """A reference ``Table`` and a port ``Table`` hold the same table:
+    schema, ``n_valid``, capacity, ``next_row_id`` and dictionaries equal;
+    ``row_ids`` equal over the whole capacity; every column's valid prefix
+    equal in value (floats within ``FLOAT_TOL``) and in dtype."""
+    assert port.schema.fields == ref.schema.fields
+    assert (port.n_valid, port.capacity, port.next_row_id) == \
+        (ref.n_valid, ref.capacity, ref.next_row_id)
+    assert port.dicts == ref.dicts
+    np.testing.assert_array_equal(port.row_ids.cpu().numpy(),
+                                  np.asarray(ref.row_ids))
+    for name, typ in ref.schema.fields:
+        want, got = np.asarray(ref.column(name)), port.column_np(name)
+        assert got.dtype == want.dtype, (name, got.dtype, want.dtype)
+        if typ == "float":
+            np.testing.assert_allclose(got, want, rtol=FLOAT_TOL,
+                                       atol=FLOAT_TOL, err_msg=name)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=name)

@@ -2,8 +2,9 @@
 
 ``repro_torch`` and ``chip_smoke.py`` must import neither jax nor anything
 of the reference package ``repro`` (the parity tests are the only place the
-two meet), and an entry point called without ``device=`` must not carry on
-on the CPU when there is no card.
+two meet), nor may a script that the port's ``export_script`` emits, since
+the port executes that text; and an entry point called without ``device=``
+must not carry on on the CPU when there is no card.
 """
 
 import os
@@ -19,7 +20,12 @@ import torch
 
 import repro_torch
 from repro_torch.configs.base import get_config, reduced
+from repro_torch.core import algorithms as A
+from repro_torch.core import provenance as P
+from repro_torch.core import relational as R
+from repro_torch.core.convert import table_from_map, to_graph
 from repro_torch.core.graph import Graph
+from repro_torch.core.table import INT, STR, Table
 from repro_torch.device import resolve
 from repro_torch.models.transformer import Transformer
 from repro_torch.serve.engine import Engine, ServeConfig
@@ -62,12 +68,30 @@ def test_no_source_file_names_jax_or_the_reference():
     assert not _FORBIDDEN.search("from repro_torch.core import engine")
 
 
+def test_exported_script_imports_only_the_port():
+    t = Table.from_columns({"a": INT, "b": INT, "tag": STR},
+                           {"a": [0, 1, 2, 2], "b": [1, 2, 0, 3],
+                            "tag": ["x", "y", "x", "x"]}, device="cpu")
+    g = to_graph(R.select(t, "tag", "==", "x"), "a", "b")
+    ranked = table_from_map(g, A.pagerank(g, n_iter=3), "node", "pr")
+    for embed in (True, False):
+        script = P.export_script(ranked, embed_roots=embed)
+        assert "from repro_torch.core" in script
+        hits = _FORBIDDEN.findall(script)
+        assert not hits, f"exported script imports {hits}"
+        assert "jax" not in script
+
+
 def test_no_device_means_the_card_or_an_error(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve()
     with pytest.raises(RuntimeError):
         Graph.from_edges(np.asarray([0], np.int32), np.asarray([1], np.int32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Table.from_columns({"a": INT}, {"a": [1]})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Table.empty({"a": INT})
     g = Graph.from_edges(np.asarray([0], np.int32), np.asarray([1], np.int32),
                          device="cpu")
     assert g.device.type == "cpu" and resolve("cpu") == torch.device("cpu")

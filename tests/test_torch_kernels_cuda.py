@@ -10,6 +10,8 @@ go through the kernel and its plain version on the same card.  The last
 tests drive the engine on the card: ``frontier_fixpoint`` on CUDA tensors
 against the same call on the CPU, bit for bit, over the parity corpus, and
 K1 and K2 under ``eigenvector_centrality`` and ``k_core`` against "xla".
+The table front end runs on the card against the same ops on the CPU: its
+float ``group_by`` sums must give the same bits twice.
 """
 
 import numpy as np
@@ -18,7 +20,11 @@ import torch
 
 from _torch_oracles import build, corpus
 from repro_torch.core import algorithms as A
+from repro_torch.core import convert as C
+from repro_torch.core import provenance as P
+from repro_torch.core import relational as R
 from repro_torch.core.graph import Graph
+from repro_torch.core.table import FLOAT, INT, STR, Table
 from repro_torch.data.rmat import rmat_edges
 from repro_torch.kernels import bsr_spmv as k1
 from repro_torch.kernels import bsr_tricount as k3
@@ -429,3 +435,83 @@ def test_k1_k2_under_eigenvector_centrality_and_k_core(dev, backend, kernel):
         assert torch.equal(got, A.k_core(g, k, backend="xla")), f"k={k}"
     assert torch.equal(A.core_numbers(g, backend=backend),
                        A.core_numbers(g, backend="xla"))
+
+
+# ---------------------------------------------------------------------------
+# the table front end on the card
+# ---------------------------------------------------------------------------
+
+
+def _tables(dev, n=50_000, seed=3):
+    """The same skewed table on the card and on the CPU."""
+    rng = np.random.default_rng(seed)
+    data = {"k": (rng.zipf(1.5, n) % 5000).astype(np.int32),
+            "v": rng.normal(size=n).astype(np.float32),
+            "w": rng.integers(1, 10, n).astype(np.int32),
+            "s": [("java", "py", "c")[i] for i in rng.integers(0, 3, n)]}
+    schema = {"k": INT, "v": FLOAT, "w": INT, "s": STR}
+    return (Table.from_columns(schema, data, device=dev),
+            Table.from_columns(schema, data, device="cpu"))
+
+
+def _same_table(got, want, exact_floats=True):
+    assert got.device.type == "cuda"
+    assert (got.schema, got.n_valid, got.capacity, got.dicts) == \
+        (want.schema, want.n_valid, want.capacity, want.dicts)
+    assert torch.equal(got.row_ids.cpu(), want.row_ids)
+    for name in want.schema.names:
+        a, b = got.column(name).cpu(), want.column(name)
+        assert a.dtype == b.dtype, name
+        if exact_floats or not b.is_floating_point():
+            assert torch.equal(a, b), name
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_relational_ops_on_the_card_equal_cpu(dev):
+    td, tc = _tables(dev)
+    sd, sc = _tables(dev, n=3000, seed=4)
+    runs = (
+        lambda t, u: R.select(t, "v", ">", 0.25),
+        lambda t, u: R.select(t, "s", "!=", "py"),
+        lambda t, u: R.order(t, ["s", "k"]),
+        lambda t, u: R.order(t, ["v"], ascending=False),
+        lambda t, u: R.join(R.select(u, "k", "<", 3), t, "k", "k"),
+        lambda t, u: R.join(R.select(u, "k", ">", 2000), t, "s", "s"),
+        lambda t, u: R.unique(t, "k"),
+        lambda t, u: R.union(t, u),
+        lambda t, u: R.intersect(t, u, "k"),
+        lambda t, u: R.difference(t, u, "k"),
+        lambda t, u: R.sim_join(R.select(u, "k", "==", 1), t, "v", "v", 0.01),
+        lambda t, u: R.next_k(u, "k", "v", 2),
+        lambda t, u: C.graph_to_edge_table(C.to_graph(t, "k", "w")),
+        lambda t, u: C.table_from_map(C.to_graph(t, "s", "s"), torch.arange(
+            3, 0, -1, device=t.device)),
+    )
+    for fn in runs:
+        _same_table(fn(td, sd), fn(tc, sc))
+
+
+def test_group_by_float_sums_are_deterministic_on_the_card(dev):
+    td, tc = _tables(dev, n=1 << 20)
+    aggs = {"n": ("v", "count"), "sv": ("v", "sum"), "sw": ("w", "sum"),
+            "m": ("v", "mean"), "lo": ("v", "min"), "hi": ("w", "max"),
+            "f": ("v", "first")}
+    for key in ("k", "s"):
+        got, again = R.group_by(td, key, aggs), R.group_by(td, key, aggs)
+        for name in got.schema.names:
+            assert torch.equal(got.columns[name], again.columns[name]), name
+        _same_table(got, R.group_by(tc, key, aggs), exact_floats=False)
+
+
+def test_provenance_replays_on_the_card(dev):
+    td, _ = _tables(dev)
+    g = C.to_graph(R.select(td, "w", ">=", 5), "k", "w")
+    ranked = C.table_from_map(g, A.pagerank(g, n_iter=10, backend="pallas"))
+    recs = P.records_of(ranked)
+    (root,) = P.roots_of(recs)
+    again = P.replay(recs, {root: td})
+    assert again.device.type == "cuda"
+    for name in ranked.schema.names:
+        assert torch.equal(again.column(name), ranked.column(name))
+
