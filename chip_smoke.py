@@ -64,6 +64,32 @@ Phases (each prints one JSON line with its seconds):
    against the root table: bit-identical, K2 or K1 10 more launches; a
    tracked "xla" PageRank must make as many host syncs as an untracked
    one.  Window: K1 20, K2 20, K3 1.
+3d. incremental maintenance and plan memory accounting, in a launch window
+   of its own.  (a) Scale 22: the reference's ``bench_engine.py`` delta, a
+   0.1% insert-only ``EdgeDelta`` (65,242 pairs of known ids, numpy seed
+   7).  ``apply_delta`` and the child's patched plan (with ``in_edges`` /
+   ``out_edges`` made to fail) must equal ``from_dense_edges`` of the
+   child's edges and its cold plan, array for array, the plan's ``_parent``
+   be ``g22.plan()``; their seconds and host syncs print beside the cold
+   build's.  A warm ``pagerank(tol=1e-6)`` from the parent's vector on
+   "xla" within 1e-5 of the cold one (rounds and seconds of each), then
+   one warm "pallas" refresh (K2 once a round; its cold chunk layout timed
+   apart).  ``incremental_bfs`` / ``_sssp`` from phase 3b's source and
+   ``incremental_connected_components`` must engage and equal the cold
+   runs bit for bit (frontier rounds of each printed).  The same inserts
+   plus 1,000 deletes of existing pairs: every helper returns None and the
+   cold BFS and CC equal a lineage-free rebuild's.  ``g22.plan()``'s
+   ``nbytes_by_family()`` as left by the phases, ``evict_all()`` (the bytes
+   it reports against the drop of ``torch.cuda.memory_allocated()``,
+   within 5%), then with the undirected, csr, perm and chunks families
+   warmed, evicted (within 5% again) and re-derived bit for bit.  (b)
+   Scale 14: a 0.1% insert delta into tiles the graph holds; the child's
+   ``bsr()`` / ``bsr_t()`` share the parent's ``rows`` / ``cols`` and equal
+   a cold ``edges_to_bsr``; warm "bsr" PageRank (K1) within 1e-5 of the
+   cold "xla" one; "bsr" triangles (K3, once) on the child's patched
+   undirected view, with the parent's triples, equal to "xla"'s; one
+   insert into a block pair the parent lacks rebuilds the tiles.  Window:
+   K1 the two "bsr" PageRanks' rounds, K2 the "pallas" refresh's, K3 1.
 4. serving, kernel K4: ``qwen2.5-3b`` at full width and depth (36
    layers, d_model 2048) with random weights from a seeded generator,
    behind ``Engine`` with ``ServeConfig(batch=4, max_seq=2080)``: 4 prompts
@@ -99,7 +125,8 @@ Phases (each prints one JSON line with its seconds):
    ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
-path's, and phases 3b's and 3c's are their own: each window's counts are zeroed just
+path's, and phases 3b's, 3c's and 3d's are their own (3d's print in each
+kernel row as ``launches_phase_3d``): each window's counts are zeroed just
 before it and read just after it.  Any failed check raises, and
 the script exits non-zero without its last line, which on success is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -930,6 +957,371 @@ def phase_tables(dev, edges, n_posts=SO_POSTS):
           f"phase 3c launches {launches}")
     emit({"phase": "tables", "launches": launches})
 
+
+DELTA_FRAC = 0.001    # phase 3d: the reference's bench_engine.py delta size
+N_DELETES = 1_000     # phase 3d: deletes of the mixed delta at scale 22
+
+
+def count_rounds(fn):
+    """``fn()`` and the PageRank rounds it ran (calls of the round body)."""
+    from repro_torch.core import algorithms as A
+    body, n = A._pagerank_body, [0]
+
+    def counted(*a):
+        n[0] += 1
+        return body(*a)
+
+    A._pagerank_body = counted
+    try:
+        out = fn()
+    finally:
+        A._pagerank_body = body
+    return out, n[0]
+
+
+def no_edge_rederive(fn):
+    """``fn()`` with ``Graph.in_edges`` / ``out_edges`` made to fail: a
+    patched plan must not re-derive its edge arrays."""
+    from repro_torch.core.graph import Graph
+
+    def boom(*a, **k):
+        raise RuntimeError("the patched plan re-derived its edges")
+
+    saved = Graph.in_edges, Graph.out_edges
+    Graph.in_edges = Graph.out_edges = boom
+    try:
+        return fn()
+    finally:
+        Graph.in_edges, Graph.out_edges = saved
+
+
+def same_graph(a, b) -> bool:
+    return (a.n_nodes, a.n_edges) == (b.n_nodes, b.n_edges) and all(
+        torch.equal(x, y) for x, y in zip(
+            (a.node_ids, a.out_ptr, a.out_idx, a.in_ptr, a.in_idx),
+            (b.node_ids, b.out_ptr, b.out_idx, b.in_ptr, b.in_idx)))
+
+
+def family_tensors(plan):
+    """Warm the undirected, csr, perm and chunks (pull layout) families of
+    ``plan``; clones of their tensors, for the bit-identity check after
+    eviction (the clones keep no family alive)."""
+    u = plan.undirected()
+    return {"undirected": [t.clone() for t in (
+                u.node_ids, u.out_ptr, u.out_idx, u.in_ptr, u.in_idx)],
+            "csr": [t.clone() for t in (*plan.csr_out(), *plan.csr_in())],
+            "perm": [plan.in_perm_out().clone()],
+            "chunks": [t.clone() for t in plan.chunk_layout_in()[:4]]}
+
+
+def evict_measured(plan):
+    """``plan.evict_all()`` and the drop in ``memory_allocated`` it causes
+    (after ``gc.collect()``): (bytes reported, bytes the card freed)."""
+    import gc
+    gc.collect()
+    sync()
+    before = torch.cuda.memory_allocated()
+    freed = plan.evict_all()
+    gc.collect()
+    sync()
+    return freed, before - torch.cuda.memory_allocated()
+
+
+def phase_incremental_scale22(dev, g22):
+    """Phase 3d (a): the reference's 0.1% insert delta on the scale-22 graph:
+    ``apply_delta`` and the patched plan against a cold build, warm PageRank
+    ("xla", then one "pallas" refresh: K2), warm BFS / SSSP / CC, a mixed
+    delta that every helper declines, and the plan's byte accounting."""
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import engine
+    from repro_torch.core.graph import EdgeDelta, Graph
+    from repro_torch.kernels.segment_sum import segment_sum_chunked as k2
+    ff = engine.frontier_fixpoint
+    t0 = time.perf_counter()
+    n, e = g22.n_nodes, g22.n_edges
+    parent = g22.plan()
+    ids = g22.node_ids[:n].cpu().numpy()
+    rng = np.random.default_rng(7)
+    k = max(1, int(e * DELTA_FRAC))
+    add_s = ids[rng.integers(0, n, k)].astype(np.int32)
+    add_d = ids[rng.integers(0, n, k)].astype(np.int32)
+    delta = EdgeDelta.inserts(add_s, add_d)
+    secs = {}
+
+    child, secs["apply_delta"] = timed(lambda: g22.apply_delta(delta))
+    check(child._delta is not None and child._delta.insert_only,
+          "apply_delta at scale 22 took the rebuild path")
+    cplan, secs["patch"] = timed(lambda: no_edge_rederive(child.plan))
+    check(cplan._parent is parent, "child.plan()._parent is not g22.plan()")
+    # host syncs, on a second child of the same delta
+    twin, syncs_apply = count_syncs(lambda: g22.apply_delta(delta))
+    _, syncs_patch = count_syncs(twin.plan)
+    del twin
+    cs, cd = child.out_edges()
+    cold, secs["cold_build_and_plan"] = timed(lambda: Graph.from_dense_edges(
+        cs, cd, n, node_ids=g22.node_ids[:n], device=dev).plan())
+    check(same_graph(child, cold.graph),
+          "child CSR != from_dense_edges of the child's edges")
+    check(all(torch.equal(getattr(cplan, f), getattr(cold, f)) for f in (
+        "in_src", "in_dst", "out_src", "out_dst", "out_deg", "in_deg",
+        "inv_out_deg", "dangling")), "patched plan != cold plan")
+    del cold, cs, cd
+    added = child.n_edges - e
+
+    # warm PageRank against cold, on "xla"
+    pr = {}
+    parent_pr, pr["rounds_parent"] = count_rounds(
+        lambda: A.pagerank(g22, tol=1e-6, backend="xla"))
+    (warm, pr["rounds_warm"]), pr["seconds_warm"] = timed(lambda: count_rounds(
+        lambda: A.pagerank(child, tol=1e-6, init=parent_pr, backend="xla")))
+    (cold_pr, pr["rounds_cold"]), pr["seconds_cold"] = timed(
+        lambda: count_rounds(lambda: A.pagerank(child, tol=1e-6,
+                                                backend="xla")))
+    pr["max_abs_warm_vs_cold"] = max_abs(warm, cold_pr)
+    check(pr["max_abs_warm_vs_cold"] <= 1e-5, f"warm pagerank vs cold: "
+          f"{pr['max_abs_warm_vs_cold']} > 1e-5")
+    # one warm "pallas" refresh: K2, after the child's cold chunk layout
+    _, pr["seconds_pallas_layout"] = timed(
+        lambda: engine.get_exec(cplan, "pallas"))
+    before = k2.launches
+    (warm_p, pr["rounds_pallas"]), pr["seconds_pallas"] = timed(
+        lambda: count_rounds(lambda: A.pagerank(
+            child, tol=1e-6, init=parent_pr, backend="pallas")))
+    pr["k2_launches"] = k2.launches - before
+    pr["max_abs_pallas_vs_cold"] = max_abs(warm_p, cold_pr)
+    check(pr["k2_launches"] == pr["rounds_pallas"] > 0,
+          f"K2 launched {pr['k2_launches']} times in "
+          f"{pr['rounds_pallas']} rounds")
+    check(pr["max_abs_pallas_vs_cold"] <= 1e-5, f"warm pallas pagerank vs "
+          f"cold: {pr['max_abs_pallas_vs_cold']} > 1e-5")
+    del warm, warm_p, cold_pr
+
+    # warm traversals from phase 3b's source, against cold; the patched
+    # undirected view and the frontier Execs are built (and timed) first
+    src = int(torch.argmax(parent.out_deg))
+    _, secs["undirected_patch"] = timed(cplan.undirected)
+    _, secs["cold_to_undirected"] = timed(child.to_undirected)
+    _, secs["frontier_execs"] = timed(lambda: [engine.get_exec(
+        p, "frontier") for p in (cplan, cplan.undirected().plan())])
+    trav = {}
+    parents = {"bfs": A.bfs(g22, src), "sssp": A.sssp(g22, src),
+               "cc": A.connected_components(g22)}
+    runs = {
+        "bfs": (lambda: A.incremental_bfs(child, src, parents["bfs"]),
+                lambda: A.bfs(child, src)),
+        "sssp": (lambda: A.incremental_sssp(child, src, parents["sssp"]),
+                 lambda: A.sssp(child, src)),
+        "cc": (lambda: A.incremental_connected_components(child,
+                                                          parents["cc"]),
+               lambda: A.connected_components(child, backend="frontier")),
+    }
+    for name, (warm_fn, cold_fn) in runs.items():
+        r0 = ff.rounds
+        got, t_warm = timed(warm_fn)
+        r1 = ff.rounds
+        want, t_cold = timed(cold_fn)
+        check(got is not None, f"incremental {name} declined an insert-only "
+              f"delta")
+        check(got.dtype == want.dtype and torch.equal(got, want),
+              f"incremental {name} != cold")
+        trav[name] = {"rounds_warm": r1 - r0, "rounds_cold": ff.rounds - r1,
+                      "seconds_warm": t_warm, "seconds_cold": t_cold}
+    check(torch.equal(A.connected_components(child, backend="xla"),
+                      A.connected_components(child, backend="frontier")),
+          "cold cc: xla != frontier")
+    check(child.plan().undirected()._delta is not None,
+          "the child's undirected view was rebuilt, not patched")
+
+    # a mixed delta: every helper declines, the cold path stays exact
+    es, ed = g22.out_edges()
+    pick = torch.from_numpy(rng.integers(0, e, N_DELETES)).to(dev)
+    mixed = g22.apply_delta(EdgeDelta(add_s, add_d,
+                                      g22.original_of(es[pick]),
+                                      g22.original_of(ed[pick])))
+    del es, ed
+    check(mixed._delta is not None and not mixed._delta.insert_only,
+          "the mixed delta did not delete")
+    declined = {
+        "bfs": A.incremental_bfs(mixed, src, parents["bfs"]),
+        "sssp": A.incremental_sssp(mixed, src, parents["sssp"]),
+        "cc": A.incremental_connected_components(mixed, parents["cc"]),
+        "lp": A.incremental_label_propagation(mixed, parents["cc"],
+                                              n_iter=n)}
+    check(all(v is None for v in declined.values()),
+          f"a helper warmed through deletions: "
+          f"{[k for k, v in declined.items() if v is not None]}")
+    fresh = Graph.from_dense_edges(*mixed.out_edges(), n,
+                                   node_ids=g22.node_ids[:n], device=dev)
+    check(torch.equal(A.bfs(mixed, src), A.bfs(fresh, src)) and torch.equal(
+        A.connected_components(mixed), A.connected_components(fresh)),
+        "mixed delta: cold bfs / cc != a lineage-free rebuild")
+    mixed_edges = mixed.n_edges
+    del mixed, fresh, child, cplan, parents
+
+    # byte accounting and eviction on the parent's plan
+    acc = {"as_left": parent.nbytes_by_family()}
+    acc["evict_all_reported"], acc["evict_all_allocated_drop"] = \
+        evict_measured(parent)
+    acc["cold"] = parent.nbytes_by_family()
+    snap, acc["seconds_rederive"] = timed(lambda: family_tensors(parent))
+    acc["warm"] = parent.nbytes_by_family()
+    acc["warm_evictable"] = parent.evictable_bytes()
+    acc["evict_warm_reported"], acc["evict_warm_allocated_drop"] = \
+        evict_measured(parent)
+    for what in ("evict_all", "evict_warm"):
+        rep, drop = acc[f"{what}_reported"], acc[f"{what}_allocated_drop"]
+        check(rep > 0 and abs(rep - drop) <= 0.05 * rep,
+              f"{what}: reported {rep} bytes freed, memory_allocated "
+              f"dropped {drop}")
+    again = family_tensors(parent)
+    for fam, tensors in snap.items():
+        check(all(torch.equal(a, b) for a, b in zip(tensors, again[fam])),
+              f"family {fam} did not re-derive bit for bit")
+    del snap, again
+    launches = {"segment_sum_chunked": pr["k2_launches"]}
+    emit({"phase": "incremental_scale", "scale": 22, "nodes": n,
+          "edges": e, "delta_inserts": k, "edges_added": added,
+          "mixed_deletes": N_DELETES, "mixed_edges": mixed_edges,
+          "seconds_per_step": secs,
+          "patch_speedup": secs["cold_build_and_plan"]
+          / (secs["apply_delta"] + secs["patch"]),
+          "syncs_apply_delta": syncs_apply, "syncs_patch": syncs_patch,
+          "pagerank": pr, "traversals": trav, "bytes": acc,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def in_tile_inserts(g, k, seed=7):
+    """``k`` original-id inserts of absent pairs whose tiles both BSR
+    layouts of ``g`` already hold (numpy seed ``seed``)."""
+    s, d = (t.cpu().numpy().astype(np.int64) for t in g.out_edges())
+    have = set((s << 32 | d).tolist())
+    _, rows, cols, _ = g.plan().bsr()
+    # (dst, src) blocks of M[dst, src]; the transpose layout holds the
+    # same pairs the other way round
+    pull = set(zip(rows.cpu().numpy().tolist(), cols.cpu().numpy().tolist()))
+    rng = np.random.default_rng(seed)
+    picks = []
+    while len(picks) < k:
+        i, j = (int(x) for x in rng.integers(0, g.n_nodes, 2))
+        if (j // 128, i // 128) in pull and (i << 32 | j) not in have:
+            picks.append((i, j))
+            have.add(i << 32 | j)
+    ids = g.node_ids.cpu().numpy()
+    return ([ids[i] for i, _ in picks], [ids[j] for _, j in picks])
+
+
+def phase_incremental_bsr(dev, g14):
+    """Phase 3d (b): a 0.1% insert delta that lands in existing tiles of the
+    scale-14 graph: K1 on the patched tiles (warm "bsr" PageRank), the
+    tiles bit-equal to a cold build, K3 on the patched undirected view
+    with the parent's triples, and one insert that opens a new tile."""
+    from repro_torch.core import algorithms as A
+    from repro_torch.core.graph import EdgeDelta
+    from repro_torch.kernels.bsr_spmv import bsr_spmv as k1
+    from repro_torch.kernels.bsr_tricount import bsr_tricount as k3
+    from repro_torch.kernels.ops import edges_to_bsr
+    t0 = time.perf_counter()
+    parent = g14.plan()
+    k = max(1, int(g14.n_edges * DELTA_FRAC))
+    add_s, add_d = in_tile_inserts(g14, k)
+    child = g14.apply_delta(EdgeDelta.inserts(add_s, add_d))
+    cplan = child.plan()
+    secs = {}
+    (tiles, rows, cols, nb), secs["patched_bsr"] = timed(cplan.bsr)
+    check(rows is parent.bsr()[1] and cols is parent.bsr()[2],
+          "the child's bsr tiles were rebuilt, not patched")
+    cplan.bsr_t()
+    s, d = (t.cpu().numpy() for t in child.out_edges())
+    cold_pull, secs["cold_edges_to_bsr"] = timed(lambda: edges_to_bsr(
+        s, d, child.n_nodes, device=dev))
+    for got, cold in ((cplan.bsr(), cold_pull),
+                      (cplan.bsr_t(), edges_to_bsr(d, s, child.n_nodes,
+                                                   device=dev))):
+        check(all(torch.equal(a, b) for a, b in zip(got[:3], cold[:3])),
+              "patched tiles != a cold edges_to_bsr of the child")
+    del cold, cold_pull
+
+    before = k1.launches
+    (parent_pr, r_parent), t_parent = timed(lambda: count_rounds(
+        lambda: A.pagerank(g14, tol=1e-6, backend="bsr")))
+    (warm, r_warm), t_warm = timed(lambda: count_rounds(lambda: A.pagerank(
+        child, tol=1e-6, init=parent_pr, backend="bsr")))
+    k1_used = k1.launches - before
+    cold = A.pagerank(child, tol=1e-6, backend="xla")
+    err = max_abs(warm, cold)
+    check(err <= 1e-5, f"warm bsr pagerank vs cold xla: {err} > 1e-5")
+    check(k1_used == r_parent + r_warm, f"K1 launched {k1_used} times in "
+          f"{r_parent} + {r_warm} rounds")
+
+    # K3 on the child's patched undirected view, the parent's triples reused
+    uplan = parent.undirected().plan()
+    _, secs["parent_triples"] = timed(uplan.tri_triples)
+    cu = cplan.undirected()
+    check(cu._delta is not None, "the child's undirected view was rebuilt")
+    before = k3.launches
+    tri, secs["triangles_bsr"] = timed(lambda: A.triangle_count(
+        cu, backend="bsr"))
+    k3_used = k3.launches - before
+    check(cu.plan().tri_triples() is uplan.tri_triples()
+          and cu.plan().bsr()[1] is uplan.bsr()[1],
+          "the child's undirected tiles or triples were rebuilt")
+    tri_x, secs["triangles_xla"] = timed(lambda: A.triangle_count(cu))
+    check(tri == tri_x and k3_used == 1, f"triangles bsr {tri} vs xla "
+          f"{tri_x} with {k3_used} K3 launches")
+
+    # one insert in a block pair the parent's tiles lack: rebuild
+    prow = parent.bsr()[1].cpu().numpy()
+    pcol = parent.bsr()[2].cpu().numpy()
+    present = set(zip(prow.tolist(), pcol.tolist()))
+    missing = [(r, c) for r in range(nb) for c in range(nb)
+               if (r, c) not in present]
+    check(bool(missing), "every tile is present: no new-tile insert exists")
+    rb, cb = missing[0]
+    ids = g14.node_ids.cpu().numpy()
+    lone = g14.apply_delta(EdgeDelta.inserts([ids[cb * 128]],
+                                             [ids[rb * 128]]))
+    (ltiles, lrows, _, _), secs["new_tile_rebuild"] = timed(lone.plan().bsr)
+    ls, ld = (t.cpu().numpy() for t in lone.out_edges())
+    cold_l = edges_to_bsr(ls, ld, lone.n_nodes, device=dev)
+    check(lrows is not parent.bsr()[1]
+          and ltiles.shape[0] == parent.bsr()[0].shape[0] + 1
+          and all(torch.equal(a, b) for a, b in zip(
+              (ltiles, lrows), cold_l[:2])),
+          "a new-tile insert did not rebuild to the cold tiles")
+    fams = cplan.nbytes_by_family()
+    emit({"phase": "incremental_bsr", "scale": 14, "nodes": g14.n_nodes,
+          "edges": g14.n_edges, "delta_inserts": k,
+          "tiles": int(tiles.shape[0]), "new_tile": [rb, cb],
+          "pagerank": {"rounds_parent": r_parent, "rounds_warm": r_warm,
+                       "seconds_parent": t_parent, "seconds_warm": t_warm,
+                       "max_abs_warm_vs_cold_xla": err,
+                       "k1_launches": k1_used},
+          "triangles": tri, "k3_launches": k3_used,
+          "child_bytes": fams, "seconds_per_step": secs,
+          "seconds": time.perf_counter() - t0})
+    return {"bsr_spmv": k1_used, "bsr_tricount": k3_used}
+
+
+def phase_incremental(dev, g22, g14):
+    """Phase 3d: incremental maintenance and plan memory accounting, in a
+    launch window of its own: K2 in the warm "pallas" refresh at scale 22,
+    K1 in the two "bsr" PageRanks and K3 once at scale 14."""
+    from repro_torch.kernels.bsr_spmv import bsr_spmv
+    from repro_torch.kernels.bsr_tricount import bsr_tricount
+    from repro_torch.kernels.segment_sum import segment_sum_chunked
+    kernels = (bsr_spmv, segment_sum_chunked, bsr_tricount)
+    for k in kernels:
+        k.launches = 0
+    want = {**phase_incremental_scale22(dev, g22),
+            **phase_incremental_bsr(dev, g14)}
+    launches = {k.__name__: k.launches for k in kernels}
+    check(launches == want and all(launches.values()),
+          f"phase 3d launches {launches}, its steps counted {want}")
+    emit({"phase": "incremental", "launches": launches})
+    return launches
+
+
 def phase_serve(dev, kernels, profile):
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -1392,6 +1784,7 @@ def main() -> int:
     phase_traversal(dev, g22, g14, u14)
     phase_tables(dev, edges22)
     del edges22
+    incremental = phase_incremental(dev, g22, g14)
     path["flash_attention_fwd"], k4_variants = phase_serve(dev, kernels,
                                                             args.profile)
     for name, n in path.items():
@@ -1406,7 +1799,8 @@ def main() -> int:
             kernel_k4(path["flash_attention_fwd"], k4_variants)]
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
-                 replaces=REPLACES[r["name"]])
+                 replaces=REPLACES[r["name"]],
+                 launches_phase_3d=incremental.get(r["name"], 0))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -1,8 +1,8 @@
 """Graph algorithms (Ringo §2.2/§3, paper Tables 3 and 6) on the engine.
 
-Counterpart of ``repro/core/algorithms.py`` except its ``incremental_*``
-analytics: each algorithm is a thin composition over the plan and the
-engine, so a backend's kernel serves every algorithm at once.  Every
+Counterpart of ``repro/core/algorithms.py``: each algorithm is a thin
+composition over the plan and the engine, so a backend's kernel serves
+every algorithm at once.  Every
 algorithm that takes ``backend=`` resolves it with
 ``engine.select_backend`` and runs on the device of the graph's tensors;
 results are per-node tensors in the graph's dense id space.
@@ -15,17 +15,23 @@ rows relax together in one ``(k, n)`` state.
 
 The fourteen analytics the reference tracks are tracked here under the same
 op names (``core/provenance.py``), so their results carry provenance.
+
+The ``incremental_*`` helpers warm-start BFS, SSSP, CC and LP on a child of
+``Graph.apply_delta`` from the parent's result, re-seeding
+``engine.frontier_fixpoint`` with the vertices the delta touched; they
+return None, with a logged reason, wherever that would not be exact.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import engine
-from .graph import Graph
+from .graph import Graph, log_event
 from .provenance import track
 from ..kernels.bsr_tricount import bsr_tricount
 
@@ -47,8 +53,13 @@ __all__ = [
     "eigenvector_centrality",
     "label_propagation",
     "closeness_centrality",
+    "incremental_sssp",
+    "incremental_bfs",
+    "incremental_connected_components",
+    "incremental_label_propagation",
 ]
 
+_log = logging.getLogger(__name__)
 _I32 = torch.int32
 _F32 = torch.float32
 _INF = float("inf")
@@ -110,6 +121,12 @@ def _undirected_ids_to_g(g: Graph, u: Graph,
 # ---------------------------------------------------------------------------
 
 
+def _f32_scalar(x: float, device) -> torch.Tensor:
+    """``x`` as an f32 scalar on ``device``, so (1 - d) / n rounds as the
+    reference's does; filled on the device: no copy, no host sync."""
+    return torch.full((), x, dtype=_F32, device=device)
+
+
 def _pagerank_body(ex, pr, damping, inv_deg, dangling):
     n = ex.n_nodes
     summed = ex.pull(pr * inv_deg, "sum")        # rank mass along in-edges
@@ -138,9 +155,7 @@ def pagerank(g: Graph, n_iter: int = 10, damping: float = 0.85, *,
            if init is not None
            else torch.full((g.n_nodes,), 1.0 / g.n_nodes, dtype=f32,
                            device=g.device))
-    # damping as an f32 scalar, so (1 - d) / n rounds as the reference's does
-    args = (torch.tensor(damping, dtype=f32, device=g.device),
-            plan.inv_out_deg, plan.dangling)
+    args = (_f32_scalar(damping, g.device), plan.inv_out_deg, plan.dangling)
     if tol is not None:
         return engine.fixpoint(ex, _pagerank_body, pr0, tol=float(tol),
                                max_iter=10_000, args=args)
@@ -185,8 +200,7 @@ def personalized_pagerank(g: Graph, source, n_iter=10, damping: float = 0.85,
     plan, ex = _exec_for(g, backend)
     scalar, sources = _sources(g, source)
     k = int(sources.shape[0])
-    args = (torch.tensor(damping, dtype=_F32, device=g.device),
-            plan.inv_out_deg, plan.dangling)
+    args = (_f32_scalar(damping, g.device), plan.inv_out_deg, plan.dangling)
     caps = _source_caps(k, n_iter)
     init_rows = None if init is None else torch.atleast_2d(
         torch.as_tensor(init, dtype=_F32, device=g.device))
@@ -588,6 +602,142 @@ def label_propagation(g: Graph, n_iter: int = 20, *,
         lab = engine.fixpoint(engine.get_exec(uplan, be), _lp_body, labels0,
                               n_iter=n_iter)
     return _undirected_ids_to_g(g, u, lab)
+
+
+# ---------------------------------------------------------------------------
+# incremental recomputation (the delta-update path; see graph.EdgeDelta)
+#
+# For an insert-only delta the parent's fixpoint is an upper bound of the
+# child's under a min relaxation, so re-seeding the frontier with the
+# inserted edges' endpoints converges to exactly the from-scratch result.
+# Deletions can raise values, which breaks the bound: they decline.
+# ---------------------------------------------------------------------------
+
+
+def _decline(op: str, reason: str, **fields) -> None:
+    log_event(_log, "incremental.cold_fallback", op=op, reason=reason,
+              **fields)
+
+
+def _insert_only_info(g: Graph, op: str):
+    info = getattr(g, "_delta", None)
+    if info is None:
+        _decline(op, "no delta lineage")
+        return None
+    if not info.insert_only:
+        _decline(op, "delta deletes edges; parent result is no longer an "
+                     "upper bound")
+        return None
+    return info
+
+
+def _seed_mask(n: int, device, *dense_ids) -> torch.Tensor:
+    """(n,) bool mask of the given dense ids, built on the device."""
+    mask = torch.zeros((n,), dtype=torch.bool, device=device)
+    for ids in dense_ids:
+        mask.index_fill_(0, ids.long(), True)
+    return mask
+
+
+def incremental_sssp(g: Graph, source, parent_dist, *, weights=None,
+                     n_iter=None) -> Optional[torch.Tensor]:
+    """Warm single-source shortest paths after an insert-only delta.
+
+    Re-seeds ``engine.frontier_fixpoint`` from the parent's distance
+    vector with the inserted edges' sources as the frontier, so only
+    regions whose distance improves are relaxed again.  Returns None (the
+    caller runs cold) for deletions, weighted edges (the parent vector's
+    weights cannot be checked), a round cap (a capped run is not a
+    fixpoint) and a batched source.
+    """
+    info = _insert_only_info(g, "sssp")
+    if info is None:
+        return None
+    if weights is not None:
+        _decline("sssp", "weighted run")
+        return None
+    if n_iter is not None:
+        _decline("sssp", "capped run is not a fixpoint")
+        return None
+    if np.ndim(source) != 0:
+        _decline("sssp", "batched sources")
+        return None
+    if g.n_nodes == 0:
+        return torch.zeros((0,), dtype=_F32, device=g.device)
+    dist0 = torch.as_tensor(parent_dist, device=g.device).to(_F32)
+    return engine.frontier_fixpoint(
+        g.plan(), dist0, _seed_mask(g.n_nodes, g.device, info.add_src),
+        weights=torch.ones((), dtype=_F32, device=g.device))
+
+
+def incremental_bfs(g: Graph, source, parent_levels, *,
+                    n_iter=None) -> Optional[torch.Tensor]:
+    """Warm BFS levels (unweighted :func:`incremental_sssp`); -1 unreachable."""
+    pd = torch.as_tensor(parent_levels, device=g.device)
+    dist = incremental_sssp(
+        g, source, torch.where(pd < 0, _INF, pd.to(_F32)), n_iter=n_iter)
+    if dist is None:
+        return None
+    return torch.where(torch.isinf(dist), -1, dist.to(_I32))
+
+
+def incremental_connected_components(g: Graph, parent_labels
+                                     ) -> Optional[torch.Tensor]:
+    """Warm WCC labels after an insert-only delta.
+
+    Works in the undirected view's id space: the parent's labels translate
+    to an upper bound there (each vertex's label is a member of its own
+    component), and the inserted edges' endpoints seed the frontier, so
+    only merging components are relabelled.  Needs the plan's undirected
+    view to be a patched one, with lineage of its own; a rebuilt view has
+    no per-edge delta to seed from.
+    """
+    info = _insert_only_info(g, "connected_components")
+    if info is None:
+        return None
+    if g.n_nodes == 0:
+        return torch.zeros((0,), dtype=_I32, device=g.device)
+    u = g.plan().undirected()
+    uinfo = getattr(u, "_delta", None)
+    if uinfo is None:
+        _decline("connected_components",
+                 "undirected view was rebuilt (no delta lineage)")
+        return None
+    if u.n_nodes == 0:
+        return _undirected_ids_to_g(g, u, torch.zeros((0,), dtype=_I32,
+                                                      device=g.device))
+    # parent g-space labels -> u space: label -> original id -> u dense id;
+    # a component's min-id member is in u (else own id: still a bound)
+    gx = g.dense_of(u.node_ids[: u.n_nodes]).long()
+    lab_orig = g.original_of(torch.as_tensor(
+        parent_labels, device=g.device)[gx])
+    pos = torch.clamp(u.dense_of(lab_orig), 0, u.n_nodes - 1).long()
+    own = torch.arange(u.n_nodes, dtype=_I32, device=g.device)
+    init_u = torch.where(u.node_ids[pos] == lab_orig, pos.to(_I32), own)
+    labels = engine.frontier_fixpoint(
+        u.plan(), init_u,
+        _seed_mask(u.n_nodes, g.device, uinfo.add_src, uinfo.add_dst))
+    return _undirected_ids_to_g(g, u, labels)
+
+
+def incremental_label_propagation(g: Graph, parent_labels, n_iter: int = 20
+                                  ) -> Optional[torch.Tensor]:
+    """Warm min-label propagation after an insert-only delta.
+
+    Sound only when the round cap cannot bind (a capped LP result is not a
+    fixpoint): with ``n_iter >= |V|`` the run is the min-label fixpoint,
+    the component min-labels, which is what
+    :func:`incremental_connected_components` computes.
+    """
+    info = _insert_only_info(g, "label_propagation")
+    if info is None:
+        return None
+    u = g.plan().undirected()
+    if int(n_iter) < u.n_nodes:
+        _decline("label_propagation", "n_iter < |V| may cap the propagation",
+                 n_iter=int(n_iter), n_nodes=u.n_nodes)
+        return None
+    return incremental_connected_components(g, parent_labels)
 
 
 @track("algorithms.closeness_centrality", "A.closeness_centrality")

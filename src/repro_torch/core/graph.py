@@ -13,12 +13,19 @@ Storage is int32; indices widen to int64 only where they index.  The
 hash-table lookup ``id -> node`` is ``searchsorted(node_ids, id)``; updates
 are functional rebuilds by sorting, recorded by the provenance layer
 (``core/provenance.py``) under the reference's op names.  Capacities are
-power-of-two buckets.  Not in this slice: ``EdgeDelta``/``apply_delta``,
-lineage and byte accounting.
+power-of-two buckets.
+
+Incremental maintenance: :meth:`Graph.apply_delta` merges an
+:class:`EdgeDelta` into both CSR orders on the graph's device (sorts,
+``unique`` and ``searchsorted`` over int64 pair keys) and leaves a
+``_DeltaInfo`` behind, from which :meth:`GraphPlan.patch
+<repro_torch.core.plan.GraphPlan.patch>` derives the child's plan without
+re-deriving its edges.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
@@ -29,11 +36,22 @@ from ..device import DeviceLike, resolve
 from .provenance import track, version_of
 from .table import next_capacity
 
-__all__ = ["Graph", "INVALID_ID"]
+__all__ = ["Graph", "EdgeDelta", "INVALID_ID"]
 
 INVALID_ID = int(np.iinfo(np.int32).max)
 
 _I32 = torch.int32
+_LOW = 0xFFFFFFFF          # low word of an int64 pair key
+_log = logging.getLogger(__name__)
+
+
+def log_event(log: logging.Logger, event: str, **fields) -> None:
+    """One ``event k=v ...`` line at INFO, keys sorted, strings repr'd: the
+    reference's structured log lines, through the standard ``logging``."""
+    if log.isEnabledFor(logging.INFO):
+        parts = [f"{k}={fields[k]!r}" if isinstance(fields[k], str)
+                 else f"{k}={fields[k]}" for k in sorted(fields)]
+        log.info(" ".join([event, *parts]))
 
 
 def _as_i32(x, dev: torch.device) -> torch.Tensor:
@@ -47,6 +65,88 @@ def _lexsort(secondary: torch.Tensor, primary: torch.Tensor) -> torch.Tensor:
     secondary key first (``jnp.lexsort((secondary, primary))``)."""
     p = torch.argsort(secondary, stable=True)
     return p[torch.argsort(primary[p], stable=True)]
+
+
+def _delta_ids(x) -> torch.Tensor:
+    """A delta's id column as a flat int32 tensor; a tensor keeps its
+    device, anything else becomes a CPU tensor."""
+    if torch.is_tensor(x):
+        return x.to(_I32).reshape(-1)
+    return torch.from_numpy(np.array(x, dtype=np.int32).reshape(-1))
+
+
+@dataclass(frozen=True, eq=False)
+class EdgeDelta:
+    """Batch of edge inserts/deletes in **original** node ids.
+
+    The unit of incremental maintenance: :meth:`Graph.apply_delta` turns it
+    into a child graph whose plan is patched from the parent's and whose
+    analytics can warm-start from the parent's results.  Deleting an edge
+    that does not exist is a no-op; inserted duplicates are deduped.  The
+    four columns are numpy arrays or tensors, stored as int32 tensors.
+    """
+
+    add_src: torch.Tensor
+    add_dst: torch.Tensor
+    del_src: torch.Tensor
+    del_dst: torch.Tensor
+
+    def __post_init__(self):
+        for name in ("add_src", "add_dst", "del_src", "del_dst"):
+            object.__setattr__(self, name, _delta_ids(getattr(self, name)))
+        if self.add_src.shape != self.add_dst.shape:
+            raise ValueError("EdgeDelta add_src/add_dst length mismatch")
+        if self.del_src.shape != self.del_dst.shape:
+            raise ValueError("EdgeDelta del_src/del_dst length mismatch")
+
+    @classmethod
+    def inserts(cls, src, dst) -> "EdgeDelta":
+        empty = np.empty((0,), np.int32)
+        return cls(src, dst, empty, empty)
+
+    @classmethod
+    def deletes(cls, src, dst) -> "EdgeDelta":
+        empty = np.empty((0,), np.int32)
+        return cls(empty, empty, src, dst)
+
+    @property
+    def n_adds(self) -> int:
+        return int(self.add_src.shape[0])
+
+    @property
+    def n_dels(self) -> int:
+        return int(self.del_src.shape[0])
+
+    @property
+    def insert_only(self) -> bool:
+        return self.n_dels == 0
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"EdgeDelta(+{self.n_adds} edges, -{self.n_dels} edges)"
+
+
+@dataclass
+class _DeltaInfo:
+    """How a Graph was derived from its parent: the fuel of plan patching.
+
+    Dense-id int32 tensors on the graph's device, in the child numbering
+    (the parent's, on the fast path, the only one that records this).  The
+    merged edge lists in both CSR orders become the patched plan's eager
+    fields as they are; ``out_dst`` and ``in_src`` are views of the child's
+    ``out_idx`` / ``in_idx``, so the lineage holds no second copy of them.
+    """
+
+    parent: "Graph"
+    add_src: torch.Tensor    # applied (deduped) inserts, out-order sorted
+    add_dst: torch.Tensor
+    del_src: torch.Tensor    # distinct deleted pairs
+    del_dst: torch.Tensor
+    insert_only: bool        # no edge was actually removed
+    dirty: torch.Tensor      # dense vertex ids touched by the delta
+    out_src: torch.Tensor    # merged edges sorted by (src, dst)
+    out_dst: torch.Tensor
+    in_src: torch.Tensor     # merged edges sorted by (dst, src)
+    in_dst: torch.Tensor
 
 
 @dataclass
@@ -63,6 +163,9 @@ class Graph:
     # identity-keyed traversal-plan cache (core/plan.py); the functional
     # update methods return fresh Graph objects, so a stale plan is never seen
     _plan: Optional[object] = field(default=None, repr=False, compare=False)
+    # delta lineage, set by apply_delta's fast path
+    _delta: Optional[_DeltaInfo] = field(default=None, repr=False,
+                                         compare=False)
 
     # -- constructors ----------------------------------------------------------
     @classmethod
@@ -146,10 +249,10 @@ class Graph:
         return int(self.out_idx.shape[0])
 
     def out_degrees(self) -> torch.Tensor:
-        return (self.out_ptr[1:] - self.out_ptr[:-1])[: self.n_nodes]
+        return torch.diff(self.out_ptr[: self.n_nodes + 1])
 
     def in_degrees(self) -> torch.Tensor:
-        return (self.in_ptr[1:] - self.in_ptr[:-1])[: self.n_nodes]
+        return torch.diff(self.in_ptr[: self.n_nodes + 1])
 
     def out_edges(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(src, dst) with edges sorted by src (dense ids, valid prefix)."""
@@ -163,10 +266,15 @@ class Graph:
 
     # -- traversal plan ------------------------------------------------------------
     def plan(self):
-        """Memoized :class:`repro_torch.core.plan.GraphPlan` for this graph."""
+        """Memoized :class:`repro_torch.core.plan.GraphPlan` for this graph;
+        a child of :meth:`apply_delta`'s fast path gets its parent's plan
+        patched (``GraphPlan.patch``) instead of one built cold."""
         if self._plan is None:
             from .plan import GraphPlan  # local import: plan imports graph
-            self._plan = GraphPlan.build(self)
+            if self._delta is not None:
+                self._plan = GraphPlan.patch(self, self._delta)
+            else:
+                self._plan = GraphPlan.build(self)
         return self._plan
 
     @property
@@ -208,6 +316,124 @@ class Graph:
         return Graph.from_edges(os_[keep], od[keep], dedupe=False,
                                 device=self.device)
 
+    @track("graph.apply_delta", "Graph.apply_delta")
+    def apply_delta(self, delta: EdgeDelta) -> "Graph":
+        """Batch edge inserts/deletes (original ids) -> new Graph.
+
+        Fast path, when every insert endpoint is already a node: both CSR
+        orders are merged on the graph's device over int64 ``(src << 32) |
+        dst`` keys of dense ids, and a ``_DeltaInfo`` is recorded so that
+        :meth:`plan` patches the parent's plan instead of re-deriving it.
+        Inserts are deduped against the kept edges and themselves; deleting
+        an absent edge is a no-op (all copies of a matched pair go, as in
+        :meth:`delete_edges`).  The child shares the parent's ``node_ids``.
+        The host reads a fixed number of sizes (the endpoint test, the
+        lengths of ``unique`` and of the masked selections), none growing
+        with |E|.
+
+        A brand-new insert endpoint shifts the dense numbering: the child
+        is then rebuilt from scratch, with a logged reason, and carries no
+        lineage.
+        """
+        dev = self.device
+        n = self.n_nodes
+        valid = self.node_ids[:n]
+        add_s, add_d = delta.add_src.to(dev), delta.add_dst.to(dev)
+        new_eps = torch.cat([add_s, add_d])
+        _, known = _dense_lookup(valid, new_eps)
+        if new_eps.numel() and not bool(known.all()):
+            log_event(_log, "apply_delta.full_rebuild",
+                      new_nodes=int(torch.unique(new_eps[~known]).numel()),
+                      reason="dense numbering shifts")
+            return self._apply_delta_rebuild(delta)
+
+        s, d = self.out_edges()
+        keys = (s.long() << 32) | d.long()   # dense ids >= 0: sorted, exact
+        empty = keys[:0]
+
+        # -- deletes: anti-join on dense pair keys (absent endpoints no-op) --
+        dropped = empty
+        if delta.n_dels:
+            dp, ok_s = _dense_lookup(valid, delta.del_src.to(dev))
+            dq, ok_d = _dense_lookup(valid, delta.del_dst.to(dev))
+            ok = ok_s & ok_d
+            dkeys = torch.unique((dp[ok] << 32) | dq[ok])
+            hit = _in_sorted(dkeys, keys)
+            dropped = torch.unique(keys[hit])
+            keys = keys[~hit]
+        n_deleted = self.n_edges - int(keys.numel())
+
+        # -- inserts: dedupe, then merge into the sorted out-order list --
+        akeys = empty
+        if delta.n_adds:
+            ai, _ = _dense_lookup(valid, add_s)
+            aj, _ = _dense_lookup(valid, add_d)
+            akeys = torch.unique((ai << 32) | aj)
+            akeys = akeys[~_in_sorted(keys, akeys)]
+        # inserts are absent from the kept list, so sorting the two
+        # together is the sorted insertion of the reference's np.insert
+        merged = torch.sort(torch.cat([keys, akeys])).values \
+            if akeys.numel() else keys
+        # in order: the same pairs keyed (dst, src)
+        merged_in = torch.sort(_swap(merged)).values
+
+        # -- the padded CSR arrays; the merged lists view their storage --
+        e2 = int(merged.numel())
+        node_cap = self.node_capacity
+        edge_cap = next_capacity(max(e2, 1))
+        m_src, m_dst = (merged >> 32).to(_I32), (merged & _LOW).to(_I32)
+        mi_dst, mi_src = (merged_in >> 32).to(_I32), (merged_in & _LOW).to(_I32)
+        out_idx = torch.zeros((edge_cap,), dtype=_I32, device=dev)
+        out_idx[:e2] = m_dst
+        in_idx = torch.zeros((edge_cap,), dtype=_I32, device=dev)
+        in_idx[:e2] = mi_src
+        child = Graph(n_nodes=n, n_edges=e2, node_ids=self.node_ids,
+                      out_ptr=_ptr_of_sorted(m_src, node_cap),
+                      out_idx=out_idx,
+                      in_ptr=_ptr_of_sorted(mi_dst, node_cap),
+                      in_idx=in_idx)
+        dirty = torch.unique(torch.cat([
+            akeys >> 32, akeys & _LOW, dropped >> 32, dropped & _LOW]))
+        child._delta = _DeltaInfo(
+            parent=self,
+            add_src=(akeys >> 32).to(_I32), add_dst=(akeys & _LOW).to(_I32),
+            del_src=(dropped >> 32).to(_I32),
+            del_dst=(dropped & _LOW).to(_I32),
+            insert_only=n_deleted == 0, dirty=dirty.to(_I32),
+            out_src=m_src, out_dst=out_idx[:e2],
+            in_src=in_idx[:e2], in_dst=mi_dst)
+        return child
+
+    def _apply_delta_rebuild(self, delta: EdgeDelta) -> "Graph":
+        """Slow path: the node set grows, so renumber and rebuild.
+
+        Node set = the parent's nodes (isolated ones included) + the new
+        insert endpoints; delete and dedupe semantics match the fast path.
+        """
+        dev = self.device
+        s, d = self.out_edges()
+        os_, od = self.original_of(s).long(), self.original_of(d).long()
+        # original ids may be any int32, so mask the low word (injective on
+        # int32 pairs; only used for set membership, never for ordering)
+        keys = ((os_ & _LOW) << 32) | (od & _LOW)
+        if delta.n_dels:
+            ds_, dd = delta.del_src.to(dev).long(), delta.del_dst.to(dev).long()
+            keep = ~torch.isin(keys, ((ds_ & _LOW) << 32) | (dd & _LOW))
+            os_, od = os_[keep], od[keep]
+        add_s, add_d = delta.add_src.to(dev), delta.add_dst.to(dev)
+        new_ids = torch.unique(torch.cat([self.node_ids[: self.n_nodes],
+                                          add_s, add_d]))
+        # orig -> dense is monotone, so the kept out-order list stays sorted
+        ks = torch.searchsorted(new_ids, os_.to(_I32)).long()
+        kd = torch.searchsorted(new_ids, od.to(_I32)).long()
+        ai = torch.searchsorted(new_ids, add_s).long()
+        aj = torch.searchsorted(new_ids, add_d).long()
+        akeys = torch.unique((ai << 32) | aj)
+        akeys = akeys[~_in_sorted((ks << 32) | kd, akeys)]
+        return Graph.from_dense_edges(
+            torch.cat([ks, akeys >> 32]), torch.cat([kd, akeys & _LOW]),
+            int(new_ids.numel()), node_ids=new_ids, device=dev)
+
     @track("graph.to_undirected", "Graph.to_undirected")
     def to_undirected(self) -> "Graph":
         """Symmetrized simple graph (for triangles / WCC)."""
@@ -216,6 +442,49 @@ class Graph:
         return Graph.from_edges(torch.cat([os_, od]), torch.cat([od, os_]),
                                 dedupe=True, drop_self_loops=True,
                                 device=self.device)
+
+    # -- memory accounting and lineage ------------------------------------------
+    def nbytes(self) -> int:
+        """Bytes of the five CSR arrays."""
+        return sum(a.numel() * a.element_size() for a in (
+            self.node_ids, self.out_ptr, self.out_idx, self.in_ptr,
+            self.in_idx))
+
+    def plan_nbytes(self) -> int:
+        """Derived bytes held by this graph's plan (0 when the plan is cold)."""
+        return 0 if self._plan is None else int(self._plan.nbytes())
+
+    def lineage_depth(self) -> int:
+        """Length of the ``apply_delta`` ancestry chain hanging off this graph."""
+        depth, g = 0, self
+        while g._delta is not None:
+            depth += 1
+            g = g._delta.parent
+        return depth
+
+    def prune_lineage(self, max_depth: int) -> int:
+        """Cut the delta-ancestry chain ``max_depth`` links up; returns cuts.
+
+        Every ``apply_delta`` child holds its parent graph (and, once its
+        plan is built, the parent's plan) through ``_delta``: on the card a
+        long delta stream would pin every ancestor's arrays.  Cutting
+        clears the ancestor's ``_delta`` and its plan's ``_parent`` /
+        ``_info``, releasing everything deeper; the cut ancestor only loses
+        warm starts for later deltas, never a result.
+        """
+        depth, g = 0, self
+        while g._delta is not None and depth < max_depth:
+            depth += 1
+            g = g._delta.parent
+        cuts = 0
+        if g._delta is not None:
+            g._delta = None
+            cuts += 1
+        if g._plan is not None and getattr(g._plan, "_parent", None) is not None:
+            g._plan._parent = None
+            g._plan._info = None
+            cuts += 1
+        return cuts
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"Graph({self.n_nodes} nodes, {self.n_edges} edges)"
@@ -226,17 +495,48 @@ class Graph:
 # ---------------------------------------------------------------------------
 
 
+def _dense_lookup(valid: torch.Tensor, q: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int64 dense position, present?) of original ids in the sorted id
+    table; the position is clamped to ``size - 1`` so the gather that tests
+    presence never reads out of range."""
+    if valid.numel() == 0 or q.numel() == 0:
+        return (torch.zeros(q.shape, dtype=torch.int64, device=q.device),
+                torch.zeros(q.shape, dtype=torch.bool, device=q.device))
+    pos = torch.clamp(torch.searchsorted(valid, q), max=valid.numel() - 1)
+    return pos, valid[pos] == q
+
+
+def _in_sorted(haystack: torch.Tensor, needles: torch.Tensor) -> torch.Tensor:
+    """Membership of needles in an ascending (possibly duplicated) tensor."""
+    if haystack.numel() == 0 or needles.numel() == 0:
+        return torch.zeros(needles.shape, dtype=torch.bool,
+                           device=needles.device)
+    pos = torch.clamp(torch.searchsorted(haystack, needles),
+                      max=haystack.numel() - 1)
+    return haystack[pos] == needles
+
+
+def _swap(keys: torch.Tensor) -> torch.Tensor:
+    """``(a << 32) | b`` -> ``(b << 32) | a`` for non-negative words."""
+    return ((keys & _LOW) << 32) | (keys >> 32)
+
+
+def _ptr_of_sorted(rows: torch.Tensor, node_cap: int) -> torch.Tensor:
+    """CSR row pointers of ascending row ids: ptr[i] = #rows < i."""
+    return torch.searchsorted(
+        rows, torch.arange(node_cap + 1, dtype=_I32, device=rows.device)
+    ).to(_I32)
+
+
 def _csr_from_pairs(row: torch.Tensor, col: torch.Tensor, node_cap: int,
                     edge_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-first CSR: lexsort (row, col) -> counts -> ptr; no hash inserts."""
     e = int(row.shape[0])
     perm = _lexsort(col, row)      # row primary, col secondary
-    # row pointers from the sorted rows: ptr[i] = #edges with row < i
-    ptr = torch.searchsorted(
-        row[perm], torch.arange(node_cap + 1, dtype=_I32, device=row.device))
     idx = torch.zeros((edge_cap,), dtype=_I32, device=row.device)
     idx[:e] = col[perm]
-    return ptr.to(_I32), idx
+    return _ptr_of_sorted(row[perm], node_cap), idx
 
 
 def _row_of_edge(ptr: torch.Tensor, e: int) -> torch.Tensor:

@@ -30,7 +30,8 @@ attribute; objects that refuse one go through a weakref side table, or a
 bounded strong pin ring when they refuse weakrefs too).  A tensor parameter
 becomes a literal only when it has at most ``_MAX_EMBED`` elements, and only
 then is it copied to the host: tracking a call on larger tensors reads
-nothing from the card.  Not in this slice: ``EdgeDelta`` parameters.
+nothing from the card.  An ``EdgeDelta`` parameter is a tagged tuple of its
+four columns, each by the same rule.
 """
 
 from __future__ import annotations
@@ -385,6 +386,13 @@ def canonical_value(v: Any) -> Any:
         return int(v)
     if isinstance(v, (np.floating,)):
         return float(v)
+    from .graph import EdgeDelta  # lazy: graph imports this module at load
+    if isinstance(v, EdgeDelta):
+        # small deltas embed as literals (replayable, exportable update
+        # chains); a larger column becomes Opaque, with no host copy
+        return ("edge_delta",
+                canonical_value(v.add_src), canonical_value(v.add_dst),
+                canonical_value(v.del_src), canonical_value(v.del_dst))
     if torch.is_tensor(v):
         if v.numel() > _MAX_EMBED:
             # no host copy and no sync: the description needs only metadata
@@ -466,6 +474,9 @@ def _uncanonical(v: Any) -> Any:
     if isinstance(v, tuple) and v and v[0] == "array":
         _, dtype, shape, vals = v
         return torch.tensor(np.asarray(vals, dtype=dtype).reshape(shape))
+    if isinstance(v, tuple) and v and v[0] == "edge_delta":
+        from .graph import EdgeDelta
+        return EdgeDelta(*(_uncanonical(x) for x in v[1:]))
     if isinstance(v, tuple) and v and v[0] == "tuple":
         return tuple(_uncanonical(x) for x in v[1])
     if isinstance(v, tuple) and v and v[0] == "dict":
@@ -481,6 +492,10 @@ def _literal(v: Any) -> str:
         _, dtype, shape, vals = v
         return (f"torch.tensor(np.asarray({list(vals)!r}, "
                 f"dtype={dtype!r}).reshape({tuple(shape)!r}))")
+    if isinstance(v, tuple) and v and v[0] == "edge_delta":
+        a_s, a_d, d_s, d_d = (_literal(x) for x in v[1:])
+        return (f"EdgeDelta(add_src={a_s}, add_dst={a_d}, "
+                f"del_src={d_s}, del_dst={d_d})")
     if isinstance(v, tuple) and v and v[0] == "tuple":
         inner = ", ".join(_literal(x) for x in v[1])
         comma = "," if len(v[1]) == 1 else ""
@@ -663,7 +678,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.table import Table
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import EdgeDelta, Graph
 from repro_torch.core import relational as R
 from repro_torch.core import algorithms as A
 from repro_torch.core import convert as C

@@ -23,7 +23,7 @@ from repro_torch.core import algorithms as A
 from repro_torch.core import convert as C
 from repro_torch.core import provenance as P
 from repro_torch.core import relational as R
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import EdgeDelta, Graph
 from repro_torch.core.table import FLOAT, INT, STR, Table
 from repro_torch.data.rmat import rmat_edges
 from repro_torch.kernels import bsr_spmv as k1
@@ -515,3 +515,91 @@ def test_provenance_replays_on_the_card(dev):
     for name in ranked.schema.names:
         assert torch.equal(again.column(name), ranked.column(name))
 
+
+
+# ---------------------------------------------------------------------------
+# incremental maintenance on the card: patched plans through K1 and K3
+# ---------------------------------------------------------------------------
+
+
+def _in_tile_inserts(g, block, k=64, seed=0):
+    """Original-id inserts of absent pairs whose (dst, src) and (src, dst)
+    tiles ``g`` already holds, so both BSR layouts patch."""
+    rng = np.random.default_rng(seed)
+    s, d = (t.cpu().numpy().astype(np.int64) for t in g.out_edges())
+    have = set(zip(s.tolist(), d.tolist()))
+    tiles = set(zip((s // block).tolist(), (d // block).tolist()))
+    tiles &= {(j, i) for i, j in tiles}
+    picks = set()
+    while len(picks) < k:
+        i, j = (int(x) for x in rng.integers(0, g.n_nodes, 2))
+        if (i // block, j // block) in tiles and (i, j) not in have:
+            picks.add((i, j))
+    ids = g.node_ids.cpu().numpy()
+    return EdgeDelta.inserts([ids[i] for i, _ in sorted(picks)],
+                             [ids[j] for _, j in sorted(picks)])
+
+
+@pytest.mark.parametrize("kind", ["insert_only", "mixed", "new_ids"])
+def test_apply_delta_on_the_card_equals_cpu(dev, kind):
+    s, d = rmat_edges(10, 8, seed=5)
+    gc = Graph.from_edges(s, d, device="cpu")
+    gd = Graph.from_edges(s, d, device=dev)
+    ins = _in_tile_inserts(gc, 128, k=100)
+    es, ed = (t.numpy() for t in gc.out_edges())
+    ids = gc.node_ids.numpy()
+    cols = {"insert_only": (ins.add_src, ins.add_dst, [], []),
+            "mixed": (ins.add_src, ins.add_dst, ids[es[:50]], ids[ed[:50]]),
+            "new_ids": ([-3, 5], [7, 1 << 20], [], [])}[kind]
+    cc, cd = gc.apply_delta(EdgeDelta(*cols)), gd.apply_delta(EdgeDelta(*cols))
+    assert cd.device.type == "cuda"
+    for a, b in zip(cd.to_arrays(), cc.to_arrays()):
+        np.testing.assert_array_equal(a, b)
+    assert (cd._delta is None) == (cc._delta is None) == (kind == "new_ids")
+    if cd._delta is not None:
+        for f in ("add_src", "add_dst", "del_src", "del_dst", "dirty",
+                  "out_src", "out_dst", "in_src", "in_dst"):
+            assert torch.equal(getattr(cd._delta, f).cpu(),
+                               getattr(cc._delta, f)), f
+        assert torch.equal(cd.plan().in_perm_out().cpu(),
+                           cc.plan().in_perm_out())
+
+
+def test_k1_on_patched_tiles_matches_plain(dev):
+    g = Graph.from_edges(*rmat_edges(10, 8, seed=5), device=dev)
+    g.plan().bsr(), g.plan().bsr_t()
+    child = g.apply_delta(_in_tile_inserts(g, 128))
+    tiles, rows, cols, nb = child.plan().bsr()
+    assert rows is g.plan().bsr()[1] and tiles is not g.plan().bsr()[0]
+    s, d = (t.cpu().numpy() for t in child.out_edges())
+    cold = ops.edges_to_bsr(s, d, child.n_nodes, device=dev)
+    assert torch.equal(tiles, cold[0])
+    x = torch.rand((nb, 128), generator=torch.Generator(device=dev)
+                   .manual_seed(0), device=dev)
+    before = bsr_spmv.launches
+    y = bsr_spmv(tiles, rows, cols, x, nb)
+    assert bsr_spmv.launches == before + 1
+    want = bsr_spmv_plain(tiles, rows, cols, x, nb)
+    assert float((y - want).abs().max()) <= 1e-5 * max(
+        1.0, float(want.abs().max()))
+    warm = A.pagerank(child, tol=1e-6, init=A.pagerank(g, tol=1e-6),
+                      backend="bsr")
+    cold_pr = A.pagerank(child, tol=1e-6, backend="xla")
+    assert float((warm - cold_pr).abs().max()) <= 1e-5
+
+
+def test_k3_on_a_patched_undirected_plan_matches_plain(dev):
+    g = Graph.from_edges(*rmat_edges(10, 8, seed=5), device=dev)
+    u = g.plan().undirected()
+    u.plan().tri_triples()
+    child = g.apply_delta(_in_tile_inserts(g, 128, k=32, seed=1))
+    cu = child.plan().undirected()
+    assert cu._delta is not None
+    tiles, rows, _, _ = cu.plan().bsr()
+    assert rows is u.plan().bsr()[1]
+    assert cu.plan().tri_triples() is u.plan().tri_triples()
+    t_ij, t_ik, t_kj = cu.plan().tri_triples()
+    ones = torch.clamp(tiles, max=1.0)
+    got = int(bsr_tricount(ones, t_ij, t_ik, t_kj))
+    assert got == int(bsr_tricount_plain(ones, t_ij, t_ik, t_kj))
+    assert A.triangle_count(cu, backend="bsr") == A.triangle_count(cu)

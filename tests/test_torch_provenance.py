@@ -27,7 +27,7 @@ from repro_torch.core import algorithms as A
 from repro_torch.core import provenance as P
 from repro_torch.core import relational as R
 from repro_torch.core.convert import table_from_map, to_graph
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import EdgeDelta, Graph
 from repro_torch.core.table import INT, STR, Table
 
 CPU = torch.device("cpu")
@@ -280,3 +280,73 @@ def test_pin_ring_is_bounded():
         assert P.object_for_version(tokens[2]) is objs[2]
     finally:
         P.set_pin_capacity(4096)
+
+
+# ---------------------------------------------------------------------------
+# EdgeDelta parameters: canonical form, export and replay of update chains
+# ---------------------------------------------------------------------------
+
+
+def _delta_cols(n_add=3, n_del=1):
+    rng = np.random.default_rng(3)
+    return (rng.integers(0, 40, n_add).astype(np.int32),
+            rng.integers(0, 40, n_add).astype(np.int32),
+            np.arange(n_del, dtype=np.int32), np.arange(n_del, dtype=np.int32))
+
+
+@pytest.mark.parametrize("n_add,n_del", [(3, 1), (0, 0), (256, 2)])
+def test_edge_delta_canonical_tuple_equals_the_reference(n_add, n_del):
+    from repro.core.graph import EdgeDelta as REdgeDelta
+    cols = _delta_cols(n_add, n_del)
+    got = P.canonical_value(EdgeDelta(*cols))
+    assert got == RP.canonical_value(REdgeDelta(*cols))
+    assert got[0] == "edge_delta" and not P.contains_opaque(got)
+    back = P._uncanonical(got)
+    assert isinstance(back, EdgeDelta)
+    for f, col in zip(("add_src", "add_dst", "del_src", "del_dst"), cols):
+        assert getattr(back, f).tolist() == col.tolist()
+
+
+def test_edge_delta_chain_exports_and_replays_bit_identically():
+    t = port_posts()
+    g = to_graph(t, "id", "ref")
+    ids = g.node_ids[: g.n_nodes].numpy()
+    child = g.apply_delta(EdgeDelta(ids[[0, 1, 2]], ids[[3, 4, 5]],
+                                    ids[g.out_edges()[0][:1].numpy()],
+                                    ids[g.out_edges()[1][:1].numpy()]))
+    pr = A.pagerank(child, n_iter=10)
+    recs = P.records_of(pr)
+    assert [r.op for r in recs] == ["convert.to_graph", "graph.apply_delta",
+                                    "algorithms.pagerank"]
+    script = P.export_script(pr)
+    assert "EdgeDelta(add_src=torch.tensor(" in script
+    assert "from repro_torch.core.graph import EdgeDelta, Graph" in script
+    ns = {}
+    exec(compile(script, "<prov-export>", "exec"), ns)
+    assert torch.equal(ns["rebuild"](), pr)
+    (root,) = P.roots_of(recs)
+    assert torch.equal(P.replay(recs, {root: t}), pr)
+
+
+def test_large_edge_delta_is_opaque_without_a_host_copy(monkeypatch):
+    cols = [torch.arange(300, dtype=torch.int32) for _ in range(2)]
+    delta = EdgeDelta(*cols, torch.arange(4), torch.arange(4))
+
+    def guard(name):
+        real = getattr(torch.Tensor, name)
+
+        def copy(self, *a, **kw):
+            assert self.numel() <= 256, f"{name} of a large delta column"
+            return real(self, *a, **kw)
+        return copy
+
+    for name in ("cpu", "numpy", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name, guard(name))
+    canon = P.canonical_value(EdgeDelta(*cols, [], []))
+    monkeypatch.undo()
+    assert canon[0] == "edge_delta" and P.contains_opaque(canon)
+    assert all(isinstance(c, P.Opaque) for c in canon[1:3])
+    assert canon[1].desc == "array(300,):int32"
+    assert P.contains_opaque(P.canonical_value(delta))
+    with pytest.raises(P.ProvenanceError):
+        P._uncanonical(canon)
