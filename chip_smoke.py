@@ -136,11 +136,15 @@ checkout of the repository, it fails before any phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import io
 import json
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -435,6 +439,14 @@ def np_core_numbers(row, col, n, k_max):
     return core, total
 
 
+def frontier_rounds():
+    """(rounds, dense rounds) the frontier loop has run in this process:
+    the engine's ``engine.frontier.rounds`` / ``.dense_rounds`` counters."""
+    from repro_torch import obs
+    return (obs.counter("engine.frontier.rounds").value,
+            obs.counter("engine.frontier.dense_rounds").value)
+
+
 def count_syncs(fn):
     """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
     result and the synchronizing CUDA calls it made, counted by the
@@ -481,9 +493,10 @@ def phase_traversal(dev, g22, g14, u14, scales=(22, 14)):
     def frontier_vs_xla(name, fn, rec):
         """``fn(backend)`` on "frontier" and "xla": equal bits, the first
         call's rounds, each backend's first and warm seconds."""
-        r0, d0 = ff.rounds, ff.dense_rounds
+        r0, d0 = frontier_rounds()
         got, t_f = timed(lambda: fn("frontier"))
-        rounds, dense = ff.rounds - r0, ff.dense_rounds - d0
+        r1, d1 = frontier_rounds()
+        rounds, dense = r1 - r0, d1 - d0
         want, t_x = timed(lambda: fn("xla"))
         check(got.dtype == want.dtype and torch.equal(got, want),
               f"{name}: frontier != xla")
@@ -541,9 +554,9 @@ def phase_traversal(dev, g22, g14, u14, scales=(22, 14)):
     seed = torch.zeros((n,), dtype=torch.bool, device=dev)
     seed[src] = True
     hop = torch.ones((), device=dev)
-    r0 = ff.rounds
+    r0 = frontier_rounds()[0]
     _, syncs = count_syncs(lambda: ff(plan, init, seed, weights=hop))
-    rounds = ff.rounds - r0
+    rounds = frontier_rounds()[0] - r0
     check(sum(syncs.values()) == rounds + 1, f"frontier_fixpoint: host "
           f"syncs {syncs} in {rounds} rounds, not one a round plus the read "
           f"that ends it")
@@ -1027,6 +1040,19 @@ def evict_measured(plan):
     return freed, before - torch.cuda.memory_allocated()
 
 
+def insert_delta_arrays(g):
+    """The 0.1% insert-only delta of phase 3d (numpy seed 7): original-id
+    ``(src, dst)`` pairs drawn from ``g``'s nodes, and the generator after
+    drawing them."""
+    n = g.n_nodes
+    ids = g.node_ids[:n].cpu().numpy()
+    rng = np.random.default_rng(7)
+    k = max(1, int(g.n_edges * DELTA_FRAC))
+    add_s = ids[rng.integers(0, n, k)].astype(np.int32)
+    add_d = ids[rng.integers(0, n, k)].astype(np.int32)
+    return add_s, add_d, rng
+
+
 def phase_incremental_scale22(dev, g22):
     """Phase 3d (a): the reference's 0.1% insert delta on the scale-22 graph:
     ``apply_delta`` and the patched plan against a cold build, warm PageRank
@@ -1036,15 +1062,11 @@ def phase_incremental_scale22(dev, g22):
     from repro_torch.core import engine
     from repro_torch.core.graph import EdgeDelta, Graph
     from repro_torch.kernels.segment_sum import segment_sum_chunked as k2
-    ff = engine.frontier_fixpoint
     t0 = time.perf_counter()
     n, e = g22.n_nodes, g22.n_edges
     parent = g22.plan()
-    ids = g22.node_ids[:n].cpu().numpy()
-    rng = np.random.default_rng(7)
-    k = max(1, int(e * DELTA_FRAC))
-    add_s = ids[rng.integers(0, n, k)].astype(np.int32)
-    add_d = ids[rng.integers(0, n, k)].astype(np.int32)
+    add_s, add_d, rng = insert_delta_arrays(g22)
+    k = int(add_s.size)
     delta = EdgeDelta.inserts(add_s, add_d)
     secs = {}
 
@@ -1116,15 +1138,16 @@ def phase_incremental_scale22(dev, g22):
                lambda: A.connected_components(child, backend="frontier")),
     }
     for name, (warm_fn, cold_fn) in runs.items():
-        r0 = ff.rounds
+        r0 = frontier_rounds()[0]
         got, t_warm = timed(warm_fn)
-        r1 = ff.rounds
+        r1 = frontier_rounds()[0]
         want, t_cold = timed(cold_fn)
         check(got is not None, f"incremental {name} declined an insert-only "
               f"delta")
         check(got.dtype == want.dtype and torch.equal(got, want),
               f"incremental {name} != cold")
-        trav[name] = {"rounds_warm": r1 - r0, "rounds_cold": ff.rounds - r1,
+        trav[name] = {"rounds_warm": r1 - r0,
+                      "rounds_cold": frontier_rounds()[0] - r1,
                       "seconds_warm": t_warm, "seconds_cold": t_cold}
     check(torch.equal(A.connected_components(child, backend="xla"),
                       A.connected_components(child, backend="frontier")),
@@ -1319,6 +1342,418 @@ def phase_incremental(dev, g22, g14):
     check(launches == want and all(launches.values()),
           f"phase 3d launches {launches}, its steps counted {want}")
     emit({"phase": "incremental", "launches": launches})
+    return launches
+
+
+SERVICE_BFS = 16   # phase 3e: single-source BFS requests on g22, one session
+SERVICE_PPR = 8    # phase 3e: personalized PageRank requests on g14, "bsr"
+SERVICE_CLIENTS = 4   # phase 3e (b): RemoteService clients in threads
+
+
+def host(x) -> np.ndarray:
+    """A result as a host array, whichever transport returned it."""
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def top_sources(g, k, skip=0):
+    """The dense ids of ``g``'s vertices ranked ``skip`` .. ``skip + k`` by
+    out-degree: distinct, well-connected sources."""
+    order = torch.argsort(g.plan().out_deg.long(), descending=True,
+                          stable=True)
+    return [int(x) for x in order[skip:skip + k].cpu()]
+
+
+def engine_spans_ms(op, pendings):
+    """Durations (ms) of the distinct ``engine.<op>`` spans that served
+    ``pendings``, from this process's trace ring (host clock, closed after
+    the service's device sync): one per engine call, fused or not."""
+    from repro_torch import obs
+    spans = {}
+    for p in pendings:
+        if p.trace is None:
+            continue
+        for e in obs.export_chrome_trace(trace=p.trace)["traceEvents"]:
+            if e.get("ph") == "X" and e["name"] == f"engine.{op}":
+                spans[(e["tid"], e["ts"])] = e["dur"] / 1e3
+    return sorted(spans.values())
+
+
+def pending_summary(pendings):
+    """Per op: requests, fused, cached, median latency_ms and queued_ms
+    (host clock, ``Pending`` / ``RemotePending``), and the engine calls
+    that served them with their ms."""
+    by_op = {}
+    for op, p in pendings:
+        by_op.setdefault(op, []).append(p)
+    out = {}
+    for op, ps in sorted(by_op.items()):
+        lat = [p.latency_ms for p in ps if p.latency_ms is not None]
+        qd = [p.queued_ms for p in ps if p.queued_ms is not None]
+        eng = engine_spans_ms(ps[0].request.get("op", op), ps)
+        out[op] = {"requests": len(ps), "engine_calls_ms": eng,
+                   "fused": sum(bool(p.fused) for p in ps),
+                   "cached": sum(bool(p.cached) for p in ps),
+                   "median_latency_ms": statistics.median(lat) if lat
+                   else None,
+                   "median_queued_ms": statistics.median(qd) if qd
+                   else None}
+    return out
+
+
+def sched_summary(snap):
+    """``sched.engine_ms`` quantiles and ``sched.batch_size`` of a metrics
+    snapshot (host clock; engine ms are taken after a device sync)."""
+    from repro_torch.obs import quantile_from_snapshot
+    out = {}
+    h = snap.get("sched.engine_ms") or {}
+    if h.get("count"):
+        out["engine_ms"] = {"count": h["count"], "sum": h["sum"], **{
+            f"p{int(q * 100)}": quantile_from_snapshot(h, q)
+            for q in (0.5, 0.9, 0.99)}}
+    b = snap.get("sched.batch_size") or {}
+    if b.get("count"):
+        out["batch_size"] = {"calls": b["count"], "requests": b["sum"],
+                             "max_le": max(le for le, c in zip(
+                                 b["buckets"], b["counts"]) if c)
+                             if any(b["counts"][:-1]) else None}
+    return out
+
+
+def run_sessions(svc, reqs, timeout=600.0):
+    """Each entry of ``reqs`` (session name -> requests) submits from its
+    own thread, all starting together; returns [(session, op, Pending)] in
+    submission order per session, after every result is in."""
+    barrier = threading.Barrier(len(reqs))
+    pend = {name: [] for name in reqs}
+    errors = []
+
+    def client(name):
+        sess = svc.session(name)
+        barrier.wait()
+        try:
+            for r in reqs[name]:
+                pend[name].append((r["op"], sess.submit(r)))
+            for _, p in pend[name]:
+                p.result(timeout=timeout)
+        except Exception as e:          # reported below; the phase fails
+            errors.append(f"{name}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(n,)) for n in reqs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errors, f"session requests failed: {errors}")
+    return [(name, op, p) for name in reqs for op, p in pend[name]]
+
+
+def phase_service_inprocess(dev, g22, g14, u14):
+    """Phase 3e (a): ``GraphService(workers=2)`` on the card, four sessions
+    submitting at once; the cache hit, the delta, the memory budget."""
+    from repro_torch import obs
+    from repro_torch.core import algorithms as A
+    from repro_torch.core.graph import EdgeDelta
+    from repro_torch.kernels.bsr_spmv import bsr_spmv as k1
+    from repro_torch.kernels.bsr_tricount import bsr_tricount as k3
+    from repro_torch.kernels.segment_sum import segment_sum_chunked as k2
+    from repro_torch.serve.graph_service import GraphService
+    t0 = time.perf_counter()
+    svc = GraphService(workers=2, device=dev)
+    for name, g in (("g22", g22), ("g14", g14), ("u14", u14)):
+        svc.workspace.put(name, g)
+    bfs_src = top_sources(g22, SERVICE_BFS)
+    ppr_src = top_sources(g14, SERVICE_PPR)
+    ppr_iters = [5 if i % 2 else 10 for i in range(SERVICE_PPR)]
+    pr_pallas = {"op": "pagerank", "graph": "g22",
+                 "params": {"n_iter": 10, "backend": "pallas"}}
+    pr_tol = {"op": "pagerank", "graph": "g22",
+              "params": {"tol": 1e-6, "backend": "xla"}}
+    reqs = {
+        "bfs": [{"op": "bfs", "graph": "g22", "params": {"source": s}}
+                for s in bfs_src],
+        "ppr": [{"op": "personalized_pagerank", "graph": "g14",
+                 "params": {"source": s, "n_iter": it, "backend": "bsr"}}
+                for s, it in zip(ppr_src, ppr_iters)],
+        "pagerank": [pr_pallas, pr_tol],
+        "triangles": [{"op": "triangle_count", "graph": "u14",
+                       "params": {"backend": "bsr"}}],
+    }
+    before = dict(svc.stats)
+    ran, secs_sessions = timed(lambda: run_sessions(svc, reqs))
+    stats = {k: svc.stats[k] - before[k] for k in svc.stats}
+    check(stats["fused_calls"] >= 1, f"no request fused: {stats}")
+    got = {op: [p for _, o, p in ran if o == op] for op in
+           ("bfs", "personalized_pagerank", "pagerank", "triangle_count")}
+    check(sum(p.fused for p in got["personalized_pagerank"]) >= 2,
+          "the personalized PageRank requests did not fuse")
+    secs_standalone = 0.0
+    for s, p in zip(bfs_src, got["bfs"]):
+        want, secs = timed(lambda: A.bfs(g22, s))
+        secs_standalone += secs
+        check(torch.equal(p.value, want), f"fused bfs row {s} != standalone")
+    for s, it, p in zip(ppr_src, ppr_iters, got["personalized_pagerank"]):
+        check(torch.equal(p.value, A.personalized_pagerank(
+            g14, s, n_iter=it, backend="bsr")),
+            f"fused ppr row {s} (n_iter {it}) != standalone")
+    pr_xla = A.pagerank(g22, n_iter=10, backend="xla")
+    err = max_abs(got["pagerank"][0].value, pr_xla)
+    scale = float(pr_xla.abs().max())
+    check(err <= TOL * scale, f"service pallas pagerank vs xla {err}")
+    tri = got["triangle_count"][0].value
+    check(tri == A.triangle_count(u14), f"service bsr triangles {tri} != "
+          f"xla {A.triangle_count(u14)}")
+    # the repeat is a submit-time cache hit: no host sync, no launch
+    counts = (k1.launches, k2.launches, k3.launches)
+    hit, hit_syncs = count_syncs(lambda: svc.session("pagerank").submit(
+        pr_pallas))
+    check(hit.done and hit.cached and hit.result() is got["pagerank"][0].value,
+          "repeated pallas pagerank was not a cache hit")
+    check(sum(hit_syncs.values()) == 0, f"cache hit synced: {hit_syncs}")
+    check((k1.launches, k2.launches, k3.launches) == counts,
+          "the cache hit launched a kernel")
+    _, xla_syncs = count_syncs(lambda: A.pagerank(g22, n_iter=10,
+                                                  backend="xla"))
+    check(sum(xla_syncs.values()) == 0 and obs.REGISTRY.enabled,
+          f"xla pagerank with the instruments on synced: {xla_syncs}")
+    summary = pending_summary([(op, p) for _, op, p in ran] +
+                              [("pagerank_hit", hit)])
+
+    # the delta: retained or warm, each equal to a cold run on the child
+    add_s, add_d, _ = insert_delta_arrays(g22)
+    before = dict(svc.stats)
+    _, secs_delta = timed(lambda: svc.workspace.apply_delta(
+        "g22", EdgeDelta.inserts(add_s, add_d)))
+    child = svc.workspace.get("g22")
+    check(child._delta is not None and child._delta.parent is g22,
+          "Workspace.apply_delta did not keep the delta lineage")
+    sess = svc.session("bfs")
+    redo = [("bfs", sess.submit(reqs["bfs"][0])),
+            ("pagerank", svc.session("pagerank").submit(pr_tol))]
+    (bfs_new, pr_new), secs_redo = timed(
+        lambda: [p.result(timeout=600) for _, p in redo])
+    dstats = {k: svc.stats[k] - before[k] for k in svc.stats}
+    check(dstats["retained"] + dstats["warm_starts"] >= 1,
+          f"nothing retained or warm after the delta: {dstats}")
+    check(torch.equal(bfs_new, A.bfs(child, bfs_src[0])),
+          "bfs after the delta != a cold bfs on the child")
+    cold_pr = A.pagerank(child, tol=1e-6, backend="xla")
+    err_delta = max_abs(pr_new, cold_pr)
+    check(err_delta <= 1e-5, f"pagerank after the delta vs cold {err_delta}")
+    summary.update({f"{op}_after_delta": pending_summary([(op, p)])[op]
+                    for op, p in redo})
+
+    # a memory budget under the plan's evictable bytes: same answers
+    budget = service_budget(dev, g14, ppr_src[0])
+    snap = obs.dump_metrics()
+    emit({"phase": "service_inprocess", "workers": 2,
+          "sessions": {k: len(v) for k, v in reqs.items()},
+          "stats": stats, "stats_after_delta": dstats,
+          "ops": summary, "sched": sched_summary(snap),
+          "bfs_standalone_seconds_total": secs_standalone,
+          "pallas_pagerank_max_abs_vs_xla": err,
+          "pagerank_after_delta_max_abs_vs_cold": err_delta,
+          "cache_hit_syncs": hit_syncs, "xla_pagerank_syncs": xla_syncs,
+          "budget": budget, "seconds_sessions": secs_sessions,
+          "seconds_apply_delta": secs_delta, "seconds_after_delta": secs_redo,
+          "seconds": time.perf_counter() - t0})
+    return svc, child, bfs_src
+
+
+def service_budget(dev, g14, source):
+    """An unbounded and a budgeted service on fresh copies of ``g14`` (the
+    same CSR tensors, no plan): the budget sits under the evictable plan
+    bytes the unbounded one holds, and the answers must be the same bits."""
+    from repro_torch.serve.graph_service import GraphService
+    from repro_torch.serve.policy import MemoryPolicy
+    seq = [("pagerank", {"n_iter": 10, "backend": "bsr"}),
+           ("personalized_pagerank", {"source": source, "backend": "bsr"}),
+           ("k_core", {"k": 8, "backend": "bsr"}),
+           ("connected_components", {}),
+           ("bfs", {"source": source})]
+
+    def run(svc):
+        svc.workspace.put("g", dataclasses.replace(g14, _plan=None,
+                                                   _delta=None))
+        sess = svc.session("a")
+        return [sess.execute({"op": op, "graph": "g", "params": params})
+                for op, params in seq]
+
+    free = GraphService(device=dev)
+    want = run(free)
+    evictable = free.memory_stats()["plan_evictable_bytes"]
+    check(evictable > 0, "no evictable plan bytes on g14")
+    tight = GraphService(device=dev,
+                         memory=MemoryPolicy(budget_bytes=evictable // 4))
+    got = run(tight)
+    check(all(torch.equal(a, b) for a, b in zip(want, got)),
+          "the budgeted service answered differently")
+    mem = tight.memory_stats()
+    check(tight.stats["evicted_bytes"] > 0 and
+          mem["tracked_bytes"] <= evictable // 4,
+          f"budget {evictable // 4} not kept: {mem}, {tight.stats}")
+    return {"budget_bytes": evictable // 4, "unbounded_evictable": evictable,
+            "tracked_bytes": mem["tracked_bytes"],
+            "evicted_results": tight.stats["evicted_results"],
+            "evicted_plan_families": tight.stats["evicted_plan_families"],
+            "evicted_bytes": tight.stats["evicted_bytes"]}
+
+
+def phase_service_tcp(dev, svc, child, bfs_src):
+    """Phase 3e (b): ``GraphServer`` on the part-(a) service, four
+    ``RemoteService`` clients in threads issuing BFS and PageRank on the
+    (updated) scale-22 graph; stats, metrics, a trace, a draining
+    shutdown."""
+    from repro_torch.core import algorithms as A
+    from repro_torch.serve.client import RemoteService
+    from repro_torch.serve.server import GraphServer
+    t0 = time.perf_counter()
+    server = GraphServer(svc, port=0).start()
+    fresh = top_sources(child, 4 * SERVICE_CLIENTS + 8, skip=SERVICE_BFS)
+    pr_req = {"op": "pagerank", "graph": "g22", "params": {"n_iter": 10}}
+    clients = [RemoteService(port=server.port, device=dev)
+               for _ in range(SERVICE_CLIENTS)]
+    results = [None] * SERVICE_CLIENTS
+    errors = []
+    barrier = threading.Barrier(SERVICE_CLIENTS)
+
+    def client(i):
+        sess = clients[i].session("analyst")
+        barrier.wait()
+        try:
+            ps = [("bfs", s, sess.submit({"op": "bfs", "graph": "g22",
+                                          "params": {"source": s}}))
+                  for s in fresh[4 * i:4 * i + 4]]
+            ps.append(("pagerank", None, sess.submit(pr_req)))
+            results[i] = [(op, s, p, p.result(timeout=600))
+                          for op, s, p in ps]
+        except Exception as e:
+            errors.append(f"client {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVICE_CLIENTS)]
+    before = dict(svc.stats)
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    secs_clients = time.perf_counter() - t0
+    check(not errors, f"remote clients failed: {errors}")
+    pr_local = svc.session("local").execute(pr_req)
+    pr_direct = A.pagerank(child, n_iter=10)
+    for rows in results:
+        for op, s, _, v in rows:
+            check(isinstance(v, np.ndarray), f"remote {op} is not numpy")
+            if op == "bfs":
+                check(np.array_equal(v, host(A.bfs(child, s))),
+                      f"remote bfs {s} != in-process bfs")
+            else:
+                check(np.array_equal(v, host(pr_local)),
+                      "remote pagerank != the in-process service's")
+                check(max_abs(torch.from_numpy(v.copy()), pr_direct.cpu())
+                      <= TOL * float(pr_direct.abs().max()),
+                      "remote pagerank != a direct call")
+    stats = clients[0].stats
+    check(stats["fused_calls"] >= 1, f"remote stats show no fusion: {stats}")
+    metrics = clients[1].metrics()
+    backends = {b: metrics.get(f"engine.backend.{b}", {}).get("value", 0)
+                for b in ("frontier", "bsr", "pallas", "xla")}
+    check(all(backends[b] > 0 for b in ("frontier", "bsr", "pallas")),
+          f"engine.backend counters {backends}")
+    check(metrics.get("sched.engine_ms", {}).get("count", 0) > 0,
+          "sched.engine_ms is empty")
+    # a traced request: its engine span is in the server's trace
+    traced = clients[2].session("tracer").submit(
+        {"op": "bfs", "graph": "g22", "params": {"source": fresh[-1]}})
+    traced.result(timeout=600)
+    doc = clients[2].chrome_trace(trace=traced.trace)
+    names = sorted({e["name"] for e in doc["traceEvents"]})
+    check("engine.bfs" in names, f"no engine span in the trace: {names}")
+    # shutdown drains: requests in flight all resolve
+    late_src = fresh[-8:-1]
+    late = [clients[3].session("late").submit(
+        {"op": "bfs", "graph": "g22", "params": {"source": s}})
+        for s in late_src]
+    _, secs_shutdown = timed(server.shutdown)
+    for s, p in zip(late_src, late):
+        check(np.array_equal(p.result(timeout=60), host(A.bfs(child, s))),
+              f"request {s} in flight at shutdown was dropped or wrong")
+    for c in clients:
+        c.close()
+    remote = [(op, p) for rows in results for op, _, p, _ in rows]
+    emit({"phase": "service_tcp", "clients": SERVICE_CLIENTS,
+          "requests": len(remote) + 1 + len(late),
+          "stats": {k: svc.stats[k] - before[k] for k in svc.stats},
+          "ops": pending_summary(remote + [("bfs_late", p) for p in late]),
+          "engine_backend": backends, "sched": sched_summary(metrics),
+          "trace_spans": names, "seconds_clients": secs_clients,
+          "seconds_shutdown": secs_shutdown,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_service_process(dev):
+    """Phase 3e (c): ``spawn_server`` on the card at scale 14 and the
+    port's §4.1 ``run_workload`` through ``RemoteService``: the exported
+    script re-executes here to the same scores, the delta epilogue warms."""
+    from repro_torch.examples.stackoverflow_experts import run_workload
+    from repro_torch.serve.client import RemoteService
+    from repro_torch.serve.server import spawn_server
+    from repro_torch.core import algorithms as A
+    from repro_torch.core.graph import Graph
+    from repro_torch.data.rmat import rmat_edges
+    t0 = time.perf_counter()
+    proc, port = spawn_server(("--rmat-scale", "14", "--edge-factor", "16",
+                               "--publish", "rmat14"), timeout=300.0)
+    try:
+        secs_spawn = time.perf_counter() - t0
+        client = RemoteService(port=port, device=dev)
+        check(client.server_pid == proc.pid, "the client reached another "
+              "process than the spawned server")
+        # the preloaded graph answers as one built here from the same edges
+        pr = client.session("probe").execute(
+            {"op": "pagerank", "graph": "rmat14", "params": {"n_iter": 10}})
+        here = A.pagerank(Graph.from_edges(*rmat_edges(14, 16), device=dev),
+                          n_iter=10)
+        check(np.array_equal(pr, host(here)),
+              "the spawned server's scale-14 pagerank != a local one")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            experts, secs_workload = timed(lambda: run_workload(client))
+        stats = client.stats
+        check(stats["warm_starts"] >= 1, f"no warm start remotely: {stats}")
+        client.shutdown_server()
+        client.close()
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"spawned server exited with rc {rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    emit({"phase": "service_process", "server_rc": rc,
+          "experts": experts.n_valid, "stats": stats,
+          "workload_lines": len(out.getvalue().splitlines()),
+          "seconds_spawn": secs_spawn, "seconds_workload": secs_workload,
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_service(dev, g22, g14, u14):
+    """Phase 3e: the interactive service, in a launch window of its own: K1
+    in the fused "bsr" personalized PageRank, K2 in the "pallas" PageRank,
+    K3 in the "bsr" triangle count."""
+    from repro_torch.kernels.bsr_spmv import bsr_spmv
+    from repro_torch.kernels.bsr_tricount import bsr_tricount
+    from repro_torch.kernels.segment_sum import segment_sum_chunked
+    kernels = (bsr_spmv, segment_sum_chunked, bsr_tricount)
+    t0 = time.perf_counter()
+    for k in kernels:
+        k.launches = 0
+    svc, child, bfs_src = phase_service_inprocess(dev, g22, g14, u14)
+    phase_service_tcp(dev, svc, child, bfs_src)
+    del svc, child
+    phase_service_process(dev)
+    launches = {k.__name__: k.launches for k in kernels}
+    check(all(launches.values()), f"phase 3e launches {launches}")
+    emit({"phase": "service", "launches": launches,
+          "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -1785,6 +2220,7 @@ def main() -> int:
     phase_tables(dev, edges22)
     del edges22
     incremental = phase_incremental(dev, g22, g14)
+    service = phase_service(dev, g22, g14, u14)
     path["flash_attention_fwd"], k4_variants = phase_serve(dev, kernels,
                                                             args.profile)
     for name, n in path.items():
@@ -1800,7 +2236,8 @@ def main() -> int:
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
-                 launches_phase_3d=incremental.get(r["name"], 0))
+                 launches_phase_3d=incremental.get(r["name"], 0),
+                 launches_phase_3e=service.get(r["name"], 0))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(smi, flush=True)

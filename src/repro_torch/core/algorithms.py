@@ -24,14 +24,14 @@ return None, with a logged reason, wherever that would not be exact.
 
 from __future__ import annotations
 
-import logging
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from . import engine
-from .graph import Graph, log_event
+from .graph import Graph
 from .provenance import track
 from ..kernels.bsr_tricount import bsr_tricount
 
@@ -59,7 +59,7 @@ __all__ = [
     "incremental_label_propagation",
 ]
 
-_log = logging.getLogger(__name__)
+_log = obs.get_logger(__name__)
 _I32 = torch.int32
 _F32 = torch.float32
 _INF = float("inf")
@@ -157,15 +157,20 @@ def pagerank(g: Graph, n_iter: int = 10, damping: float = 0.85, *,
                            device=g.device))
     args = (_f32_scalar(damping, g.device), plan.inv_out_deg, plan.dangling)
     if tol is not None:
-        return engine.fixpoint(ex, _pagerank_body, pr0, tol=float(tol),
-                               max_iter=10_000, args=args)
+        return engine.fixpoint(
+            ex, _pagerank_body, pr0, tol=float(tol), max_iter=10_000,
+            args=args,
+            obs_tag="pagerank_warm" if init is not None else "pagerank")
     return engine.fixpoint(ex, _pagerank_body, pr0, n_iter=n_iter, args=args)
 
 
 def _source_caps(k: int, n_iter) -> Optional[np.ndarray]:
-    """Broadcast a scalar or per-source round limit to one cap per source."""
+    """Broadcast a scalar or per-source round limit to one cap per source
+    (host values: the loop plans its rounds from them)."""
     if n_iter is None:
         return None
+    if torch.is_tensor(n_iter):
+        n_iter = n_iter.cpu()
     return np.broadcast_to(np.atleast_1d(np.asarray(n_iter, np.int32)), (k,))
 
 
@@ -615,7 +620,7 @@ def label_propagation(g: Graph, n_iter: int = 20, *,
 
 
 def _decline(op: str, reason: str, **fields) -> None:
-    log_event(_log, "incremental.cold_fallback", op=op, reason=reason,
+    _log.info("incremental.cold_fallback", op=op, reason=reason,
               **fields)
 
 

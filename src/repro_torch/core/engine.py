@@ -45,17 +45,27 @@ the dense backends' bit for bit.
 ``select_backend(plan, backend, op=...)`` resolves an explicit backend,
 then ``REPRO_ENGINE_BACKEND``, then the size rule; an op a backend has no
 path for (``_FRONTIER_OPS`` for "frontier") resolves to "xla".
+
+Instruments (``repro_torch.obs``, the reference's names): each resolution
+counts ``engine.backend.<b>``, ``get_exec`` the Exec cache's hits and
+misses, a ``tol`` fixpoint its rounds (``engine.fixpoint.tol_iters``), and
+the frontier loop its rounds, dense rounds, direction switches, relaxed
+edges and frontier sizes.  Each reads only what the host already holds
+(the round counter, the frontier pair the loop fetches anyway): no
+instrument adds a host sync.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels.bsr_spmv import bsr_spmv
 from ..kernels.segment_sum import (DEFAULT_BLOCK, DEFAULT_CHUNK,
                                    segment_sum_chunked)
@@ -69,6 +79,20 @@ BACKENDS = ("xla", "pallas", "bsr", "frontier", "sharded")
 
 # backends of the reference that later slices port (ROADMAP.md Queue 1)
 _NOT_PORTED = {"sharded": "Queue 1 item 14"}
+
+# -- observability instruments (module-cached: no registry lookup on the hot
+# path; all of them no-op on one attribute check when obs is disabled) -------
+_C_BACKEND = {b: obs.counter(f"engine.backend.{b}") for b in BACKENDS}
+_C_EXEC_HIT = obs.counter("engine.exec_cache.hits")
+_C_EXEC_MISS = obs.counter("engine.exec_cache.misses")
+_H_TOL_ITERS = obs.histogram("engine.fixpoint.tol_iters",
+                             buckets=obs.COUNT_BUCKETS)
+_H_FRONTIER = obs.histogram("engine.frontier.frontier_size",
+                            buckets=obs.COUNT_BUCKETS)
+_C_ROUNDS = obs.counter("engine.frontier.rounds")
+_C_DENSE = obs.counter("engine.frontier.dense_rounds")
+_C_SWITCH = obs.counter("engine.frontier.direction_switches")
+_C_RELAX = obs.counter("engine.frontier.relaxed_edges")
 
 # below this the frontier path's per-round host read outweighs the edge
 # relaxations it saves (the reference's threshold, from a CPU measurement;
@@ -104,10 +128,17 @@ def select_backend(plan, backend: Optional[str] = None,
     ``op`` (an algorithm name) resolves a backend without a path for it to
     ``"xla"``, so the call succeeds with the same results.
     """
+    resolved = _select_backend(plan, backend, op)
+    if obs.REGISTRY.enabled:
+        _C_BACKEND[resolved].inc()
+    return resolved
+
+
+def _select_backend(plan, backend: Optional[str], op: Optional[str]) -> str:
     if backend is None:
         env = os.environ.get("REPRO_ENGINE_BACKEND")
         if env:
-            return select_backend(plan, env, op)
+            return _select_backend(plan, env, op)
         if op in _FRONTIER_AUTO_OPS and plan.n_edges >= _FRONTIER_MIN_EDGES:
             return "frontier"
         return "xla"
@@ -346,7 +377,9 @@ def get_exec(plan, backend: Optional[str] = None, *,
     key = (backend, block, chunk)
     ex = plan.execs.get(key)
     if ex is not None:
+        _C_EXEC_HIT.inc()
         return ex
+    _C_EXEC_MISS.inc()
     base = (plan.n_nodes, plan.n_edges, plan.in_src, plan.in_dst,
             plan.out_src, plan.out_dst, plan.in_deg.long(),
             plan.out_deg.long())
@@ -414,10 +447,39 @@ def _residual(old, new) -> torch.Tensor:
                for o, n in zip(_leaves(old), _leaves(new)))
 
 
+# (loop mode, body, exec type, graph size, leaf shapes/dtypes) signatures
+# already run: the first call of a signature pays the first-use costs and
+# lands in ``engine.profile.<backend>.compile_ms``, later ones in
+# ``execute_ms`` (the reference's retrace bracketing; see obs/profile.py)
+_PROFILED_SIGS: set = set()
+
+_BACKEND_OF = {XlaExec: "xla", PallasExec: "pallas", BsrExec: "bsr",
+               FrontierExec: "frontier"}
+
+
+def _leaf_sig(x) -> tuple:
+    if torch.is_tensor(x):
+        return (tuple(x.shape), str(x.dtype))
+    if isinstance(x, (tuple, list)):
+        return tuple(_leaf_sig(y) for y in x)
+    return ((), type(x).__name__)
+
+
+def _profile_fixpoint(key, ex, init, args, t0: float) -> None:
+    """Record one fixpoint call in ``engine.profile.*`` (obs enabled)."""
+    dt_ms = (time.perf_counter() - t0) * 1e3
+    sig = (key, type(ex), ex.n_nodes, ex.n_edges, _leaf_sig(init),
+           _leaf_sig(args))
+    first = sig not in _PROFILED_SIGS
+    _PROFILED_SIGS.add(sig)
+    obs.profile.record_runner(_BACKEND_OF.get(type(ex), "xla"), first, dt_ms)
+
+
 def fixpoint(plan_or_exec, body: Callable, init, *,
              n_iter: Optional[int] = None, max_iter: Optional[int] = None,
              tol: Optional[float] = None,
-             backend: Optional[str] = None, args: Tuple = ()):
+             backend: Optional[str] = None, args: Tuple = (),
+             obs_tag: Optional[str] = None):
     """Iterate ``body(exec, state, *args) -> state`` on the engine.
 
     With ``n_iter``: exactly that many rounds.  With ``tol``: until the L1
@@ -425,14 +487,21 @@ def fixpoint(plan_or_exec, body: Callable, init, *,
     ``max_iter``.  Otherwise: until the state stops changing, capped at
     ``max_iter``.  The two convergence modes read one flag from the device
     each round (the reference keeps the test inside a ``while_loop``); that
-    host sync per round is accepted in this slice.
+    host sync per round is accepted in this slice.  ``obs_tag`` names the
+    call in the tol-mode round-count metric
+    (``engine.fixpoint.tol_iters[.<tag>]``), whose count is the host's own
+    loop counter.
     """
     ex = (plan_or_exec if isinstance(plan_or_exec, XlaExec)
           else get_exec(plan_or_exec, backend))
+    prof = obs.REGISTRY.enabled
+    t0 = time.perf_counter() if prof else 0.0
     state = init
     if n_iter is not None and tol is None:
         for _ in range(int(n_iter)):
             state = body(ex, state, *args)
+        if prof:
+            _profile_fixpoint(("fori", body), ex, init, args, t0)
         return state
     cap = (1 << 31) - 1 if max_iter is None else int(max_iter)
     i = 0
@@ -446,6 +515,14 @@ def fixpoint(plan_or_exec, body: Callable, init, *,
         state = new
         if not go:
             break
+    if prof:
+        if tol is not None:
+            _H_TOL_ITERS.observe(i)
+            if obs_tag:
+                obs.histogram(f"engine.fixpoint.tol_iters.{obs_tag}",
+                              buckets=obs.COUNT_BUCKETS).observe(i)
+        _profile_fixpoint(("tol" if tol is not None else "while", body), ex,
+                          init, args, t0)
     return state
 
 
@@ -532,8 +609,8 @@ def frontier_fixpoint(plan_or_exec, init, frontier, *,
 
     The host plans each round from one read of the (frontier size,
     frontier out-edges) pair; everything else stays on the device.
-    ``frontier_fixpoint.rounds`` and ``.dense_rounds`` count the rounds run
-    and those that took the dense pull.
+    The rounds run and those that took the dense pull are counted in
+    ``engine.frontier.rounds`` and ``engine.frontier.dense_rounds``.
     """
     ex = (plan_or_exec if isinstance(plan_or_exec, FrontierExec)
           else get_exec(plan_or_exec, "frontier"))
@@ -561,25 +638,54 @@ def frontier_fixpoint(plan_or_exec, init, frontier, *,
     mask = torch.as_tensor(frontier, dtype=torch.bool, device=dev)
     stats = _stats_of(mask, ex.deg_pad[:n])
     t = 0
-    while t < bound:
-        cnt, fe = stats.tolist()          # the one host read of the round
-        if cnt == 0:
-            break
-        frontier_fixpoint.rounds += 1
-        if fe * _DENSE_EDGE_DIV >= ex.n_edges:
-            frontier_fixpoint.dense_rounds += 1
-            state, mask, stats = _frontier_dense_step(ex, state, w_in,
-                                                      caps_t, t)
-        else:
-            b = min(next_capacity(cnt, minimum=_MIN_BUCKET),
-                    next_capacity(max(n, 1)))
-            f_idx = torch.nonzero_static(mask, size=b, fill_value=n)[:, 0]
-            eb = next_capacity(max(fe, 1), minimum=_MIN_BUCKET)
-            state, mask, stats = _frontier_push_step(ex, state, f_idx, w_out,
-                                                     caps_t, t, eb)
-        t += 1
+    reg_on = obs.REGISTRY.enabled
+    prev_dense: Optional[bool] = None
+    # per-round profile timing: a round's work completes by the next
+    # round's host read, so each round is timed from just before its step
+    # to just after that read
+    prof_mode: Optional[str] = None
+    prof_t0 = 0.0
+    with obs.TRACER.span("engine.frontier_fixpoint", rows=k, nodes=n,
+                         edges=int(ex.n_edges),
+                         weighted=weights is not None) as fspan:
+        while t < bound:
+            cnt, fe = stats.tolist()          # the one host read of the round
+            if prof_mode is not None:
+                obs.profile.record_frontier_round(
+                    prof_mode, (time.perf_counter() - prof_t0) * 1e3)
+                prof_mode = None
+            if cnt == 0:
+                break
+            dense = fe * _DENSE_EDGE_DIV >= ex.n_edges
+            if reg_on:
+                _H_FRONTIER.observe(cnt)
+                _C_ROUNDS.inc()
+                _C_RELAX.inc(fe)
+                if dense:
+                    _C_DENSE.inc()
+                if prev_dense is not None and dense != prev_dense:
+                    _C_SWITCH.inc()
+                prof_mode = "dense" if dense else "sparse"
+                prof_t0 = time.perf_counter()
+            if dense:
+                rspan = obs.TRACER.span("engine.frontier.round", round=t,
+                                        frontier=cnt, edges=fe, mode="dense")
+                state, mask, stats = _frontier_dense_step(ex, state, w_in,
+                                                          caps_t, t)
+            else:
+                b = min(next_capacity(cnt, minimum=_MIN_BUCKET),
+                        next_capacity(max(n, 1)))
+                f_idx = torch.nonzero_static(mask, size=b,
+                                             fill_value=n)[:, 0]
+                eb = next_capacity(max(fe, 1), minimum=_MIN_BUCKET)
+                rspan = obs.TRACER.span("engine.frontier.round", round=t,
+                                        frontier=cnt, edges=fe,
+                                        mode="sparse", bucket=b, e_budget=eb)
+                state, mask, stats = _frontier_push_step(ex, state, f_idx,
+                                                         w_out, caps_t, t, eb)
+            rspan.finish()
+            prev_dense = dense
+            t += 1
+        fspan.set(rounds=t)
     return state if batched else state[0]
 
-
-frontier_fixpoint.rounds = 0
-frontier_fixpoint.dense_rounds = 0

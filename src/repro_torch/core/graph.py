@@ -25,13 +25,13 @@ re-deriving its edges.
 
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import DeviceLike, resolve
 from .provenance import track, version_of
 from .table import next_capacity
@@ -42,16 +42,10 @@ INVALID_ID = int(np.iinfo(np.int32).max)
 
 _I32 = torch.int32
 _LOW = 0xFFFFFFFF          # low word of an int64 pair key
-_log = logging.getLogger(__name__)
-
-
-def log_event(log: logging.Logger, event: str, **fields) -> None:
-    """One ``event k=v ...`` line at INFO, keys sorted, strings repr'd: the
-    reference's structured log lines, through the standard ``logging``."""
-    if log.isEnabledFor(logging.INFO):
-        parts = [f"{k}={fields[k]!r}" if isinstance(fields[k], str)
-                 else f"{k}={fields[k]}" for k in sorted(fields)]
-        log.info(" ".join([event, *parts]))
+_log = obs.get_logger(__name__)
+_C_PLAN_HIT = obs.counter("engine.plan_cache.hits")
+_C_PLAN_MISS = obs.counter("engine.plan_cache.misses")
+_C_PLAN_PATCH = obs.counter("engine.plan_cache.patched")
 
 
 def _as_i32(x, dev: torch.device) -> torch.Tensor:
@@ -271,10 +265,14 @@ class Graph:
         patched (``GraphPlan.patch``) instead of one built cold."""
         if self._plan is None:
             from .plan import GraphPlan  # local import: plan imports graph
+            _C_PLAN_MISS.inc()
             if self._delta is not None:
+                _C_PLAN_PATCH.inc()
                 self._plan = GraphPlan.patch(self, self._delta)
             else:
                 self._plan = GraphPlan.build(self)
+        else:
+            _C_PLAN_HIT.inc()
         return self._plan
 
     @property
@@ -342,7 +340,7 @@ class Graph:
         new_eps = torch.cat([add_s, add_d])
         _, known = _dense_lookup(valid, new_eps)
         if new_eps.numel() and not bool(known.all()):
-            log_event(_log, "apply_delta.full_rebuild",
+            _log.info("apply_delta.full_rebuild",
                       new_nodes=int(torch.unique(new_eps[~known]).numel()),
                       reason="dense numbering shifts")
             return self._apply_delta_rebuild(delta)

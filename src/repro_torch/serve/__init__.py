@@ -1,1 +1,4 @@
-"""LM serving: the batched prefill + decode engine (see ``repro.serve.engine``)."""
+"""Serving: Ringo's interactive graph service (``graph_service``,
+``scheduler``, ``policy``, ``wire``, ``server``, ``client``) and the LM
+batched prefill + decode engine (``engine``).
+"""

@@ -29,6 +29,7 @@ from repro_torch.core.table import INT, STR, Table
 from repro_torch.device import resolve
 from repro_torch.models.transformer import Transformer
 from repro_torch.serve.engine import Engine, ServeConfig
+from repro_torch.serve.graph_service import GraphService
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -54,7 +55,14 @@ def test_port_modules_import_no_jax_and_no_reference():
                          text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(PORT_MODULES) >= 27
+    assert len(PORT_MODULES) >= 50
+    for name in ("repro_torch.obs", "repro_torch.obs.report",
+                 "repro_torch.serve.policy", "repro_torch.serve.scheduler",
+                 "repro_torch.serve.graph_service", "repro_torch.serve.wire",
+                 "repro_torch.serve.server", "repro_torch.serve.client",
+                 "repro_torch.examples.stackoverflow_experts",
+                 "repro_torch.examples.remote_analytics"):
+        assert name in PORT_MODULES, name
 
 
 def test_no_source_file_names_jax_or_the_reference():
@@ -121,3 +129,34 @@ def test_chip_smoke_fails_without_a_card_or_the_repository(tmp_path):
                              env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_service_entry_points_without_device_need_the_card(monkeypatch):
+    from repro_torch.examples import remote_analytics, stackoverflow_experts
+    from repro_torch.obs import report
+    from repro_torch.serve.client import RemoteService
+    from repro_torch.serve.server import GraphServer
+    svc = GraphService(device="cpu")
+    assert svc.device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (GraphService, GraphServer,
+                 lambda: RemoteService(port=1),
+                 lambda: stackoverflow_experts.main([]),
+                 lambda: report.main(["--port", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    # the remote example spawns a server that exits with the same error
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    with pytest.raises(RuntimeError, match="exited early"):
+        remote_analytics.main([])
+
+
+def test_server_process_without_a_card_exits_non_zero():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serve.server", "--port", "0"],
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0
+    assert "RINGO-SERVE LISTENING" not in out.stdout
+    assert "device='cpu'" in out.stderr

@@ -11,7 +11,9 @@ tests drive the engine on the card: ``frontier_fixpoint`` on CUDA tensors
 against the same call on the CPU, bit for bit, over the parity corpus, and
 K1 and K2 under ``eigenvector_centrality`` and ``k_core`` against "xla".
 The table front end runs on the card against the same ops on the CPU: its
-float ``group_by`` sums must give the same bits twice.
+float ``group_by`` sums must give the same bits twice.  The interactive
+service with ``engine_backend="bsr"`` and ``"pallas"`` launches K1, K2 and
+K3 from fused and single requests and answers as direct calls do.
 """
 
 import numpy as np
@@ -603,3 +605,53 @@ def test_k3_on_a_patched_undirected_plan_matches_plain(dev):
     got = int(bsr_tricount(ones, t_ij, t_ik, t_kj))
     assert got == int(bsr_tricount_plain(ones, t_ij, t_ik, t_kj))
     assert A.triangle_count(cu, backend="bsr") == A.triangle_count(cu)
+
+
+# ---------------------------------------------------------------------------
+# the interactive service on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", ["bsr", "pallas"])
+def test_service_on_the_card_launches_the_kernels(dev, backend):
+    from repro_torch.serve.graph_service import GraphService
+    g = Graph.from_edges(*rmat_edges(9, 8, seed=9), device=dev)
+    u = g.to_undirected()
+    svc = GraphService(engine_backend=backend, device=dev)
+    assert svc.device.type == "cuda"
+    svc.workspace.put("g", g)
+    svc.workspace.put("u", u)
+    k = bsr_spmv if backend == "bsr" else segment_sum_chunked
+    before, tri_before = k.launches, bsr_tricount.launches
+    sess = [svc.session(f"s{i}") for i in range(4)]
+    ppr = [sess[i % 4].submit({"op": "personalized_pagerank", "graph": "g",
+                               "params": {"source": i, "n_iter": 5 + i % 2}})
+           for i in range(6)]
+    pr = sess[0].submit({"op": "pagerank", "graph": "g",
+                         "params": {"n_iter": 10}})
+    tri = sess[1].submit({"op": "triangle_count", "graph": "u"})
+    svc.flush()
+    rows = [p.result() for p in ppr]
+    assert k.launches > before
+    for i, row in enumerate(rows):
+        want = A.personalized_pagerank(g, i, n_iter=5 + i % 2,
+                                       backend=backend)
+        assert torch.equal(row, want), f"ppr row {i}"
+    assert torch.equal(pr.result(), A.pagerank(g, n_iter=10,
+                                               backend=backend))
+    if backend == "bsr":
+        assert tri.result() == A.triangle_count(u, backend="bsr")
+        assert tri.result() == A.triangle_count(u)
+        assert bsr_tricount.launches > tri_before
+    else:            # as in the reference: triangles have no "pallas" path
+        with pytest.raises(ValueError, match="triangle_count backends"):
+            tri.result()
+    assert svc.stats["fused_calls"] >= 1
+    # a batched request as the wire delivers it: numpy sources and depths
+    srcs, iters = np.asarray([1, 2], np.int32), np.asarray([3, 4], np.int32)
+    got = sess[2].execute({"op": "personalized_pagerank", "graph": "g",
+                           "params": {"source": srcs, "n_iter": iters}})
+    assert got.device.type == "cuda"
+    assert torch.equal(got, A.personalized_pagerank(
+        g, torch.from_numpy(srcs).to(dev), n_iter=torch.from_numpy(iters)
+        .to(dev), backend=backend))

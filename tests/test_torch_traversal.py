@@ -280,22 +280,30 @@ def test_frontier_weights_rekeyed_through_w_perm():
     assert engine.get_exec(g.plan(), "frontier").w_perm.tolist() == [0, 1, 2]
 
 
+def _frontier_rounds():
+    """The engine's frontier round counters (``repro_torch.obs``)."""
+    from repro_torch import obs
+    return (obs.counter("engine.frontier.rounds").value,
+            obs.counter("engine.frontier.dense_rounds").value)
+
+
 def test_frontier_star_forces_the_dense_switch():
     _, g = _pair("star")
     hub = _source(g)
-    f = engine.frontier_fixpoint
-    rounds, dense = f.rounds, f.dense_rounds
+    rounds, dense = _frontier_rounds()
     got = A.bfs(g, hub, backend="frontier")
     # round 0 relaxes all 32 hub edges (>= |E| / 4): a dense pull; round 1
     # pushes from the 32 leaves, which own no out-edge, and changes nothing
-    assert (f.rounds - rounds, f.dense_rounds - dense) == (2, 1)
+    r, d = _frontier_rounds()
+    assert (r - rounds, d - dense) == (2, 1)
     np.testing.assert_array_equal(got.numpy(),
                                   A.bfs(g, hub, backend="xla").numpy())
     _, path = _pair("path")
-    rounds, dense = f.rounds, f.dense_rounds
+    rounds, dense = _frontier_rounds()
     A.bfs(path, 0, backend="frontier")
     # one sparse round per hop of the 40-edge path, one more from its end
-    assert (f.rounds - rounds, f.dense_rounds - dense) == (41, 0)
+    r, d = _frontier_rounds()
+    assert (r - rounds, d - dense) == (41, 0)
 
 
 def test_frontier_zero_edge_returns_init():
