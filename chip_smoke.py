@@ -90,6 +90,28 @@ Phases (each prints one JSON line with its seconds):
    undirected view, with the parent's triples, equal to "xla"'s; one
    insert into a block pair the parent lacks rebuilds the tiles.  Window:
    K1 the two "bsr" PageRanks' rounds, K2 the "pallas" refresh's, K3 1.
+3e. the interactive service, in a launch window of its own: four sessions
+   on ``GraphService(workers=2)`` (fused BFS at scale 22, fused "bsr" PPR,
+   "pallas" PageRank, "bsr" triangles: K1, K2, K3), a cache hit, a delta
+   and its warm re-runs, a memory budget; four TCP clients on a
+   ``GraphServer``; a spawned server running the paper's §4.1 workload.
+3f. the "sharded" backend and ``core/distributed.py``, in a launch window
+   of its own in which K1-K4 must launch 0 times.  (a) One process, one
+   shard, phase 2's graph: ``pagerank(n_iter=10)``, ``pagerank(tol=1e-6)``,
+   ``bfs`` and weighted ``sssp`` from phase 3b's source (its weights),
+   ``connected_components`` and ``label_propagation(n_iter=20)`` on
+   "sharded" must equal "xla" bit for bit; ``triangle_count(u14,
+   backend="sharded")`` must equal "xla"'s; ``pagerank_distributed`` of
+   ``shard_graph(g22)`` within 1e-6 of the "xla" PageRank (5e-5 with
+   ``compress_bf16``), fed by ``distributed_to_graph`` within 1e-6,
+   ``degrees_distributed`` equal to the in-degrees; a
+   ``GraphService(engine_backend="sharded")`` PageRank equal to "xla"'s;
+   the ``ShardPlan`` build seconds, edge slots and halo bytes a round at
+   d = 2, 4 and 8.  (b) Two spawned ranks on the card in a gloo world
+   (``build/phase3f/``: the parent's edges, a ``FileStore``, rank 0's
+   results): the d = 2 "sharded" ``pagerank(n_iter=10)`` and
+   ``connected_components`` must equal (a)'s "xla" results bit for bit;
+   each rank prints its ms a round and its halo bytes.
 4. serving, kernel K4: ``qwen2.5-3b`` at full width and depth (36
    layers, d_model 2048) with random weights from a seeded generator,
    behind ``Engine`` with ``ServeConfig(batch=4, max_seq=2080)``: 4 prompts
@@ -125,8 +147,8 @@ Phases (each prints one JSON line with its seconds):
    ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
-path's, and phases 3b's, 3c's and 3d's are their own (3d's print in each
-kernel row as ``launches_phase_3d``): each window's counts are zeroed just
+path's, and phases 3b's to 3f's are their own (3d's, 3e's and 3f's print
+in each kernel row as ``launches_phase_3d`` / ``_3e`` / ``_3f``): each window's counts are zeroed just
 before it and read just after it.  Any failed check raises, and
 the script exits non-zero without its last line, which on success is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -1756,6 +1778,226 @@ def phase_service(dev, g22, g14, u14):
           "seconds": time.perf_counter() - t0})
     return launches
 
+SHARD_PLAN_COUNTS = (2, 4, 8)   # phase 3f: ShardPlans built for their halo
+SHARDED_RANKS = 2               # phase 3f (b): gloo ranks on the one card
+SHARDED_JOIN_SECONDS = 300.0    # phase 3f (b): the ranks' deadline
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bytes (NaN payloads and signed zeros too)."""
+    return (a.dtype == b.dtype and a.shape == b.shape and
+            torch.equal(a.contiguous().view(torch.uint8),
+                        b.contiguous().view(torch.uint8)))
+
+
+def sharded_rank(rank: int, d: int, workdir: str, n: int, n_iter: int,
+                 device: str):
+    """Phase 3f (b), one rank: join a gloo world of ``d`` ranks on
+    ``device`` (card 0), build the graph from the edges the parent saved,
+    run the "sharded" PageRank and components at ``d`` shards; rank 0 saves
+    its results."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import engine
+    from repro_torch.core.graph import Graph
+    work = Path(workdir)
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        if on_card:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=d,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        edges = np.load(work / "edges.npz")
+        g, t_graph = timed(lambda: Graph.from_dense_edges(
+            edges["src"], edges["dst"], n, device=device))
+        check(engine.shard_count() == d, "the world is not the shard count")
+        ex, t_exec = timed(lambda: engine.get_exec(g.plan(), "sharded"))
+        check(type(ex) is engine.ShardedExec and ex.d == d,
+              f"rank {rank}: no ShardedExec at d={d}")
+        pr, t_first = timed(lambda: A.pagerank(g, n_iter=n_iter,
+                                               backend="sharded"))
+        pr2, t_pr = timed(lambda: A.pagerank(g, n_iter=n_iter,
+                                             backend="sharded"))
+        check(same_bits(pr, pr2), f"rank {rank}: two sharded PageRanks "
+              f"differ")
+        cc, t_cc = timed(lambda: A.connected_components(g, backend="sharded"))
+        info = {"rank": rank, "d": d, "seconds_graph": t_graph,
+                "seconds_exec": t_exec, "seconds_pagerank_first": t_first,
+                "seconds_pagerank": t_pr,
+                "ms_per_round": t_pr / n_iter * 1e3, "seconds_cc": t_cc,
+                "halo_bytes_per_round":
+                    g.plan().sharded(d).halo_bytes_per_round(),
+                "result_bytes_per_round": d * ex.ns * 4,
+                "edge_slots": ex.pull_blk.hi - ex.pull_blk.lo,
+                "cc_halo_bytes_per_round":
+                    g.plan().undirected().plan().sharded(d)
+                    .halo_bytes_per_round()}
+        if rank == 0:
+            np.savez(work / "rank0.npz", pr=pr.cpu().numpy(),
+                     cc=cc.cpu().numpy())
+        (work / f"rank{rank}.json").write_text(json.dumps(info))
+        dist.barrier()          # no rank tears down while a peer is busy
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_world(g22, n_iter: int):
+    """Phase 3f (b): ``SHARDED_RANKS`` spawned ranks on the card over gloo;
+    returns rank 0's (PageRank, components) and every rank's record."""
+    import multiprocessing as mp
+    import shutil
+    work = ROOT / "build" / "phase3f"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        src, dst = g22.out_edges()
+        np.savez(work / "edges.npz", src=src.cpu().numpy(),
+                 dst=dst.cpu().numpy())
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=sharded_rank,
+                             args=(r, SHARDED_RANKS, str(work), g22.n_nodes,
+                                   n_iter, g22.device.type))
+                 for r in range(SHARDED_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARDED_JOIN_SECONDS
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30.0)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * SHARDED_RANKS,
+              f"phase 3f (b): the ranks exited with {codes}")
+        res = np.load(work / "rank0.npz")
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(SHARDED_RANKS)]
+        return (torch.from_numpy(res["pr"]), torch.from_numpy(res["cc"]),
+                ranks)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_sharded(dev, g22, u14):
+    """Phase 3f: the "sharded" backend and ``core/distributed.py``, in a
+    launch window of its own (no kernel may launch in it)."""
+    from repro_torch.core import algorithms as A
+    from repro_torch.core import distributed as D
+    from repro_torch.core import engine
+    from repro_torch.kernels.bsr_spmv import bsr_spmv
+    from repro_torch.kernels.bsr_tricount import bsr_tricount
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.segment_sum import segment_sum_chunked
+    from repro_torch.serve.graph_service import GraphService
+    kernels = (bsr_spmv, segment_sum_chunked, bsr_tricount,
+               flash_attention_fwd)
+    t0 = time.perf_counter()
+    for k in kernels:
+        k.launches = 0
+    plan = g22.plan()
+    n = g22.n_nodes
+    check(engine.shard_count() == 1, "phase 3f (a) runs at one shard")
+    src = int(torch.argmax(plan.out_deg))
+    w = torch.from_numpy(np.random.default_rng(7).uniform(
+        0.5, 4.0, g22.n_edges).astype(np.float32)).to(dev)
+    ex, t_exec = timed(lambda: engine.get_exec(plan, "sharded"))
+    check(type(ex) is engine.ShardedExec and ex.d == 1,
+          "no ShardedExec at one shard")
+    runs = {
+        "pagerank_n10": lambda be: A.pagerank(g22, n_iter=10, backend=be),
+        "pagerank_tol": lambda be: A.pagerank(g22, tol=1e-6, backend=be),
+        "bfs": lambda be: A.bfs(g22, src, backend=be),
+        "sssp_weighted": lambda be: A.sssp(g22, src, w, backend=be),
+        "connected_components":
+            lambda be: A.connected_components(g22, backend=be),
+        "label_propagation_n20":
+            lambda be: A.label_propagation(g22, n_iter=20, backend=be)}
+    rec, xla = {}, {}
+    for name, fn in runs.items():
+        want, t_x = timed(lambda: fn("xla"))
+        got, t_s = timed(lambda: fn("sharded"))
+        check(same_bits(got, want), f"phase 3f: {name} sharded != xla")
+        rec[name] = {"seconds_xla": t_x, "seconds_sharded": t_s}
+        xla[name] = want
+    pr = xla["pagerank_n10"]
+    tri_x, t_tri_x = timed(lambda: A.triangle_count(u14))
+    tri_s, t_tri_s = timed(lambda: A.triangle_count(u14, backend="sharded"))
+    check(tri_s == tri_x, f"phase 3f: sharded triangles {tri_s} != {tri_x}")
+
+    dg, t_dg = timed(lambda: D.shard_graph(g22))
+    pr_d, t_prd = timed(lambda: D.pagerank_distributed(dg, n_iter=10))
+    pr_b, t_prb = timed(lambda: D.pagerank_distributed(
+        dg, n_iter=10, compress_bf16=True))
+    s_out, d_out = g22.out_edges()
+    dg2, t_conv = timed(lambda: D.distributed_to_graph(s_out, d_out, n))
+    pr_c, _ = timed(lambda: D.pagerank_distributed(dg2, n_iter=10))
+    deg = D.degrees_distributed(dg)
+    dist_err = {"pagerank": max_abs(pr_d, pr), "pagerank_bf16":
+                max_abs(pr_b, pr), "pagerank_converted": max_abs(pr_c, pr)}
+    check(dist_err["pagerank"] <= 1e-6 and dist_err["pagerank_converted"]
+          <= 1e-6 and dist_err["pagerank_bf16"] <= 5e-5,
+          f"phase 3f: distributed PageRank errors {dist_err}")
+    check(torch.equal(deg, g22.in_degrees().to(deg.dtype)),
+          "phase 3f: degrees_distributed != in_degrees")
+    del dg, dg2
+
+    svc = GraphService(engine_backend="sharded", device=dev)
+    try:
+        svc.workspace.put("g", g22)
+        got, t_svc = timed(lambda: svc.session("a").execute(
+            {"op": "pagerank", "graph": "g", "params": {"n_iter": 10}}))
+        check(same_bits(got, pr), "phase 3f: the sharded service's PageRank "
+              "!= xla")
+    finally:
+        svc.close()
+
+    plans = {1: {"halo_bytes_per_round":
+                 plan.sharded(1).halo_bytes_per_round()}}
+    for d in SHARD_PLAN_COUNTS:
+        sp, t_sp = timed(lambda: plan.sharded(d))
+        plans[d] = {"seconds_build": t_sp, "edge_slots": sp.pull.es,
+                    "halo": sp.pull.halo,
+                    "halo_bytes_per_round": sp.halo_bytes_per_round()}
+    freed = plan.evict("sharded")
+    torch.cuda.empty_cache()
+    emit({"phase": "sharded_inprocess", "shards": 1, "nodes": n,
+          "edges": g22.n_edges,
+          "source": src, "seconds_exec": t_exec, "runs": rec,
+          "triangles": tri_s, "seconds_triangles_xla": t_tri_x,
+          "seconds_triangles_sharded": t_tri_s,
+          "distributed": {"max_abs_vs_xla": dist_err,
+                          "seconds_shard_graph": t_dg,
+                          "seconds_pagerank": t_prd,
+                          "seconds_pagerank_bf16": t_prb,
+                          "seconds_distributed_to_graph": t_conv},
+          "service_seconds": t_svc, "shard_plans": plans,
+          "evicted_bytes": freed, "seconds": time.perf_counter() - t0})
+
+    t1 = time.perf_counter()
+    pr2, cc2, ranks = sharded_world(g22, 10)
+    check(same_bits(pr2, pr.cpu()), "phase 3f (b): d=2 PageRank != xla")
+    check(same_bits(cc2, xla["connected_components"].cpu()),
+          "phase 3f (b): d=2 components != xla")
+    emit({"phase": "sharded_ranks", "ranks": SHARDED_RANKS,
+          "backend": "gloo", "per_rank": ranks,
+          "seconds": time.perf_counter() - t1})
+    launches = {k.__name__: k.launches for k in kernels}
+    check(not any(launches.values()), f"phase 3f launched kernels: "
+          f"{launches}")
+    emit({"phase": "sharded", "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
 
 def phase_serve(dev, kernels, profile):
     from repro_torch.configs.base import get_config
@@ -2221,6 +2463,7 @@ def main() -> int:
     del edges22
     incremental = phase_incremental(dev, g22, g14)
     service = phase_service(dev, g22, g14, u14)
+    sharded = phase_sharded(dev, g22, u14)
     path["flash_attention_fwd"], k4_variants = phase_serve(dev, kernels,
                                                             args.profile)
     for name, n in path.items():
@@ -2237,7 +2480,8 @@ def main() -> int:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
                  launches_phase_3d=incremental.get(r["name"], 0),
-                 launches_phase_3e=service.get(r["name"], 0))
+                 launches_phase_3e=service.get(r["name"], 0),
+                 launches_phase_3f=sharded.get(r["name"], 0))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -251,16 +251,21 @@ def triangle_count(g: Graph, edge_chunk: int = 1 << 16, *,
     Default path: degeneracy orientation (cached in the plan) + per-edge
     sorted-adjacency intersection, chunked over edges to bound memory.
     ``backend="bsr"`` runs kernel K3, A∘(A·A) over the plan's tiles and
-    block triples.
+    block triples; ``backend="sharded"`` splits the oriented edges over the
+    ranks (:func:`repro_torch.core.distributed.triangle_count_distributed`)
+    and sums their counts.
     """
-    if backend == "sharded":
-        engine.select_backend(None, backend)      # raises: not ported yet
-    if backend not in (None, "xla", "bsr"):
+    if backend not in (None, "xla", "bsr", "sharded"):
         raise ValueError(f"triangle_count backends are None/'xla' (oriented "
-                         f"intersection) or 'bsr' (kernel K3); got "
-                         f"{backend!r}")
+                         f"intersection), 'bsr' (kernel K3) or 'sharded' "
+                         f"(rank-partitioned); got {backend!r}")
     if g.n_edges == 0 or g.n_nodes == 0:
         return 0
+    if backend == "sharded":
+        from ..launch.mesh import graph_group
+        from .distributed import triangle_count_distributed
+        return triangle_count_distributed(
+            g, graph_group(engine.shard_count()))
     plan = g.plan()
     if backend == "bsr":
         tiles, _, _, _ = plan.bsr()

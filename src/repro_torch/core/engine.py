@@ -1,13 +1,13 @@
 """Layer 2 of the traversal engine: backend-dispatched push/pull.
 
-Counterpart of ``repro/core/engine.py:133-430, 641-1091``:
+Counterpart of ``repro/core/engine.py``:
 
     core/graph.py       Graph         static-shape dual-CSR storage
         |  .plan()  (identity-memoized)
         v
     core/plan.py        GraphPlan     sorted edges, degrees, oriented
         |                             adjacency, BSR tiles, chunk layouts,
-        |                             frontier CSR
+        |                             frontier CSR, shard plans
         v
     core/engine.py      Exec          gather + segment-reduce primitives
         |   push / pull / fixpoint    with backend dispatch:
@@ -15,7 +15,9 @@ Counterpart of ``repro/core/engine.py:133-430, 641-1091``:
         |                               "pallas"   kernel K2 (sum reductions)
         |                               "bsr"      kernel K1 (fused pulls/pushes)
         |                               "frontier" compacted-frontier
-        v                                          relaxation (monotone min)
+        |                                          relaxation (monotone min)
+        |                               "sharded"  vertex-range shards over
+        v                                          torch.distributed ranks
     core/algorithms.py  pagerank, hits, eigenvector centrality, PPR, CC,
                         SCC, sssp/bfs, k-core, label propagation, triangles
 
@@ -29,6 +31,7 @@ back to the "xla" primitives, so backend choice never changes semantics:
     "pallas"   kernel K2          fallback    yes (f32)   fallback  —
     "bsr"      kernel K1          fallback    fallback    fallback  —
     "frontier" fallback (xla)     fallback    —           —         sparse
+    "sharded"  shard-local        yes         yes         fallback  —
 
 ``fixpoint`` iterates a body a fixed number of rounds, until the state
 stops changing, or until the L1 residual drops to ``tol``: a Python loop in
@@ -41,6 +44,15 @@ CSR through a compacted index array, and switches to a dense pull over all
 in-edges once the frontier's out-edges reach a quarter of |E|.  For a
 monotone relaxation the two are equal round for round, so the result is
 the dense backends' bit for bit.
+
+``ShardedExec`` (the "sharded" backend) splits the vertices into ``d``
+contiguous ranges, one per rank of a ``torch.distributed`` world
+(``repro_torch.launch.mesh.graph_group``).  Dense state is replicated on
+every rank; each 1-D pull or push moves data through two collectives only,
+a halo all-gather of each shard's boundary values and a result all-gather,
+and each shard reduces the whole in- (or out-) segment of every vertex it
+owns, in the global edge order.  So the result is "xla"'s bit for bit at
+every shard count, and every rank makes the same convergence decisions.
 
 ``select_backend(plan, backend, op=...)`` resolves an explicit backend,
 then ``REPRO_ENGINE_BACKEND``, then the size rule; an op a backend has no
@@ -69,16 +81,15 @@ from .. import obs
 from ..kernels.bsr_spmv import bsr_spmv
 from ..kernels.segment_sum import (DEFAULT_BLOCK, DEFAULT_CHUNK,
                                    segment_sum_chunked)
+from ..launch.mesh import ShardGroup, graph_group
 from .table import next_capacity
 
 __all__ = ["BACKENDS", "select_backend", "backend_supports", "get_exec",
            "push", "pull", "fixpoint", "frontier_fixpoint", "XlaExec",
-           "PallasExec", "BsrExec", "FrontierExec"]
+           "PallasExec", "BsrExec", "FrontierExec", "ShardedExec",
+           "shard_count"]
 
 BACKENDS = ("xla", "pallas", "bsr", "frontier", "sharded")
-
-# backends of the reference that later slices port (ROADMAP.md Queue 1)
-_NOT_PORTED = {"sharded": "Queue 1 item 14"}
 
 # -- observability instruments (module-cached: no registry lookup on the hot
 # path; all of them no-op on one attribute check when obs is disabled) -------
@@ -144,10 +155,6 @@ def _select_backend(plan, backend: Optional[str], op: Optional[str]) -> str:
         return "xla"
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; want one of {BACKENDS}")
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported yet (ROADMAP.md "
-            f"{_NOT_PORTED[backend]})")
     return backend if backend_supports(backend, op) else "xla"
 
 
@@ -356,9 +363,157 @@ class FrontierExec(XlaExec):
     w_perm: torch.Tensor = None    # (E,) in-order position of each out edge
 
 
+# shard-local edge buffers start at the global buffer's offset modulo this
+# many elements, so a segment's values sit at the same alignment as in the
+# "xla" buffer: the CUDA segmented sum picks vectorized loads (and so its
+# order of additions) by the alignment of a segment's first value.  On the
+# H100 a float32 segment of 4,096-100,000 values sums to other bits at
+# offsets not divisible by 4 (probes/segment_reduce_alignment.py)
+_ALIGN = 128
+
+
+@dataclass
+class _ShardBlock:
+    """One rank's block of one direction of a :class:`ShardPlan`.
+
+    The edge buffer is ``lead`` alignment slots, then the shard's ``es``
+    slots.  Its segments are the alignment segment 0, the ``ns`` owned
+    vertices ``1..ns`` and the padding segment ``ns + 1``; ``lengths``
+    (int64, ``ns + 2``) sums to the buffer's length, as the float sum's
+    ``segment_reduce(..., lengths=)`` needs.
+    """
+
+    gidx: torch.Tensor       # (lead+es,) int32 into [local(ns) | halo]
+    seg: torch.Tensor        # (lead+es,) int32 segment ids, sorted
+    lengths: torch.Tensor    # (ns+2,) int64 run lengths of seg
+    bnd: torch.Tensor        # (halo,) int64 local ids this rank exports
+    lo: int                  # this shard's edges are [lo, hi) of the order
+    hi: int
+    lead: int
+    halo: int
+
+
+def _shard_block(sd, k: int, ns: int) -> _ShardBlock:
+    lo, hi = sd.bounds[k], sd.bounds[k + 1]
+    lead = lo % _ALIGN
+    dev = sd.gather_idx.device
+    pad = torch.zeros((lead,), dtype=torch.int32, device=dev)
+    blk = slice(k * sd.es, (k + 1) * sd.es)
+    seg = torch.cat([pad, sd.seg_local[blk] + 1])
+    return _ShardBlock(
+        gidx=torch.cat([pad, sd.gather_idx[blk]]), seg=seg,
+        lengths=torch.bincount(seg.long(), minlength=ns + 2),
+        bnd=sd.boundary[k * sd.halo:(k + 1) * sd.halo].long(),
+        lo=lo, hi=hi, lead=lead, halo=sd.halo)
+
+
+@dataclass
+class ShardedExec(XlaExec):
+    """Vertex-range shards over the ranks of a :class:`ShardGroup`.
+
+    Every 1-D ``pull``/``push``/``reduce_in``/``reduce_out`` is one round
+    of the reference's ``shard_map`` body: this rank gathers its exported
+    boundary values, an all-gather concatenates every rank's into the halo,
+    each local edge slot gathers from ``[local | halo]`` and reduces into
+    its shard-local segment, and a second all-gather assembles the result.
+    Padding slots reduce into their own segment, which is sliced off, so
+    they cannot perturb a real vertex, not even by a signed zero; each
+    vertex's whole edge segment stays on its owner in global order and is
+    reduced by the same ``segment_reduce`` as "xla", so the result is
+    ``XlaExec``'s bit for bit.  Batched (2-D) inputs and 2-D edge values
+    fall back to the inherited global primitives, whose arrays every rank
+    holds.
+    """
+
+    group: ShardGroup = None
+    d: int = 1
+    ns: int = 1
+    pull_blk: _ShardBlock = None   # by destination (in-edge order)
+    push_blk: _ShardBlock = None   # by source (out-edge order)
+
+    def _rekey(self, edge_vals: torch.Tensor,
+               blk: _ShardBlock) -> torch.Tensor:
+        """This shard's slice of edge-order values in its padded layout."""
+        out = torch.zeros((blk.gidx.shape[0],), dtype=edge_vals.dtype,
+                          device=edge_vals.device)
+        out[blk.lead: blk.lead + blk.hi - blk.lo] = edge_vals[blk.lo: blk.hi]
+        return out
+
+    def _local_reduce(self, ev: torch.Tensor, blk: _ShardBlock,
+                      combine: str) -> torch.Tensor:
+        """Reduce the shard's slots, then assemble the result on every
+        rank."""
+        loc = _segment_reduce(ev, blk.seg, blk.lengths, self.ns + 2,
+                              combine)[1: self.ns + 1]
+        return self.group.all_gather_cat(loc)[: self.n_nodes]
+
+    def _exchange_reduce(self, x, combine, blk, ev_sh, edge_op):
+        """One boundary-exchange round: halo gather + local reduce."""
+        d, ns, k = self.d, self.ns, self.group.rank
+        pad = d * ns - self.n_nodes
+        xp = torch.cat([x, x.new_zeros((pad,))]) if pad else x
+        x_loc = xp[k * ns:(k + 1) * ns]
+        halo = self.group.all_gather_cat(x_loc.index_select(0, blk.bnd))
+        ev = torch.cat([x_loc, halo]).index_select(0, blk.gidx)
+        if ev_sh is not None:
+            ev = ev * ev_sh if edge_op == "mul" else ev + ev_sh
+        return self._local_reduce(ev, blk, combine)
+
+    def _edge_arg(self, edge_values, blk):
+        """Edge values in the shard's layout (a scalar as it is)."""
+        if torch.is_tensor(edge_values) and edge_values.dim() == 1:
+            return self._rekey(edge_values, blk)
+        return edge_values
+
+    def reduce_in(self, edge_vals, combine="sum"):
+        if edge_vals.dim() != 1:
+            return super().reduce_in(edge_vals, combine)
+        return self._local_reduce(self._rekey(edge_vals, self.pull_blk),
+                                  self.pull_blk, combine)
+
+    def reduce_out(self, edge_vals, combine="sum"):
+        if edge_vals.dim() != 1:
+            return super().reduce_out(edge_vals, combine)
+        return self._local_reduce(self._rekey(edge_vals, self.push_blk),
+                                  self.push_blk, combine)
+
+    def pull(self, x, combine="sum", edge_values=None, edge_op="mul"):
+        if x.dim() != 1 or _is_2d(edge_values):
+            return super().pull(x, combine, edge_values, edge_op)
+        return self._exchange_reduce(
+            x, combine, self.pull_blk,
+            self._edge_arg(edge_values, self.pull_blk), edge_op)
+
+    def push(self, x, combine="sum", edge_values=None, edge_op="mul"):
+        if x.dim() != 1 or _is_2d(edge_values):
+            return super().push(x, combine, edge_values, edge_op)
+        return self._exchange_reduce(
+            x, combine, self.push_blk,
+            self._edge_arg(edge_values, self.push_blk), edge_op)
+
+
+def _is_2d(edge_values) -> bool:
+    return torch.is_tensor(edge_values) and edge_values.dim() > 1
+
+
 # ---------------------------------------------------------------------------
 # exec construction (cached on the plan)
 # ---------------------------------------------------------------------------
+
+
+def shard_count(n_shards: Optional[int] = None) -> int:
+    """Resolve the shard count: explicit > ``REPRO_SHARD_COUNT`` > the
+    initialized default process group's world size > 1 (the reference's
+    "all visible devices", with ranks for devices)."""
+    if n_shards is not None:
+        return int(n_shards)
+    env = os.environ.get("REPRO_SHARD_COUNT")
+    if env:
+        return int(env)
+    if torch.distributed.is_available() and \
+            torch.distributed.is_initialized():
+        return torch.distributed.get_world_size()
+    return 1
 
 
 def _flat_pos(chunk_of: torch.Tensor, slot_of: torch.Tensor,
@@ -369,12 +524,15 @@ def _flat_pos(chunk_of: torch.Tensor, slot_of: torch.Tensor,
 
 def get_exec(plan, backend: Optional[str] = None, *,
              block: int = DEFAULT_BLOCK,
-             chunk: int = DEFAULT_CHUNK) -> XlaExec:
-    """Backend Exec for a :class:`GraphPlan`, memoized on the plan."""
+             chunk: int = DEFAULT_CHUNK,
+             n_shards: Optional[int] = None) -> XlaExec:
+    """Backend Exec for a :class:`GraphPlan`, memoized on the plan (the
+    "sharded" one per shard count, :func:`shard_count`)."""
     backend = select_backend(plan, backend)
     if plan.n_nodes == 0:
         backend = "xla"   # degenerate: the re-blocked kernels have no rows
-    key = (backend, block, chunk)
+    shards = shard_count(n_shards) if backend == "sharded" else 0
+    key = (backend, block, chunk, shards)
     ex = plan.execs.get(key)
     if ex is not None:
         _C_EXEC_HIT.inc()
@@ -385,6 +543,12 @@ def get_exec(plan, backend: Optional[str] = None, *,
             plan.out_deg.long())
     if backend == "xla":
         ex = XlaExec(*base)
+    elif backend == "sharded":
+        group = graph_group(shards)
+        sp = plan.sharded(shards)
+        ex = ShardedExec(*base, group=group, d=sp.d, ns=sp.ns,
+                         pull_blk=_shard_block(sp.pull, group.rank, sp.ns),
+                         push_blk=_shard_block(sp.push, group.rank, sp.ns))
     elif backend == "frontier":
         ptr, idx, deg_pad = plan.csr_out()
         ex = FrontierExec(*base, ptr, idx, deg_pad, plan.in_perm_out())
@@ -454,7 +618,7 @@ def _residual(old, new) -> torch.Tensor:
 _PROFILED_SIGS: set = set()
 
 _BACKEND_OF = {XlaExec: "xla", PallasExec: "pallas", BsrExec: "bsr",
-               FrontierExec: "frontier"}
+               FrontierExec: "frontier", ShardedExec: "sharded"}
 
 
 def _leaf_sig(x) -> tuple:
@@ -465,7 +629,8 @@ def _leaf_sig(x) -> tuple:
     return ((), type(x).__name__)
 
 
-def _profile_fixpoint(key, ex, init, args, t0: float) -> None:
+def _profile_fixpoint(key, ex, init, args, t0: float,
+                      rounds: Optional[int] = None) -> None:
     """Record one fixpoint call in ``engine.profile.*`` (obs enabled)."""
     dt_ms = (time.perf_counter() - t0) * 1e3
     sig = (key, type(ex), ex.n_nodes, ex.n_edges, _leaf_sig(init),
@@ -473,6 +638,11 @@ def _profile_fixpoint(key, ex, init, args, t0: float) -> None:
     first = sig not in _PROFILED_SIGS
     _PROFILED_SIGS.add(sig)
     obs.profile.record_runner(_BACKEND_OF.get(type(ex), "xla"), first, dt_ms)
+    if isinstance(ex, ShardedExec):
+        # per-round halo bytes are a layout fact (ShardPlan.
+        # halo_bytes_per_round); the loop's wall time is what is recorded
+        obs.profile.record_sharded(ex.d, ex.d * ex.pull_blk.halo * 4,
+                                   dt_ms, rounds=rounds)
 
 
 def fixpoint(plan_or_exec, body: Callable, init, *,
@@ -487,8 +657,11 @@ def fixpoint(plan_or_exec, body: Callable, init, *,
     ``max_iter``.  Otherwise: until the state stops changing, capped at
     ``max_iter``.  The two convergence modes read one flag from the device
     each round (the reference keeps the test inside a ``while_loop``); that
-    host sync per round is accepted in this slice.  ``obs_tag`` names the
-    call in the tol-mode round-count metric
+    host sync per round is accepted in this slice.  On a ``ShardedExec``
+    the state is replicated and every rank reads the same bits, so every
+    rank stops in the same round (the reference needs one ``shard_map``
+    region around the loop for that; a Python loop needs nothing).
+    ``obs_tag`` names the call in the tol-mode round-count metric
     (``engine.fixpoint.tol_iters[.<tag>]``), whose count is the host's own
     loop counter.
     """
@@ -501,7 +674,8 @@ def fixpoint(plan_or_exec, body: Callable, init, *,
         for _ in range(int(n_iter)):
             state = body(ex, state, *args)
         if prof:
-            _profile_fixpoint(("fori", body), ex, init, args, t0)
+            _profile_fixpoint(("fori", body), ex, init, args, t0,
+                              rounds=int(n_iter))
         return state
     cap = (1 << 31) - 1 if max_iter is None else int(max_iter)
     i = 0
@@ -522,7 +696,8 @@ def fixpoint(plan_or_exec, body: Callable, init, *,
                 obs.histogram(f"engine.fixpoint.tol_iters.{obs_tag}",
                               buckets=obs.COUNT_BUCKETS).observe(i)
         _profile_fixpoint(("tol" if tol is not None else "while", body), ex,
-                          init, args, t0)
+                          init, args, t0,
+                          rounds=i if tol is not None else None)
     return state
 
 

@@ -1,9 +1,8 @@
 """Layer 1 of the traversal engine: the memoized :class:`GraphPlan`.
 
-Counterpart of ``repro/core/plan.py`` but its ``sharded`` family (ROADMAP
-item 14).  The plan hoists everything
-the traversals derive from a graph into a per-``Graph`` cache, keyed by
-graph identity through :meth:`repro_torch.core.graph.Graph.plan`.
+Counterpart of ``repro/core/plan.py``.  The plan hoists everything the
+traversals derive from a graph into a per-``Graph`` cache, keyed by graph
+identity through :meth:`repro_torch.core.graph.Graph.plan`.
 
 Eagerly built (cheap, needed by every traversal):
 
@@ -25,6 +24,12 @@ Lazily built and cached on first use:
     csr_out / csr_in   trimmed CSR with a degree-0 sentinel row (frontier)
     in_perm_out        in-order -> out-order edge permutation (frontier
                        weights)
+    sharded(d)         per-shard arrays of the "sharded" backend: the
+                       contiguous vertex-range partition of both edge
+                       orders over d shards, their halo (boundary) index
+                       sets and the padded degree vectors; one ShardPlan
+                       per shard count, built on the plan's device and
+                       needing no process group
 
 A child of ``Graph.apply_delta`` gets its plan from :meth:`GraphPlan.patch`:
 the eager fields are the delta's merged edge lists, and the undirected view,
@@ -45,7 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,13 +58,114 @@ from .graph import EdgeDelta, Graph, _lexsort
 from ..kernels.ops import build_block_triples, edges_to_bsr
 from ..kernels.segment_sum import DEFAULT_BLOCK, DEFAULT_CHUNK, chunk_layout
 
-__all__ = ["GraphPlan", "EVICTABLE_FAMILIES"]
+__all__ = ["GraphPlan", "ShardPlan", "EVICTABLE_FAMILIES"]
 
 # Derived-array families a plan can drop and rebuild on next touch.  "base"
 # (the eager sorted-edge/degree arrays) and "lineage" are the plan, not a
-# cache over it.  The reference's "sharded" family comes with ROADMAP item 14.
+# cache over it.
 EVICTABLE_FAMILIES: Tuple[str, ...] = (
-    "undirected", "oriented", "csr", "perm", "bsr", "tri", "chunks", "execs")
+    "undirected", "oriented", "csr", "perm", "bsr", "tri", "chunks",
+    "sharded", "execs")
+
+
+class _ShardDir(NamedTuple):
+    """One direction (pull or push) of a vertex-range partition.
+
+    The per-shard arrays use the reference's flat ``(d * per_shard,)``
+    layout (array-equal to ``repro/core/plan.py``'s ``_build_shard_dir``);
+    shard ``i``'s block is ``[i * per_shard, (i + 1) * per_shard)``.
+    ``gather_idx`` addresses the concatenation ``[local x (ns values), halo
+    (d * halo values)]`` of each round's boundary exchange; ``seg_local``
+    maps each edge slot to its shard-local segment, padding slots to the
+    overflow segment ``ns``.  ``bounds`` is the port's addition: shard
+    ``i`` owns edges ``[bounds[i], bounds[i + 1])`` of this edge order.
+    """
+
+    es: int                    # padded edge slots per shard
+    halo: int                  # boundary slots per shard (max cut fan-in)
+    gather_idx: torch.Tensor   # (d*es,) int32 into [local(ns) | halo]
+    seg_local: torch.Tensor    # (d*es,) int32 local segment id, pad -> ns
+    edge_slot: torch.Tensor    # (E,) int32: edge order -> flat slot
+    boundary: torch.Tensor     # (d*halo,) int32 local ids each shard exports
+    bounds: Tuple[int, ...]    # (d+1,) edge offsets of the shards
+
+
+class ShardPlan(NamedTuple):
+    """Per-shard-count arrays of the "sharded" engine backend.
+
+    ``pull`` partitions the dst-sorted in-edges by destination range (each
+    vertex's whole in-segment stays on its owner, in order: that is what
+    makes the shard-local segment reduction bit-identical to the global
+    one); ``push`` partitions the src-sorted out-edges by source range.
+    ``out_deg`` / ``in_deg`` are the degree vectors padded to ``d * ns``.
+    Everything is on the plan's device; an Exec keeps its own rank's block.
+    """
+
+    d: int                     # shard count
+    ns: int                    # vertices per shard (ceil(n / d), >= 1)
+    pull: _ShardDir
+    push: _ShardDir
+    out_deg: torch.Tensor      # (d*ns,) padded
+    in_deg: torch.Tensor       # (d*ns,) padded
+
+    def halo_bytes_per_round(self, itemsize: int = 4) -> int:
+        """Bytes each shard receives from one pull-side halo all-gather."""
+        return self.d * self.pull.halo * itemsize
+
+
+def _build_shard_dir(key: torch.Tensor, other: torch.Tensor, d: int,
+                     ns: int) -> _ShardDir:
+    """Partition one edge order by contiguous ``key`` ranges.
+
+    ``key`` is the sorted segment endpoint (dst for pull, src for push),
+    ``other`` the gathered endpoint.  Shard ``i`` owns vertices
+    ``[i*ns, (i+1)*ns)`` and the contiguous edge slice whose keys fall in
+    that range.  A cut edge (``other`` owned elsewhere) reads the halo:
+    owner ``o`` exports its sorted unique referenced vertices, and the edge
+    reads flat halo position ``ns + o*halo + rank``.
+
+    The arrays are the reference's (``repro/core/plan.py``'s
+    ``_build_shard_dir``, NumPy on the host with a ``np.unique`` per owner)
+    element for element; here integer tensor ops on the plan's device build
+    them: one mark array over the vertices gives every owner's sorted set
+    and each vertex's rank in it.  The host reads the ``2 (d + 1)`` shard
+    and halo offsets that size the arrays.
+    """
+    dev = key.device
+    e = int(key.shape[0])
+    key, other = key.long(), other.long()
+    cuts = torch.arange(d + 1, device=dev) * ns
+    shard_of = key // ns
+    owner_of = other // ns
+    remote = owner_of != shard_of
+    mark = torch.zeros((d * ns,), dtype=torch.bool, device=dev)
+    mark[other[remote]] = True
+    counts = torch.cat([torch.searchsorted(key, cuts),
+                        torch.cumsum(mark.view(d, ns).sum(1), 0)])
+    offsets = counts.tolist()                  # the one host read
+    bounds, first = offsets[: d + 1], [0] + offsets[d + 1:]
+    es = max(max(b - a for a, b in zip(bounds, bounds[1:])), 1)
+    halo = max(max(b - a for a, b in zip(first, first[1:])), 1)
+    bounds_t = counts[: d + 1]
+    first_t = torch.tensor(first, device=dev)
+    bnd_all = torch.nonzero(mark)[:, 0]        # every owner's set, in order
+    bnd_owner = bnd_all // ns
+    boundary = torch.zeros((d * halo,), dtype=torch.int32, device=dev)
+    boundary[bnd_owner * halo + torch.arange(bnd_all.shape[0], device=dev)
+             - first_t[bnd_owner]] = (bnd_all - bnd_owner * ns).int()
+    rank_of = torch.cumsum(mark, 0) - 1        # rank among all marked ids
+    gidx_e = torch.where(remote,
+                         ns + owner_of * halo + rank_of[other]
+                         - first_t[owner_of],
+                         other - shard_of * ns)
+    flat = shard_of * es + torch.arange(e, device=dev) - bounds_t[shard_of]
+    gidx = torch.zeros((d * es,), dtype=torch.int32, device=dev)
+    seg = torch.full((d * es,), ns, dtype=torch.int32, device=dev)
+    gidx[flat] = gidx_e.int()
+    seg[flat] = (key - shard_of * ns).int()
+    return _ShardDir(es=es, halo=halo, gather_idx=gidx, seg_local=seg,
+                     edge_slot=flat.int(), boundary=boundary,
+                     bounds=tuple(bounds))
 
 
 def _host(t: torch.Tensor):
@@ -145,6 +251,7 @@ class GraphPlan:
     _csr_in: Optional[Tuple] = field(default=None, repr=False, compare=False)
     _in_perm_out: Optional[torch.Tensor] = field(default=None, repr=False,
                                                  compare=False)
+    _sharded: Dict = field(default_factory=dict, repr=False, compare=False)
     # delta lineage (set by :meth:`patch` only): dense ids of the vertices
     # the delta touched, the parent's plan, and the _DeltaInfo it came from
     dirty_vertices: Optional[torch.Tensor] = field(default=None, repr=False,
@@ -374,6 +481,32 @@ class GraphPlan:
                 chunk_layout(_host(self.out_src), self.n_nodes, chunk))
         return self._chunks_out[chunk]
 
+    def sharded(self, n_shards: int) -> ShardPlan:
+        """Vertex-range partition over ``n_shards`` shards, memoized per
+        count.
+
+        Built once on the plan's device from the already-sorted edge
+        arrays (the range split is one ``searchsorted`` per direction); it
+        needs no process group.  A delta child starts
+        with an empty cache, so ``apply_delta`` invalidation follows from
+        plan identity like every other family, and :meth:`evict` can drop
+        the whole dict: the next touch rebuilds bit for bit.
+        """
+        d = int(n_shards)
+        if d < 1:
+            raise ValueError(f"sharded() needs >= 1 shard, got {d}")
+        if d not in self._sharded:
+            n = self.n_nodes
+            ns = max(-(-n // d), 1)
+            pull = _build_shard_dir(self.in_dst, self.in_src, d, ns)
+            push = _build_shard_dir(self.out_src, self.out_dst, d, ns)
+            pad = (0, d * ns - n)
+            self._sharded[d] = ShardPlan(
+                d=d, ns=ns, pull=pull, push=push,
+                out_deg=torch.nn.functional.pad(self.out_deg, pad),
+                in_deg=torch.nn.functional.pad(self.in_deg, pad))
+        return self._sharded[d]
+
     def _device_layout(self, layout):
         entry_chunk, entry_slot, local_ids, chunk_block, nb, total = layout
         dev = self.device
@@ -397,6 +530,7 @@ class GraphPlan:
             "bsr": (self._bsr, self._bsr_t),
             "tri": self._tri_triples,
             "chunks": (self._chunks_in, self._chunks_out),
+            "sharded": self._sharded,
             "execs": self.execs,
             "lineage": None if info is None else (
                 info.add_src, info.add_dst, info.del_src, info.del_dst,
@@ -459,6 +593,8 @@ class GraphPlan:
             self._tri_triples = {}
         elif family == "chunks":
             self._chunks_in, self._chunks_out = {}, {}
+        elif family == "sharded":
+            self._sharded = {}
         if family != "execs":
             freed += fams["execs"]
         self.execs = {}

@@ -21,9 +21,13 @@ The spans say *that* an engine call took 80 ms; this layer says *why*:
   sparse step durations land in ``engine.profile.frontier.{dense,sparse}_ms``
   (one observation per round, measured from the step's dispatch to the
   next round's host read of the frontier size, which waits for it).
-
-The reference's sharded halo instruments (``engine.profile.sharded.*``)
-come with the port of the ``"sharded"`` backend.
+* **sharded halo traffic** — per sharded fixpoint loop, the per-round halo
+  *bytes* (``d * halo_width * 4``, the figure of
+  ``ShardPlan.halo_bytes_per_round``) and the loop's host wall time in
+  ``engine.profile.sharded.{halo_bytes_per_round,loop_ms}``, plus the
+  exchanged bytes and the rounds in ``engine.profile.sharded.
+  {halo_bytes_total,rounds}`` when the round count is known (``n_iter`` and
+  ``tol`` modes), under the reference's names.
 
 Everything lands in ordinary registry instruments under
 ``engine.profile.*`` — snapshot/Prometheus/wire exposition come for free —
@@ -40,10 +44,11 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict, Optional
 
-from .metrics import DEFAULT_BUCKETS_MS, Registry, quantile_from_snapshot
+from .metrics import (BYTE_BUCKETS, DEFAULT_BUCKETS_MS, Registry,
+                      quantile_from_snapshot)
 
 __all__ = ["bind", "record_runner", "record_frontier_round",
-           "profile_report"]
+           "record_sharded", "profile_report"]
 
 _REG: Optional[Registry] = None
 _lock = threading.Lock()
@@ -71,6 +76,18 @@ def _hist(name: str, buckets=DEFAULT_BUCKETS_MS):
     return h
 
 
+def _counter(name: str):
+    c = _cache.get(name)
+    if c is None:
+        if _REG is None:
+            return None
+        with _lock:
+            c = _cache.get(name)
+            if c is None and _REG is not None:
+                c = _cache[name] = _REG.counter(name)
+    return c
+
+
 def record_runner(backend: str, compiled: bool, dt_ms: float) -> None:
     """One fixpoint runner invocation: ``compiled`` means this was the
     first call of its signature (the first-use costs; see the module
@@ -87,6 +104,25 @@ def record_frontier_round(mode: str, dt_ms: float) -> None:
     h = _hist(f"engine.profile.frontier.{mode}_ms")
     if h is not None:
         h.observe(dt_ms)
+
+
+def record_sharded(d: int, halo_bytes_per_round: int, dt_ms: float,
+                   rounds: Optional[int] = None) -> None:
+    """One sharded fixpoint loop: shard count, per-round halo bytes and
+    the loop's wall time; the total bytes when the round count is known."""
+    h = _hist("engine.profile.sharded.loop_ms")
+    if h is not None:
+        h.observe(dt_ms)
+    hb = _hist("engine.profile.sharded.halo_bytes_per_round", BYTE_BUCKETS)
+    if hb is not None:
+        hb.observe(float(halo_bytes_per_round))
+    if rounds is not None:
+        c = _counter("engine.profile.sharded.halo_bytes_total")
+        if c is not None:
+            c.inc(int(rounds) * int(halo_bytes_per_round))
+        cr = _counter("engine.profile.sharded.rounds")
+        if cr is not None:
+            cr.inc(int(rounds))
 
 
 # -- reporting --------------------------------------------------------------

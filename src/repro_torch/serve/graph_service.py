@@ -77,6 +77,7 @@ import torch
 from .. import obs
 from ..core import algorithms as A
 from ..core import convert as C
+from ..core import engine
 from ..core import provenance as prov
 from ..core import relational as R
 from ..core.graph import EdgeDelta, Graph
@@ -760,6 +761,13 @@ class GraphService:
     ``device`` is where the service computes (default: the card, raising
     without one; ``"cpu"`` by name): engine milliseconds are taken after a
     sync of it, and engine calls run with it as the current CUDA device.
+
+    ``engine_backend="sharded"`` runs the engine calls through
+    ``ShardedExec`` at one shard on ``device``; at more than one shard
+    (``REPRO_SHARD_COUNT``, or a process group of several ranks) the
+    constructor raises ``ValueError``: the ranks' collectives must come in
+    one order on every rank, which a service with its own worker threads
+    and sessions cannot keep.
     """
 
     def __init__(self, workspace: Optional[Workspace] = None, *,
@@ -771,13 +779,18 @@ class GraphService:
                  engine_backend: Optional[str] = None,
                  device: DeviceLike = None):
         self.device = resolve(device)
+        if engine_backend == "sharded" and engine.shard_count() > 1:
+            raise ValueError(
+                f"GraphService(engine_backend='sharded') runs at one shard, "
+                f"got {engine.shard_count()}: its threads cannot keep the "
+                f"ranks' collectives in one order")
         self.workspace = workspace if workspace is not None else Workspace()
         self.fuse = fuse
         # default engine backend for every _BACKEND_OPS request that does
-        # not name one explicitly (a backend this package lacks, such as
-        # "sharded", fails each such request with the engine's
-        # NotImplementedError); injected before canonicalization in
-        # _prepare so result-cache and fusion keys never mix backends
+        # not name one explicitly ("sharded" runs every engine call through
+        # ShardedExec at d == 1 on this service's device); injected before
+        # canonicalization in _prepare so result-cache and fusion keys never
+        # mix backends
         self.engine_backend = engine_backend
         self.cache_enabled = cache
         # delta-aware serving: retain provably-unaffected cache entries

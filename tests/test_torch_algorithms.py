@@ -166,10 +166,12 @@ def test_unported_backends_raise():
     assert type(engine.get_exec(g.plan(), "frontier")) is engine.FrontierExec
     np.testing.assert_array_equal(A.pagerank(g, backend="frontier").numpy(),
                                   A.pagerank(g, backend="xla").numpy())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        A.pagerank(g, backend="sharded")
-    with pytest.raises(NotImplementedError):
-        A.triangle_count(g.to_undirected(), backend="sharded")
+    # so is "sharded": at one shard (no process group) it equals "xla"
+    assert type(engine.get_exec(g.plan(), "sharded")) is engine.ShardedExec
+    np.testing.assert_array_equal(A.pagerank(g, backend="sharded").numpy(),
+                                  A.pagerank(g, backend="xla").numpy())
+    u = g.to_undirected()
+    assert A.triangle_count(u, backend="sharded") == A.triangle_count(u)
     with pytest.raises(ValueError):
         A.pagerank(g, backend="tpu")
     assert engine.select_backend(g.plan()) == "xla"

@@ -13,7 +13,9 @@ K1 and K2 under ``eigenvector_centrality`` and ``k_core`` against "xla".
 The table front end runs on the card against the same ops on the CPU: its
 float ``group_by`` sums must give the same bits twice.  The interactive
 service with ``engine_backend="bsr"`` and ``"pallas"`` launches K1, K2 and
-K3 from fused and single requests and answers as direct calls do.
+K3 from fused and single requests and answers as direct calls do.  The
+"sharded" backend's shard-local sums on the card equal "xla"'s bit for bit
+at every shard (each shard buffer keeps its segments' alignment).
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from _torch_oracles import build, corpus
+from _torch_worlds import shard_local_pulls
 from repro_torch.core import algorithms as A
 from repro_torch.core import convert as C
 from repro_torch.core import provenance as P
@@ -655,3 +658,15 @@ def test_service_on_the_card_launches_the_kernels(dev, backend):
     assert torch.equal(got, A.personalized_pagerank(
         g, torch.from_numpy(srcs).to(dev), n_iter=torch.from_numpy(iters)
         .to(dev), backend=backend))
+
+
+@pytest.mark.parametrize("d", (2, 3, 8))
+def test_sharded_local_sums_keep_xla_bits_on_the_card(dev, d):
+    # scale 18 has in-segments of thousands of edges, long enough for the
+    # card's segmented sum to read them by vector loads whose order follows
+    # the segment's alignment (probes/segment_reduce_alignment.py)
+    g = Graph.from_edges(*rmat_edges(18, 16, seed=0), device=dev)
+    assert int(g.in_degrees().max()) >= 4096
+    for k, (got, want) in enumerate(shard_local_pulls(g, d)):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            f"shard {k} of {d}"

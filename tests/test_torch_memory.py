@@ -16,7 +16,9 @@ reference's, which must be equal but for the named differences:
   reference keeps four host copies;
 * ``execs``: the port's ``XlaExec`` holds int64 degree run lengths (16
   bytes a node); the reference's holds only the plan's edge arrays;
-* the port has no ``sharded`` family yet (ROADMAP item 14).
+* ``sharded`` holds the reference's flat per-shard arrays, dtype for
+  dtype, so its bytes are the reference's (compared at one shard, the
+  count the reference's mesh has here).
 
 Counts are exact integers; no tolerance applies.
 """
@@ -58,7 +60,7 @@ def _warm(p, xla_exec):
     stays cold) and build its "xla" Exec."""
     p.csr_out(), p.csr_in(), p.in_perm_out(), p.oriented()
     p.bsr(), p.bsr_t(), p.tri_triples(), p.undirected()
-    p.chunk_layout_in(), p.chunk_layout_out()
+    p.chunk_layout_in(), p.chunk_layout_out(), p.sharded(1)
     xla_exec(p, "xla")
 
 
@@ -97,6 +99,7 @@ def test_plan_nbytes_per_family_and_transparent_evict():
         "und": p.undirected().out_edges()[0].clone(),
         "chunks": tuple(a.clone() for a in p.chunk_layout_in()[:4]),
         "tri": tuple(a.clone() for a in p.tri_triples()),
+        "sharded": tuple(a.clone() for a in p.sharded(1).pull[2:6]),
     }
     engine.get_exec(p, "pallas")
     warm = p.nbytes_by_family()
@@ -121,9 +124,11 @@ def test_plan_nbytes_per_family_and_transparent_evict():
                for a, b in zip(before["chunks"], p.chunk_layout_in()[:4]))
     assert all(torch.equal(a, b)
                for a, b in zip(before["tri"], p.tri_triples()))
+    assert all(torch.equal(a, b)
+               for a, b in zip(before["sharded"], p.sharded(1).pull[2:6]))
 
 
-@pytest.mark.parametrize("family", ["base", "lineage", "sharded", "nope"])
+@pytest.mark.parametrize("family", ["base", "lineage", "graph", "nope"])
 def test_unevictable_families_raise(family):
     p = small_graph().plan()
     with pytest.raises(ValueError):
@@ -131,8 +136,8 @@ def test_unevictable_families_raise(family):
 
 
 def test_evictable_families_are_the_reference_s_but_sharded():
-    assert EVICTABLE_FAMILIES == tuple(f for f in R_EVICTABLE
-                                       if f != "sharded")
+    # "sharded" is ported: the tuples are equal, in the reference's order
+    assert EVICTABLE_FAMILIES == R_EVICTABLE
 
 
 def test_csr_family_does_not_double_count_graph_storage():
@@ -175,7 +180,7 @@ def test_family_bytes_match_reference_but_for_views(name):
         + _copy_bytes(rp._csr_in[0], r.in_ptr, n + 1),
         "execs": -16 * n,
     }
-    assert "sharded" not in got and want["sharded"] == 0
+    assert got["sharded"] > 0
     for fam, nbytes in got.items():
         assert want[fam] - nbytes == diff.get(fam, 0), fam
     assert g.nbytes() == r.nbytes()

@@ -898,14 +898,28 @@ def test_wire_array_parameters_key_on_the_host_then_run_on_the_device():
 
 
 @pytest.mark.parametrize("op", ["pagerank", "bfs", "triangle_count"])
-def test_unported_engine_backend_fails_the_request_loudly(op):
+def test_unported_engine_backend_fails_the_request_loudly(op, monkeypatch):
+    # "sharded" is ported: at one shard every engine call runs through
+    # ShardedExec and answers what "xla" answers, bit for bit; at more than
+    # one shard the service refuses to start
     svc = make_service(engine_backend="sharded")
     params = {"source": 0} if op == "bfs" else {}
     p = svc.session("a").submit({"op": op, "graph": "g", "params": params})
     svc.flush()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        p.result()
-    assert svc.stats["cache_hits"] == 0 and not svc._cache
+    g = svc.workspace.get("g")
+    want = getattr(A, op)(g, **params, backend="xla")
+    got = p.result()
+    if torch.is_tensor(want):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    else:
+        assert got == want
+    assert any(type(ex).__name__ == "ShardedExec"
+               for ex in g.plan().execs.values()) or op == "triangle_count"
+    assert svc.stats["engine_calls"] == 1
+    monkeypatch.setenv("REPRO_SHARD_COUNT", "2")
+    with pytest.raises(ValueError, match="one shard"):
+        make_service(engine_backend="sharded")
+    make_service(engine_backend="xla")          # other backends start
 
 
 # ---------------------------------------------------------------------------

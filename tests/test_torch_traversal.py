@@ -106,18 +106,23 @@ def test_select_backend_grid_matches_reference(monkeypatch, env, size):
 
 @pytest.mark.parametrize("via_env", [False, True])
 def test_select_backend_sharded_and_unknown_raise(monkeypatch, via_env):
+    # "sharded" resolves to itself for every op, as in the reference; an
+    # unknown name still raises
     plan = types.SimpleNamespace(n_nodes=10, n_edges=1 << 20)
     monkeypatch.delenv("REPRO_ENGINE_BACKEND", raising=False)
-    for bad, exc, match in (("sharded", NotImplementedError, "item 14"),
-                            ("tpu_magic", ValueError, "unknown backend")):
+    for name in ("sharded", "tpu_magic"):
         if via_env:
-            monkeypatch.setenv("REPRO_ENGINE_BACKEND", bad)
+            monkeypatch.setenv("REPRO_ENGINE_BACKEND", name)
             args = (None,)
         else:
-            args = (bad,)
+            args = (name,)
         for op in (None, "bfs", "pagerank"):
-            with pytest.raises(exc, match=match):
-                engine.select_backend(plan, *args, op=op)
+            if name == "sharded":
+                got = engine.select_backend(plan, *args, op=op)
+                assert got == RE.select_backend(plan, *args, op=op) == name
+            else:
+                with pytest.raises(ValueError, match="unknown backend"):
+                    engine.select_backend(plan, *args, op=op)
 
 
 # ---------------------------------------------------------------------------
