@@ -112,6 +112,19 @@ Phases (each prints one JSON line with its seconds):
    results): the d = 2 "sharded" ``pagerank(n_iter=10)`` and
    ``connected_components`` must equal (a)'s "xla" results bit for bit;
    each rank prints its ms a round and its halo bytes.
+3g. a 2-rank "sharded" service, in a launch window of its own in which
+   K1-K4 must launch 0 times.  Two gloo ranks on the card, spawned as in
+   3f (b) (``build/phase3g/``: the parent's edges and node ids, the
+   delta, a ``FileStore``, rank 0's results): rank 0 serves phase 2's
+   graph through ``GraphService(engine_backend="sharded", workers=2)``
+   to two sessions (PageRank to 10 rounds and to ``tol``, CC, BFS from
+   the largest out- and in-degree vertices, which must fuse), a cache hit,
+   phase 3d's insert delta and a warm ``tol`` PageRank; rank 1 runs
+   ``serve_follower`` until rank 0's ``close``.  Every result must equal
+   3f (a)'s "xla" bits (the BFS from the second vertex and the warm
+   PageRank from ``init`` = 3f's ``tol`` vector are computed on "xla" in
+   this process), and the follower must have made as many calls as rank
+   0 broadcast, with no error.
 4. serving, kernel K4: ``qwen2.5-3b`` at full width and depth (36
    layers, d_model 2048) with random weights from a seeded generator,
    behind ``Engine`` with ``ServeConfig(batch=4, max_seq=2080)``: 4 prompts
@@ -125,13 +138,32 @@ Phases (each prints one JSON line with its seconds):
    largest logit.  With ``--profile``, one more prefill and one decode
    step run under ``torch.profiler``: their device-busy share and K4's
    part of it.
+4b. training, kernel K4 under autograd: ``qwen2.5-3b`` at full width and
+   depth (f32 parameters, bf16 compute, ``remat="full"``, AdamW), seeded
+   random weights, on batches of 2 x 1024 random walks
+   (``RandomWalkCorpus``, seed 0) over an R-MAT scale-17 graph (edge
+   factor 16, seed 0, self loops dropped) built by the engine: five
+   steps.  Step 0's ``ce`` must equal the serving ``forward``'s cross
+   entropy on the same batch within 1e-2 relative, every loss and
+   gradient norm must be finite, step 4's loss below step 0's; a
+   checkpoint after steps 0-2 (``build/phase4b/``, removed after), loaded
+   in place after step 4, must give step 3's loss again within 1e-3.  K4
+   must launch 72 times a step (36 in the forward, 36 in ``remat``'s
+   recompute) plus 36 for the serving forward.  Its line prints the step
+   seconds, tokens/s and ``max_memory_allocated``; with ``--profile`` one
+   more step runs under ``torch.profiler``: its device-busy share and
+   K4's part of it.
 5. every kernel against its plain PyTorch version at the shapes phases 2-4
    gave it, with its time, the plain version's, a library call's where one
    computes the same function, and the card's lower bound.  Printed as one
    ``{"kernels": [...]}`` line.  K4's wgmma variant at the prefill shape
    must pass ``attention_error_ratios`` (max and mean error against the
    float32 plain version within twice those of the plain version that
-   rounds p to bf16) and give the same bits twice; the CUDA-core variant at
+   rounds p to bf16) and give the same bits twice; under autograd at
+   phase 4b's shape (2, 1024, 16, 128), K4's forward and the PyTorch
+   backward must give dq, dk, dv within the same rule against autograd
+   through the plain version (its row's ``backward``, timed beside SDPA's
+   backward as a yardstick only); the CUDA-core variant at
    the same shape (the "before" time) must match its plain version within
    one bf16 ulp per element (``|got - want| <= 2^-7·|want| + 1e-6``), and
    in float32 within 2e-5.  K2 must give the same bits twice; its row
@@ -147,9 +179,10 @@ Phases (each prints one JSON line with its seconds):
    ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
-path's, and phases 3b's to 3f's are their own (3d's, 3e's and 3f's print
-in each kernel row as ``launches_phase_3d`` / ``_3e`` / ``_3f``): each window's counts are zeroed just
-before it and read just after it.  Any failed check raises, and
+path's, and phases 3b's to 3g's and 4b's are their own (3d's to 3g's and
+4b's print in each kernel row as ``launches_phase_3d`` ... ``_3g`` and
+``launches_phase_train``): each window's counts are zeroed just before it
+and read just after it.  Any failed check raises, and
 the script exits non-zero without its last line, which on success is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it fails before any phase.
@@ -383,11 +416,11 @@ def phase_bsr(dev, scale):
     return g, u, k3_variants
 
 
-def device_busy(fn, parts) -> dict:
+def device_busy(fn, parts, top: int = 0) -> dict:
     """Run ``fn`` once under ``torch.profiler``: its synchronised wall
-    seconds, the summed device time of the kernels it ran, and for each
+    seconds, the summed device time of the kernels it ran, for each
     ``parts`` key the device seconds of the kernels whose names contain
-    one of its strings."""
+    one of its strings, and the ``top`` kernel names by device seconds."""
     from torch.profiler import ProfilerActivity, profile
     sync()
     with profile(activities=[ProfilerActivity.CPU,
@@ -406,6 +439,12 @@ def device_busy(fn, parts) -> dict:
                    if any(n in e.name for n in names)) / 1e6
         out[f"{key}_device_seconds"] = part
         out[f"{key}_share_of_busy"] = part / busy if busy else 0.0
+    if top:
+        by_name = {}
+        for e in ev:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e6
+        out["top_kernels"] = sorted(by_name.items(), key=lambda kv: -kv[1])[
+            :top]
     return out
 
 
@@ -1996,6 +2035,174 @@ def phase_sharded(dev, g22, u14):
           f"{launches}")
     emit({"phase": "sharded", "launches": launches,
           "seconds": time.perf_counter() - t0})
+    ref = {k: xla[k] for k in ("pagerank_n10", "pagerank_tol", "bfs",
+                                "connected_components")}
+    return launches, dict(ref, source=src)
+
+
+SERVICE_RANKS = 2                 # phase 3g: gloo ranks of the "sharded" service
+SERVICE_JOIN_SECONDS = 300.0      # phase 3g: the ranks' deadline
+
+
+def service_rank(rank: int, d: int, workdir: str, n: int, device: str):
+    """Phase 3g, one rank: join a gloo world of ``d`` ranks on ``device``
+    (card 0).  Rank 0 builds the graph from the edges the parent saved and
+    serves it through ``GraphService(engine_backend="sharded", workers=2)``
+    (two sessions: PageRank to 10 rounds and to ``tol``, CC, two BFS that
+    fuse, a cache hit, phase 3d's delta and a warm PageRank) and saves the
+    results; every other rank runs ``serve_follower`` until rank 0's
+    ``close``."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.core.graph import EdgeDelta, Graph
+    from repro_torch.serve.graph_service import GraphService, serve_follower
+    work = Path(workdir)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=d,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        if rank:
+            info, secs = timed(lambda: serve_follower(device=device))
+            info.update(rank=rank, seconds=secs)
+            (work / f"rank{rank}.json").write_text(json.dumps(info))
+            dist.barrier()
+            return
+        arr = np.load(work / "edges.npz")
+        g, t_graph = timed(lambda: Graph.from_dense_edges(
+            arr["src"], arr["dst"], n, node_ids=arr["ids"], device=device))
+        svc = GraphService(engine_backend="sharded", workers=2, device=device)
+        try:
+            svc.workspace.put("g", g)
+            a, b = svc.session("a"), svc.session("b")
+            t_first = time.perf_counter()
+            first = [
+                a.submit({"op": "pagerank", "graph": "g",
+                          "params": {"n_iter": 10}}),
+                b.submit({"op": "connected_components", "graph": "g"}),
+                a.submit({"op": "pagerank", "graph": "g",
+                          "params": {"tol": 1e-6}}),
+                a.submit({"op": "bfs", "graph": "g",
+                          "params": {"source": int(arr["bfs"][0])}}),
+                b.submit({"op": "bfs", "graph": "g",
+                          "params": {"source": int(arr["bfs"][1])}})]
+            for p in first:
+                p.result(timeout=600)
+            t_first = time.perf_counter() - t_first
+            hit = a.submit({"op": "pagerank", "graph": "g",
+                            "params": {"n_iter": 10}})
+            _, t_delta = timed(lambda: svc.workspace.apply_delta(
+                "g", EdgeDelta.inserts(arr["add_src"], arr["add_dst"])))
+            warm, t_warm = timed(lambda: b.execute(
+                {"op": "pagerank", "graph": "g", "params": {"tol": 1e-6}}))
+            stats = dict(svc.stats)
+            mirror = dict(svc._mirror.stats)
+        finally:
+            svc.close()
+        np.savez(work / "rank0.npz", pagerank=first[0].value.cpu().numpy(),
+                 cc=first[1].value.cpu().numpy(),
+                 pagerank_tol=first[2].value.cpu().numpy(),
+                 bfs0=first[3].value.cpu().numpy(),
+                 bfs1=first[4].value.cpu().numpy(),
+                 warm=warm.cpu().numpy(), hit_value=hit.result().cpu().numpy())
+        info = {"rank": 0, "stats": stats, "mirror": mirror,
+                "hit": hit.cached,
+                "fused": [p.fused for p in first[3:]],
+                "latency_ms": [p.latency_ms for p in first],
+                "seconds_graph": t_graph, "seconds_requests": t_first,
+                "seconds_apply_delta": t_delta, "seconds_warm": t_warm}
+        (work / "rank0.json").write_text(json.dumps(info))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded_service(dev, g22, ref):
+    """Phase 3g: a 2-rank "sharded" ``GraphService`` on the card (gloo
+    ranks spawned as in phase 3f (b)); every result equals phase 3f (a)'s
+    "xla" bits, in a launch window of its own (no kernel launches)."""
+    import multiprocessing as mp
+    import shutil
+    from repro_torch.core import algorithms as A
+    from repro_torch.core.graph import EdgeDelta
+    from repro_torch.kernels.bsr_spmv import bsr_spmv
+    from repro_torch.kernels.bsr_tricount import bsr_tricount
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.segment_sum import segment_sum_chunked
+    kernels = (bsr_spmv, segment_sum_chunked, bsr_tricount,
+               flash_attention_fwd)
+    t0 = time.perf_counter()
+    for k in kernels:
+        k.launches = 0
+    n = g22.n_nodes
+    src = ref["source"]
+    src2 = int(torch.argmax(g22.in_degrees()))
+    bfs2 = A.bfs(g22, src2, backend="xla")
+    add_s, add_d, _ = insert_delta_arrays(g22)
+    child = g22.apply_delta(EdgeDelta.inserts(add_s, add_d))
+    warm_want = A.pagerank(child, tol=1e-6, init=ref["pagerank_tol"],
+                           backend="xla")
+    del child
+    work = ROOT / "build" / "phase3g"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        s_out, d_out = g22.out_edges()
+        np.savez(work / "edges.npz", src=s_out.cpu().numpy(),
+                 dst=d_out.cpu().numpy(),
+                 ids=g22.node_ids[:n].cpu().numpy(),
+                 bfs=np.asarray([src, src2]), add_src=add_s, add_dst=add_d)
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=service_rank,
+                             args=(r, SERVICE_RANKS, str(work), n,
+                                   g22.device.type))
+                 for r in range(SERVICE_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SERVICE_JOIN_SECONDS
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30.0)
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * SERVICE_RANKS,
+              f"phase 3g: the ranks exited with {codes}")
+        got = np.load(work / "rank0.npz")
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(SERVICE_RANKS)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    want = {"pagerank": ref["pagerank_n10"], "cc": ref["connected_components"],
+            "pagerank_tol": ref["pagerank_tol"], "bfs0": ref["bfs"],
+            "bfs1": bfs2, "warm": warm_want, "hit_value": ref["pagerank_n10"]}
+    for name, w in want.items():
+        check(same_bits(torch.from_numpy(got[name]), w.cpu()),
+              f"phase 3g: the 2-rank service's {name} != xla")
+    r0 = ranks[0]
+    check(r0["hit"], "phase 3g: the repeated PageRank was no cache hit")
+    check(all(r0["fused"]) and r0["stats"]["fused_calls"] >= 1,
+          f"phase 3g: the two BFS did not fuse: {r0['fused']}")
+    check(r0["stats"]["warm_starts"] >= 1, "phase 3g: no warm start")
+    for r in ranks[1:]:
+        check(r["errors"] == 0 and r["calls"] == r0["mirror"]["calls"],
+              f"phase 3g: follower {r['rank']} did {r}, rank 0 sent "
+              f"{r0['mirror']}")
+    launches = {k.__name__: k.launches for k in kernels}
+    check(not any(launches.values()), f"phase 3g launched kernels: "
+          f"{launches}")
+    emit({"phase": "sharded_service", "ranks": SERVICE_RANKS,
+          "backend": "gloo", "workers": 2, "per_rank": ranks,
+          "launches": launches, "seconds": time.perf_counter() - t0})
     return launches
 
 
@@ -2098,6 +2305,143 @@ def phase_serve(dev, kernels, profile):
     return launches["flash_attention_fwd"], k4_variants
 
 
+TRAIN_BATCH, TRAIN_SEQ = 2, 1024   # phase 4b: sequences of the random-walk corpus
+TRAIN_STEPS = 5
+TRAIN_RMAT = (17, 16)   # phase 4b: R-MAT scale and edge factor of the corpus graph
+TRAIN_CE_TOL = 1e-2     # step 0's ce vs the serving forward's, relative (bf16)
+TRAIN_RESUME_TOL = 1e-3   # the resumed step's loss vs the uninterrupted one
+TRAIN_SAVE_AFTER = 3    # checkpoint after this many steps, then resume from it
+
+
+def phase_train(dev, kernels, profile):
+    """Phase 4b: train qwen2.5-3b at full width and depth on random walks
+    over an R-MAT graph built by the engine (``remat="full"``, AdamW), with
+    a checkpoint and a resume; K4 in every forward and recompute."""
+    from repro_torch.checkpoint.store import config_hash, save_checkpoint
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.graph import Graph
+    from repro_torch.data.graph_corpus import RandomWalkCorpus
+    from repro_torch.data.rmat import rmat_edges
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch.train import load_train_state, train_state_tree
+    from repro_torch.train.optimizer import OptHyper
+    from repro_torch.train.step import init_train_state, make_train_step
+    import shutil
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2.5-3b")          # full width and depth
+    check(cfg.remat == "full" and cfg.optimizer == "adamw" and
+          cfg.param_dtype == "float32" and cfg.compute_dtype == "bfloat16",
+          f"qwen2.5-3b trains with remat {cfg.remat}, {cfg.optimizer}")
+    scale, ef = TRAIN_RMAT
+    s, d = rmat_edges(scale=scale, edge_factor=ef, seed=0)
+    keep = s != d
+    g, t_graph = timed(lambda: Graph.from_edges(s[keep], d[keep],
+                                                dedupe=True, device=dev))
+    check(g.n_nodes <= cfg.vocab_size, "the walks' node ids fit the vocab")
+    corpus = RandomWalkCorpus(g, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in corpus.batch_at(i).items()}
+               for i in range(TRAIN_STEPS)]
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    (model, opt_state), t_init = timed(
+        lambda: init_train_state(cfg, gen, device=dev))
+    check(len(model.layers) == cfg.n_layers == 36 and cfg.d_model == 2048 and
+          cfg.vocab_size == 151936, "qwen2.5-3b at full depth and width")
+    step_fn = make_train_step(cfg, OptHyper(), attn_chunk=TRAIN_SEQ)
+
+    for k in kernels:
+        k.launches = 0
+    # the serving forward's cross entropy on step 0's batch, same weights
+    b0 = batches[0]
+    logits, _ = model(b0)
+    lf = logits.float()
+    ce_serve = float((torch.logsumexp(lf, -1) - torch.gather(
+        lf, -1, b0["targets"].long()[..., None])[..., 0]).mean())
+    del logits, lf
+    n_fwd = 1
+
+    def run(i):
+        sync()
+        t = time.perf_counter()
+        _, _, m = step_fn(model, opt_state, batches[i], i)
+        row = {k: float(v) for k, v in m.items()}
+        sync()
+        row["seconds"] = time.perf_counter() - t
+        return row
+
+    ckpt = ROOT / "build" / "phase4b"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps, n_steps = [], 0
+    try:
+        for i in range(TRAIN_STEPS):
+            steps.append(run(i))
+            n_steps += 1
+            if i + 1 == TRAIN_SAVE_AFTER:
+                _, t_save = timed(lambda: save_checkpoint(
+                    str(ckpt), i + 1, train_state_tree(model, opt_state),
+                    meta={"config": config_hash(cfg)}))
+        start, t_load = timed(lambda: load_train_state(str(ckpt), model,
+                                                       opt_state, cfg))
+        check(start == TRAIN_SAVE_AFTER, f"resumed at step {start}")
+        resumed = run(start)
+        n_steps += 1
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rec = {}
+    if profile:
+        rec["profile_step"] = device_busy(lambda: step_fn(
+            model, opt_state, batches[start + 1], start + 1),
+            {"k4": ("flash_fwd",)}, top=12)
+        n_steps += 1
+    peak = torch.cuda.max_memory_allocated()
+    k4 = flash_attention_fwd.launches
+    launches = {k.__name__: k.launches for k in kernels}
+    per_step = 2 * cfg.n_layers          # the forward and remat's recompute
+    want_k4 = n_steps * per_step + n_fwd * cfg.n_layers
+    check(k4 == want_k4, f"phase 4b: K4 launched {k4} times, not "
+          f"{n_steps} steps x {per_step} + {n_fwd} x {cfg.n_layers}")
+    check(not any(n for name, n in launches.items()
+                  if name != "flash_attention_fwd"),
+          f"phase 4b launched graph kernels: {launches}")
+    ce0 = steps[0]["ce"]
+    check(abs(ce0 - ce_serve) <= TRAIN_CE_TOL * abs(ce_serve),
+          f"phase 4b: step 0's ce {ce0} vs the serving forward's {ce_serve}")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+              for r in steps + [resumed]), "phase 4b: a non-finite loss or "
+          "gradient norm")
+    check(steps[-1]["loss"] < steps[0]["loss"],
+          f"phase 4b: step {TRAIN_STEPS - 1}'s loss {steps[-1]['loss']} is "
+          f"not below step 0's {steps[0]['loss']}")
+    d_resume = abs(resumed["loss"] - steps[start]["loss"])
+    check(d_resume <= TRAIN_RESUME_TOL, f"phase 4b: the resumed step "
+          f"{start}'s loss {resumed['loss']} vs {steps[start]['loss']}")
+    warm = [r["seconds"] for r in steps[1:]]
+    step_s = statistics.median(warm)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    emit({"phase": "train", "arch": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab_size": cfg.vocab_size,
+          "params": sum(p.numel() for p in model.parameters()),
+          "remat": cfg.remat, "optimizer": cfg.optimizer,
+          "corpus": {"rmat_scale": scale, "edge_factor": ef,
+                     "nodes": g.n_nodes, "edges": g.n_edges,
+                     "seconds_graph": t_graph},
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps,
+          "resumed_step": resumed, "resume_abs_diff": d_resume,
+          "ce_serving_forward": ce_serve,
+          "seconds_save": t_save, "seconds_load": t_load,
+          "seconds_init": t_init, "step_seconds_median": step_s,
+          "tokens_per_second": tokens / step_s,
+          "memory_allocated_before": mem_before,
+          "max_memory_allocated": peak, "k4_launches": k4,
+          "k4_launches_predicted": want_k4, **rec,
+          "seconds": time.perf_counter() - t0})
+    del model, opt_state, batches
+    return launches
+
+
 def one_ulp_ratio(got, want) -> float:
     """Largest |got - want| / (2^-7·|want| + 1e-6): <= 1 is one bf16 ulp."""
     limit = BF16_ULP * want.double().abs() + 1e-6
@@ -2177,7 +2521,62 @@ def kernel_k4(launches, by_variant):
     f32.update(variant=fa.variant(q.dtype, f32_shape[3]), max_abs_err=err,
                tolerance=2e-5)
     row["f32"] = f32
+    row["backward"] = kernel_k4_backward(qkv)
     return row
+
+
+def kernel_k4_backward(qkv):
+    """K4 under autograd at phase 4b's shape: the autograd function's dq,
+    dk, dv (K4 forward, the PyTorch backward) against autograd through the
+    plain version, and the backward's time beside SDPA's backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    shape = (TRAIN_BATCH, TRAIN_SEQ, 16, 128)
+    q, k, v = qkv(shape, torch.bfloat16)
+    dout = qkv(shape, torch.bfloat16)[0]
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = fa.flash_attention_fwd.launches
+    out = fa.flash_attention(*leaves, causal=True, q_chunk=TRAIN_SEQ)
+    got = torch.autograd.grad(out, leaves, dout)
+    check(fa.flash_attention_fwd.launches == before + 1,
+          "the autograd function's forward did not launch K4")
+    ref = fa.plain_grads(q.float(), k.float(), v.float(), dout.float())
+    base = fa.plain_grads(q, k, v, dout, round_p=True)
+    rule = fa.grad_error_ratios(got, ref, base)
+    check(rule["ok"], f"K4 backward {shape}: error ratios {rule}")
+    b, s_, h, d = shape
+    # causal q·kᵀ, p·v recomputed, and dv, dp, dq, dk: 6 products
+    flops = 6 * d * s_ * (s_ + 1) * b * h
+    bnd, by = bound_ms(nbytes(q, k, v, dout, *got), flops, q.dtype)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dlib = dout.transpose(1, 2)
+    lib_grads = torch.autograd.grad(lib, (qt, kt, vt), dlib,
+                                    retain_graph=True)
+    return {"shape": list(shape), "dtype": "torch.bfloat16",
+            "route": "torch", "source":
+                "src/repro_torch/kernels/flash_attention.py "
+                "(flash_attention_bwd)",
+            "ms": cuda_ms(lambda: fa.flash_attention_bwd(
+                q, k, v, dout, True, TRAIN_SEQ, True), 5),
+            "plain_ms": cuda_ms(lambda: fa.plain_grads(
+                q, k, v, dout, round_p=True), 3),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                lib, (qt, kt, vt), dlib, retain_graph=True), 5),
+            "library": "scaled_dot_product_attention(is_causal=True) "
+                       "backward, as a yardstick only",
+            "library_max_abs_diff": max(
+                max_abs(a.transpose(1, 2), r)
+                for a, r in zip(lib_grads, ref)),
+            "max_abs_err": max(rule[n]["max_abs_err"]
+                               for n in ("dq", "dk", "dv")),
+            "tolerance": "per gradient: max|got-ref| <= 2*max|base-ref| + "
+                         "1e-6 and mean|got-ref| <= 2*mean|base-ref| (ref: "
+                         "autograd through the plain f32 version, base: "
+                         "through the plain bf16 version with p rounded)",
+            "error_ratios": rule}
 
 
 def kernel_k1(g14, launches, ptxas):
@@ -2463,11 +2862,15 @@ def main() -> int:
     del edges22
     incremental = phase_incremental(dev, g22, g14)
     service = phase_service(dev, g22, g14, u14)
-    sharded = phase_sharded(dev, g22, u14)
+    sharded, sharded_ref = phase_sharded(dev, g22, u14)
+    sharded_service = phase_sharded_service(dev, g22, sharded_ref)
+    del sharded_ref
     path["flash_attention_fwd"], k4_variants = phase_serve(dev, kernels,
                                                             args.profile)
     for name, n in path.items():
         check(n > 0, f"kernel {name} never launched on the main path")
+    torch.cuda.empty_cache()
+    train = phase_train(dev, kernels, args.profile)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2481,7 +2884,9 @@ def main() -> int:
                  replaces=REPLACES[r["name"]],
                  launches_phase_3d=incremental.get(r["name"], 0),
                  launches_phase_3e=service.get(r["name"], 0),
-                 launches_phase_3f=sharded.get(r["name"], 0))
+                 launches_phase_3f=sharded.get(r["name"], 0),
+                 launches_phase_3g=sharded_service.get(r["name"], 0),
+                 launches_phase_train=train.get(r["name"], 0))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -15,6 +15,12 @@ Each walks the key tiles up to the diagonal with an online softmax (see
 the notes at the top of the sources).  K4 replaces the reference's pure-XLA
 chunked attention on the model's path (``models/attention.flash_attention``).
 
+Training differentiates attention (``flash_attention``, an autograd
+function): its forward is K4 and its backward, ``flash_attention_bwd``, is
+written in PyTorch.  It recomputes the scores from q, k and v a block of
+query rows at a time, as autodiff of the reference's chunked attention
+does; no Pallas kernel covers the reference's backward either.
+
 The chunk arguments keep the reference's signature.  The kernel's tiles are
 fixed; ``q_chunk`` only sets how many query rows the plain version scores at
 once, and ``k_chunk`` is unused (the plain version takes whole key rows).
@@ -26,9 +32,11 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention_fwd", "flash_attention_fwd_plain", "HEAD_DIMS",
-           "SM90_HEAD_DIMS", "VARIANTS", "variant", "launch",
-           "attention_error_ratios"]
+__all__ = ["flash_attention", "flash_attention_fwd",
+           "flash_attention_fwd_plain", "flash_attention_bwd",
+           "plain_grads", "HEAD_DIMS", "SM90_HEAD_DIMS", "VARIANTS",
+           "variant", "launch", "attention_error_ratios",
+           "grad_error_ratios"]
 
 HEAD_DIMS = (8, 16, 32, 64, 128)   # head dims the kernels are built for
 SM90_HEAD_DIMS = (64, 128)         # head dims of the wgmma kernel (bf16)
@@ -173,6 +181,97 @@ def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, causal: bool = True,
+                        q_chunk: int = 512, round_p: bool = False):
+    """Gradients (dq, dk, dv) of K4's forward at ``dout``, in PyTorch.
+
+    ``q_chunk`` query rows at a time (causal: only the keys up to the
+    block's last row), in float32: s = q·kᵀ·scale, e = exp(s − rowmax),
+    l = Σe, out = (p·v) / l with p = e, or e rounded to v's dtype when
+    ``round_p`` (what the ``"sm90_wgmma"`` variant computes).  The rounding
+    passes gradients through unchanged and the row max is held constant,
+    as it cancels in the softmax.  Returns tensors in q's, k's and v's
+    dtypes.
+    """
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / (d ** 0.5)
+    qf = q.float().transpose(1, 2)                       # (B, H, Sq, D)
+    kf = k.float().transpose(1, 2)
+    vf = v.float().transpose(1, 2)
+    gf = dout.float().transpose(1, 2)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    step = max(1, int(q_chunk))
+    for q0 in range(0, sq, step):
+        q1 = min(sq, q0 + step)
+        kend = min(sk, q1) if causal else sk
+        qc, kc, vc = qf[:, :, q0:q1], kf[:, :, :kend], vf[:, :, :kend]
+        s = torch.matmul(qc, kc.transpose(-1, -2)) * scale
+        if causal:
+            qpos = torch.arange(q0, q1, device=q.device)
+            kpos = torch.arange(kend, device=q.device)
+            s = s.masked_fill(qpos[:, None] < kpos[None, :], NEG_INF)
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        del s
+        l = e.sum(dim=-1, keepdim=True)
+        p = e.to(v.dtype).float() if round_p else e
+        g = gf[:, :, q0:q1] / l                          # d(p·v)
+        u = torch.matmul(p, vc)                          # p·v, unnormalised
+        dv[:, :, :kend] += torch.matmul(p.transpose(-1, -2), g)
+        del p
+        dl = -(g * u).sum(dim=-1, keepdim=True) / l
+        ds = (torch.matmul(g, vc.transpose(-1, -2)) + dl).mul_(e)
+        del e
+        dq[:, :, q0:q1] = torch.matmul(ds, kc) * scale
+        dk[:, :, :kend] += torch.matmul(ds.transpose(-1, -2), qc) * scale
+    return (dq.transpose(1, 2).to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+def plain_grads(q, k, v, dout, causal: bool = True, round_p: bool = False):
+    """(dq, dk, dv) by autograd through :func:`flash_attention_fwd_plain`
+    (``round_p`` as there): the yardsticks of :func:`flash_attention_bwd`."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_fwd_plain(*leaves, causal=causal,
+                                        q_chunk=q.shape[1], round_p=round_p)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K4 forward, PyTorch backward (``flash_attention_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_chunk, k_chunk):
+        out = flash_attention_fwd(q, k, v, causal, q_chunk, k_chunk)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.q_chunk = causal, q_chunk
+        # differentiate the rounding the forward did
+        ctx.round_p = (q.device.type == "cuda" and
+                       variant(q.dtype, q.shape[3]) == "sm90_wgmma")
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, ctx.causal,
+                                         ctx.q_chunk, ctx.round_p)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, q_chunk: int = 512,
+                    k_chunk: int = 512) -> torch.Tensor:
+    """:func:`flash_attention_fwd` under autograd: the forward launches K4
+    (a CPU tensor takes the plain version) and counts the launch; the
+    backward is :func:`flash_attention_bwd`, rounding p as the forward
+    did."""
+    return _FlashAttention.apply(q, k, v, causal, q_chunk, k_chunk)
+
+
 def attention_error_ratios(got: torch.Tensor, ref: torch.Tensor,
                            base: torch.Tensor) -> dict:
     """The wgmma variant's accuracy rule, in float64.
@@ -201,4 +300,16 @@ def attention_error_ratios(got: torch.Tensor, ref: torch.Tensor,
            "max_ratio": float(d_got.max()) / max_limit,
            "mean_ratio": mean_ratio}
     out["ok"] = out["max_ratio"] <= 1.0 and out["mean_ratio"] <= 1.0
+    return out
+
+
+def grad_error_ratios(got, ref, base) -> dict:
+    """:func:`attention_error_ratios` for each of (dq, dk, dv): ``ref`` the
+    gradients of the float32 plain version from the same bf16 inputs and
+    bf16 ``dout`` (``plain_grads`` of their float32 copies), ``base`` those
+    of the bf16 plain version with ``round_p=True``.  ``ok`` when all three
+    pass."""
+    out = {name: attention_error_ratios(g, r, b)
+           for name, g, r, b in zip(("dq", "dk", "dv"), got, ref, base)}
+    out["ok"] = all(v["ok"] for v in out.values())
     return out

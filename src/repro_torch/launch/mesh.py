@@ -27,8 +27,9 @@ is.
 
 from __future__ import annotations
 
+import pickle
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -79,6 +80,52 @@ class ShardGroup:
         out = t.clone()
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=self.group)
         return out
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """Elementwise max over the members (exact in any order)."""
+        if self.d == 1:
+            return t
+        out = t.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
+        return out
+
+    def broadcast(self, header: Any = None,
+                  tensors: Sequence[torch.Tensor] = (), src: int = 0,
+                  device=None) -> Tuple[Any, List[torch.Tensor]]:
+        """Member ``src`` sends one picklable ``header`` and ``tensors``;
+        every member returns ``(header, tensors)``.
+
+        The others pass nothing and receive the tensors on ``device``
+        (default: the CPU) with the sender's shapes and dtypes.  The header
+        and the tensors' shapes cross as pickled bytes, the tensors as
+        themselves (16-bit floats and bool as bytes, as the other
+        collectives send them).
+        """
+        if self.d == 1:
+            return header, list(tensors)
+        g = self.group
+        if self.rank == src:
+            tensors = [t.contiguous() for t in tensors]
+            blob = pickle.dumps((header, [(tuple(t.shape), t.dtype)
+                                          for t in tensors]))
+            size = torch.tensor([len(blob)], dtype=torch.int64)
+            dist.broadcast(size, src, group=g)
+            dist.broadcast(torch.frombuffer(bytearray(blob), dtype=torch.uint8),
+                           src, group=g)
+            for t in tensors:
+                dist.broadcast(_wire(t), src, group=g)
+            return header, tensors
+        size = torch.empty((1,), dtype=torch.int64)
+        dist.broadcast(size, src, group=g)
+        buf = torch.empty((int(size),), dtype=torch.uint8)
+        dist.broadcast(buf, src, group=g)
+        header, specs = pickle.loads(buf.numpy().tobytes())
+        out = []
+        for shape, dtype in specs:
+            t = torch.empty(shape, dtype=dtype, device=device)
+            dist.broadcast(_wire(t), src, group=g)
+            out.append(t)
+        return header, out
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """Block ``j`` of dim 0 goes to member ``j``; returns the blocks

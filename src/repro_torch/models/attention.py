@@ -2,7 +2,8 @@
 (see ``repro.models.attention``).
 
 * ``attention_train`` — full-sequence causal (or bidirectional) self-
-  attention through :func:`flash_attention`, which is kernel K4 on the card.
+  attention through :func:`flash_attention`, which is kernel K4 on the card
+  (under autograd: K4 forward, a PyTorch backward).
 * ``attention_prefill`` — the same over the prompt, writing its K/V into the
   cache.
 * ``attention_decode`` — one query token against the cache, with the
@@ -24,7 +25,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from ..kernels.flash_attention import flash_attention_fwd
+from ..kernels import flash_attention as k4
 from .layers import Dense, dense
 
 __all__ = ["rope_frequencies", "apply_rope", "Attention", "flash_attention",
@@ -113,15 +114,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, q_chunk: int = 1024,
                     k_chunk: int = 1024,
                     skip_upper_triangle: bool = True) -> torch.Tensor:
-    """Attention over (B, S, H, D) with equal H: kernel K4.
+    """Attention over (B, S, H, D) with equal H: kernel K4, differentiable
+    (``kernels.flash_attention.flash_attention``).
 
     K4's key loop always stops at the diagonal when causal;
     ``skip_upper_triangle`` is kept for the reference's signature and, as
-    there, changes no result.  The chunks steer only K4's plain version
-    (CPU tensors).
+    there, changes no result.  ``q_chunk`` steers K4's plain version (CPU
+    tensors) and the backward's blocks of query rows.
     """
-    return flash_attention_fwd(q, k, v, causal=causal, q_chunk=q_chunk,
-                               k_chunk=k_chunk)
+    return k4.flash_attention(q, k, v, causal, q_chunk, k_chunk)
 
 
 # ---------------------------------------------------------------------------

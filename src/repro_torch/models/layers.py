@@ -9,7 +9,8 @@ Conventions, as in the reference:
 
 A module holds its tensors under the reference's pytree keys (``w``, ``b``,
 ``scale``, ``bias``, ``table``), so a ``state_dict`` key names the same leaf
-as the reference's parameter path.
+as the reference's parameter path.  Parameters are trainable; the serving
+entry points run under ``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -30,8 +31,7 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def _empty(shape, device, dtype) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,22 @@
-"""The dense transformer: init / forward / prefill / decode (see
+"""The dense transformer: init / forward / loss / prefill / decode (see
 ``repro.models.transformer``).
 
 ``family == "dense"`` with ``n_experts == 0`` is ported: a pre-norm decoder
 (GQA + RoPE + [SwiGLU | GeLU], RMSNorm or LayerNorm).  The layers are a
 Python loop over an ``nn.ModuleList`` where the reference scans stacked
 parameters; ``from_arrays`` / ``to_arrays`` convert between the two, so the
-reference's ``init_params`` pytree loads bit for bit.  Other families, MoE
-and ``loss_fn`` raise ``NotImplementedError`` naming their ``ROADMAP.md``
-item.
+reference's ``init_params`` pytree loads bit for bit.  Other families and
+MoE raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+
+Training: :meth:`Transformer.forward_train` is the forward with autograd
+on, each block wrapped per ``cfg.remat`` (the reference's ``_maybe_ckpt``):
+``"full"`` recomputes the whole block in the backward
+(``torch.utils.checkpoint``), ``"dots"`` keeps the matrix products' outputs
+and recomputes the rest (selective checkpointing, the nearest policy to
+``jax.checkpoint_policies.checkpoint_dots``), ``"none"`` keeps everything.
+:meth:`Transformer.loss_fn` is the reference's ``loss_fn``.  The serving
+entry points (``forward``, ``prefill``, ``decode_step``) run under
+``torch.no_grad`` and compute the same bits as before.
 
 The cache keeps the reference's layout, ``{"attn": {"k", "v"}}`` with
 shape (n_layers, B, max_seq, Hkv, D) in the compute dtype; prefill and
@@ -16,21 +25,45 @@ decode write it in place.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..device import DeviceLike, resolve
 from . import attention as attn
 from .layers import (MLP, Embed, Norm, dtype_of, embed_apply, mlp_apply,
                      norm_apply, unembed_apply)
 
-__all__ = ["Transformer", "n_scan_steps"]
+__all__ = ["Transformer", "n_scan_steps", "REMAT"]
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 _ITEM = "ROADMAP.md Queue 1 item 15"
+REMAT = ("full", "dots", "none")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of matrix products, recompute everything else."""
+    if op in _DOT_OPS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOT_OPS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.matmul.default}
+
+
+def _block_apply(blk: "Block", x: torch.Tensor, cfg, chunk: int,
+                 skip_upper_triangle: bool) -> torch.Tensor:
+    h = norm_apply(blk.ln1, x, cfg.norm)
+    x = x + attn.attention_train(blk.attn, h, cfg, causal=True, chunk=chunk,
+                                 skip_upper_triangle=skip_upper_triangle)
+    h = norm_apply(blk.ln2, x, cfg.norm)
+    return x + mlp_apply(blk.mlp, h, cfg.act, h.dtype)
 
 
 def n_scan_steps(cfg) -> int:
@@ -177,29 +210,67 @@ class Transformer(nn.Module):
     def _head(self) -> Embed:
         return self.embed["tok"] if self.cfg.tie_embeddings else self.lm_head
 
+    def _forward(self, batch: Dict[str, torch.Tensor], chunk: int,
+                 skip_upper_triangle: bool, remat: str
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        compute = dtype_of(cfg.compute_dtype)
+        x = embed_apply(self.embed["tok"], batch["tokens"], compute)
+        body = functools.partial(_block_apply, cfg=cfg, chunk=chunk,
+                                 skip_upper_triangle=skip_upper_triangle)
+        for blk in self.layers:
+            if remat == "full":
+                x = ckpt.checkpoint(body, blk, x, use_reentrant=False)
+            elif remat == "dots":
+                x = ckpt.checkpoint(
+                    body, blk, x, use_reentrant=False,
+                    context_fn=functools.partial(
+                        ckpt.create_selective_checkpoint_contexts,
+                        _dots_policy))
+            else:
+                x = body(blk, x)
+        x = norm_apply(self.norm_f, x, cfg.norm)
+        logits = unembed_apply(self._head(), x, compute)
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor], chunk: int = 1024,
                 skip_upper_triangle: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward of ``batch["tokens"]`` (B, S) -> (logits
         (B, S, V), aux loss 0)."""
-        cfg = self.cfg
-        compute = dtype_of(cfg.compute_dtype)
-        x = embed_apply(self.embed["tok"], batch["tokens"], compute)
-        for blk in self.layers:
-            h = norm_apply(blk.ln1, x, cfg.norm)
-            x = x + attn.attention_train(
-                blk.attn, h, cfg, causal=True, chunk=chunk,
-                skip_upper_triangle=skip_upper_triangle)
-            h = norm_apply(blk.ln2, x, cfg.norm)
-            x = x + mlp_apply(blk.mlp, h, cfg.act, h.dtype)
-        x = norm_apply(self.norm_f, x, cfg.norm)
-        logits = unembed_apply(self._head(), x, compute)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._forward(batch, chunk, skip_upper_triangle, "none")
 
-    def loss_fn(self, batch, chunk: int = 1024,
-                skip_upper_triangle: bool = True):
-        raise NotImplementedError(f"training is not ported yet: {_ITEM}")
+    def forward_train(self, batch: Dict[str, torch.Tensor], chunk: int = 1024,
+                      skip_upper_triangle: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`forward` with autograd on and each block rematerialised
+        per ``cfg.remat``; the same numbers."""
+        if self.cfg.remat not in REMAT:
+            raise ValueError(f"unknown remat {self.cfg.remat!r}; want one of "
+                             f"{REMAT}")
+        return self._forward(batch, chunk, skip_upper_triangle,
+                             self.cfg.remat)
+
+    def loss_fn(self, batch: Dict[str, torch.Tensor], chunk: int = 1024,
+                skip_upper_triangle: bool = True
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's ``loss_fn``: mean next-token cross entropy over
+        ``batch["loss_mask"]`` (default all ones) from float32 logits,
+        plus 0.01 x the aux loss -> (total, {"ce", "aux"})."""
+        logits, aux = self.forward_train(batch, chunk, skip_upper_triangle)
+        targets = batch["targets"].long()
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(targets.shape, dtype=torch.float32,
+                              device=logits.device)
+        ce = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                           min=1.0)
+        total = ce + 0.01 * aux
+        return total, {"ce": ce, "aux": aux}
 
     # -- serving ------------------------------------------------------------
 

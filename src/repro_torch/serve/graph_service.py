@@ -84,13 +84,14 @@ from ..core.graph import EdgeDelta, Graph
 from ..core.plan import EVICTABLE_FAMILIES
 from ..core.table import Table
 from ..device import DeviceLike, resolve
+from ..launch.mesh import ShardGroup, graph_group
 from .policy import (DeadlineExpired, MemoryPolicy, RejectedError,
                      SchedulerPolicy, ServiceError)
 from .scheduler import QueuedRequest, Scheduler
 
 __all__ = ["Workspace", "Session", "GraphService", "Pending", "EdgeDelta",
            "ServiceError", "RejectedError", "DeadlineExpired",
-           "SchedulerPolicy", "MemoryPolicy"]
+           "SchedulerPolicy", "MemoryPolicy", "serve_follower"]
 
 _log = obs.get_logger(__name__)
 
@@ -279,6 +280,272 @@ def _to_device(params: Dict[str, Any], dev: torch.device) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
+# d ranks: rank 0 serves, ranks >= 1 follow its engine calls
+# ---------------------------------------------------------------------------
+
+# engine callables a follower may be asked to run, by name
+_FOLLOW_FNS: Dict[str, Callable] = dict(
+    {op: fn for op, (fn, _) in _OPS.items() if op in _BACKEND_OPS},
+    incremental_bfs=A.incremental_bfs, incremental_sssp=A.incremental_sssp,
+    incremental_connected_components=A.incremental_connected_components,
+    incremental_label_propagation=A.incremental_label_propagation)
+
+
+class _GraphRef(tuple):
+    """A graph the followers hold, by version token."""
+
+
+class _TensorRef(tuple):
+    """The ``i``-th tensor sent after the header."""
+
+
+class _ResultRef(tuple):
+    """A result the followers hold, by rank 0's cache key."""
+
+
+class _Stored(tuple):
+    """The ``i``-th tensor sent, also kept by the followers under a key."""
+
+
+class _Held:
+    """A value rank 0 found in its cache under ``key`` (a warm start's
+    parent result): the followers receive it once and keep it there."""
+
+    def __init__(self, key: Tuple, value: Any):
+        self.key, self.value = key, value
+
+
+def _local(x: Any) -> Any:
+    """``x`` with every :class:`_Held` unwrapped (rank 0's own call)."""
+    if isinstance(x, _Held):
+        return x.value
+    if isinstance(x, dict):
+        return {k: _local(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_local(v) for v in x)
+    return x
+
+
+class _Mirror:
+    """Rank 0's side of a d-rank ``"sharded"`` service.
+
+    Every engine call that enters a collective is made under one lock, just
+    after a broadcast that describes it (the callable's name, its
+    arguments with graphs by version and tensors sent after the header,
+    the cache keys the followers keep its result under).  So whatever the
+    worker threads do, the ranks' collectives come in one order.  Rank 0
+    makes every decision (cache hit, warm start, eviction, fusion); a
+    follower only repeats the calls.  A graph the followers have not seen
+    crosses once, as its five CSR arrays; when it dies on rank 0 they drop
+    it, and they drop a kept result when rank 0's cache lets go of its key
+    (:meth:`forget`).  Both sides change what the followers hold in one
+    order: a message's drops first, then its call, then what the call
+    keeps, so rank 0 always knows what a follower holds.  An idle service
+    sends a keep-alive so the followers' wait never reaches the process
+    group's timeout.
+    """
+
+    def __init__(self, group: ShardGroup, keepalive_s: float = 5.0):
+        self.group = group
+        self.lock = threading.Lock()
+        self._graphs: Dict[str, bool] = {}
+        self._results: set = set()
+        # versions of dead graphs and keys rank 0's cache let go of, not
+        # yet taken (_take_drops); then not yet sent (_outgoing)
+        self._dead: List[str] = []
+        self._forgotten: List[Tuple] = []
+        self._dead_lock = threading.Lock()
+        self._outgoing: Dict[str, list] = {"drop_graphs": [],
+                                           "drop_results": []}
+        self.closed = False
+        self.stats = {"calls": 0, "graphs_sent": 0, "graph_bytes": 0,
+                      "results_sent": 0, "keepalives": 0}
+        self._last = time.monotonic()
+        self._keepalive_s = keepalive_s
+        self._ticker = threading.Thread(target=self._keepalive, daemon=True,
+                                        name="graph-service-keepalive")
+        self._ticker.start()
+
+    # -- wire -------------------------------------------------------------
+    def _on_dead(self, version: str) -> None:
+        with self._dead_lock:
+            self._dead.append(version)
+
+    def forget(self, key: Tuple) -> None:
+        """Rank 0's cache let go of ``key``: the followers drop what they
+        keep under it with the next message."""
+        with self._dead_lock:
+            self._forgotten.append(key)
+
+    def _take_drops(self) -> None:
+        """Move the pending drops to the next message and out of what rank
+        0 counts the followers as holding; the caller holds ``self.lock``
+        and encodes nothing before this."""
+        with self._dead_lock:
+            dead, self._dead = self._dead, []
+            gone, self._forgotten = self._forgotten, []
+        for v in dead:
+            self._graphs.pop(v, None)
+        gone = [k for k in gone if k in self._results]
+        self._results.difference_update(gone)
+        self._outgoing["drop_graphs"] += dead
+        self._outgoing["drop_results"] += gone
+
+    def _send(self, header: Dict[str, Any], tensors=()) -> None:
+        """Broadcast one message with the drops taken so far; the caller
+        holds ``self.lock``."""
+        header.update(self._outgoing)
+        self._outgoing = {"drop_graphs": [], "drop_results": []}
+        self.group.broadcast(header, tensors)
+        self._last = time.monotonic()
+
+    def _keepalive(self) -> None:
+        while not self.closed:
+            time.sleep(self._keepalive_s / 4)
+            if time.monotonic() - self._last < self._keepalive_s:
+                continue
+            if self.lock.acquire(blocking=False):
+                try:
+                    if not self.closed:
+                        self._take_drops()
+                        self._send({"kind": "nop"})
+                        self.stats["keepalives"] += 1
+                finally:
+                    self.lock.release()
+
+    def _ensure_graph(self, g: Graph) -> None:
+        v = prov.version_of(g)
+        if v in self._graphs:
+            return
+        arrays = (g.node_ids, g.out_ptr, g.out_idx, g.in_ptr, g.in_idx)
+        self._send({"kind": "graph", "version": v, "n_nodes": g.n_nodes,
+                    "n_edges": g.n_edges}, arrays)
+        self._graphs[v] = True
+        weakref.finalize(g, self._on_dead, v)
+        self.stats["graphs_sent"] += 1
+        self.stats["graph_bytes"] += sum(a.numel() * a.element_size()
+                                         for a in arrays)
+
+    def _encode(self, x: Any, tensors: List[torch.Tensor]) -> Any:
+        if isinstance(x, Graph):
+            self._ensure_graph(x)
+            return _GraphRef((prov.version_of(x),))
+        if isinstance(x, _Held):
+            if x.key in self._results:
+                return _ResultRef((x.key,))
+            tensors.append(x.value)
+            self._results.add(x.key)
+            self.stats["results_sent"] += 1
+            return _Stored((x.key, len(tensors) - 1))
+        if torch.is_tensor(x):
+            tensors.append(x)
+            return _TensorRef((len(tensors) - 1,))
+        if isinstance(x, dict):
+            return {k: self._encode(v, tensors) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(self._encode(v, tensors) for v in x)
+        return x
+
+    # -- calls -------------------------------------------------------------
+    def call(self, name: str, args: Tuple, kwargs: Dict[str, Any],
+             store: List[Tuple[Tuple, Optional[int]]] = ()) -> Any:
+        """Run ``_FOLLOW_FNS[name](*args, **kwargs)`` on every rank; the
+        followers keep the result (or its row ``i``) under each key of
+        ``store``."""
+        fn = _FOLLOW_FNS[name]
+        with self.lock:
+            if self.closed:
+                raise ServiceError("the service's followers were released")
+            self._take_drops()
+            tensors: List[torch.Tensor] = []
+            enc_args = self._encode(args, tensors)
+            enc_kwargs = self._encode(kwargs, tensors)
+            store = [(k, i) for k, i in store if k is not None]
+            self._send({"kind": "call", "fn": name, "args": enc_args,
+                        "kwargs": enc_kwargs, "store": store}, tensors)
+            self.stats["calls"] += 1
+            out = fn(*_local(args), **_local(kwargs))
+            self._results.update(k for k, _ in store)
+            return out
+
+    def close(self) -> None:
+        with self.lock:
+            if not self.closed:
+                self._take_drops()
+                self._send({"kind": "close"})
+                self.closed = True
+
+
+def serve_follower(group: Optional[ShardGroup] = None,
+                   device: DeviceLike = None) -> Dict[str, int]:
+    """The loop of ranks >= 1 of a d-rank ``"sharded"`` service.
+
+    Repeats rank 0's engine calls as they are broadcast (see
+    :class:`GraphService`) until rank 0's :meth:`GraphService.close`;
+    returns counts of what it did.  It makes no decision of its own: it
+    keeps the graphs by version and the results under rank 0's keys, and
+    drops them when rank 0 says.  A call that raises here raised on rank 0
+    too (the same inputs); it is logged and the loop goes on.
+    """
+    dev = resolve(device)
+    if group is None:
+        group = graph_group(engine.shard_count())
+    if group.rank == 0:
+        raise ValueError("rank 0 serves (GraphService); serve_follower runs "
+                         "on ranks >= 1")
+    graphs: Dict[str, Graph] = {}
+    results: Dict[Tuple, Any] = {}
+    counts = {"calls": 0, "graphs": 0, "errors": 0, "messages": 0}
+
+    def decode(x, tensors):
+        if isinstance(x, _GraphRef):
+            return graphs[x[0]]
+        if isinstance(x, _TensorRef):
+            return tensors[x[0]]
+        if isinstance(x, _ResultRef):
+            return results[x[0]]
+        if isinstance(x, _Stored):
+            results[x[0]] = tensors[x[1]]
+            return tensors[x[1]]
+        if isinstance(x, dict):
+            return {k: decode(v, tensors) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(decode(v, tensors) for v in x)
+        return x
+
+    ctx = torch.cuda.device(dev) if dev.type == "cuda" else \
+        contextlib.nullcontext()
+    with ctx:
+        while True:
+            header, tensors = group.broadcast(device=dev)
+            counts["messages"] += 1
+            for v in header["drop_graphs"]:
+                graphs.pop(v, None)
+            for k in header["drop_results"]:
+                results.pop(k, None)
+            kind = header["kind"]
+            if kind == "graph":
+                graphs[header["version"]] = Graph(
+                    header["n_nodes"], header["n_edges"], *tensors)
+                counts["graphs"] += 1
+            elif kind == "call":
+                counts["calls"] += 1
+                try:
+                    out = _FOLLOW_FNS[header["fn"]](
+                        *decode(header["args"], tensors),
+                        **decode(header["kwargs"], tensors))
+                    for key, i in header["store"]:
+                        results[key] = out if i is None else out[i]
+                except Exception:
+                    counts["errors"] += 1
+                    _log.exception("follower.call_failed", fn=header["fn"])
+            if kind == "close":
+                counts["graphs_held"] = len(graphs)
+                counts["results_held"] = len(results)
+                return counts
+
+
+# ---------------------------------------------------------------------------
 # memory accounting — byte-costed result cache + plan-member eviction
 # ---------------------------------------------------------------------------
 
@@ -438,6 +705,7 @@ class _MemoryManager:
                 with svc._lock:
                     while svc._cache_bytes + plan_ev > budget and svc._cache:
                         key, _ = svc._cache.popitem(last=False)
+                        svc._forget(key)
                         cost = svc._cache_cost.pop(key, 0)
                         svc._cache_bytes -= cost
                         n_results += 1
@@ -763,11 +1031,16 @@ class GraphService:
     sync of it, and engine calls run with it as the current CUDA device.
 
     ``engine_backend="sharded"`` runs the engine calls through
-    ``ShardedExec`` at one shard on ``device``; at more than one shard
-    (``REPRO_SHARD_COUNT``, or a process group of several ranks) the
-    constructor raises ``ValueError``: the ranks' collectives must come in
-    one order on every rank, which a service with its own worker threads
-    and sessions cannot keep.
+    ``ShardedExec``.  At one shard that is this process alone.  At ``d > 1``
+    shards (a default process group of ``d`` ranks) rank 0 constructs the
+    service, with its workers and sessions, and ranks ``1..d-1`` run
+    :func:`serve_follower`, which returns at rank 0's :meth:`close`.  Rank
+    0 makes every decision and broadcasts each engine call that enters a
+    collective just before making it, under one lock (``_Mirror``), so the
+    ranks' collectives come in one order whatever the worker threads do;
+    calls without collectives (table ops, conversions, other backends) run
+    on rank 0 alone.  Constructing the service on another rank raises
+    ``ValueError``.
     """
 
     def __init__(self, workspace: Optional[Workspace] = None, *,
@@ -779,11 +1052,14 @@ class GraphService:
                  engine_backend: Optional[str] = None,
                  device: DeviceLike = None):
         self.device = resolve(device)
+        self._mirror: Optional[_Mirror] = None
         if engine_backend == "sharded" and engine.shard_count() > 1:
-            raise ValueError(
-                f"GraphService(engine_backend='sharded') runs at one shard, "
-                f"got {engine.shard_count()}: its threads cannot keep the "
-                f"ranks' collectives in one order")
+            group = graph_group(engine.shard_count())
+            if group.rank != 0:
+                raise ValueError(
+                    f"rank {group.rank} of a {group.d}-rank 'sharded' service "
+                    f"follows rank 0: call serve_follower() there")
+            self._mirror = _Mirror(group)
         self.workspace = workspace if workspace is not None else Workspace()
         self.fuse = fuse
         # default engine backend for every _BACKEND_OPS request that does
@@ -871,6 +1147,8 @@ class GraphService:
             t.join(timeout=5.0)
         self._worker_threads = []
         self.scheduler.drain()
+        if self._mirror is not None:
+            self._mirror.close()     # releases the followers
 
     # -- sessions -----------------------------------------------------------
     def session(self, name: str) -> Session:
@@ -1001,6 +1279,23 @@ class GraphService:
                 "cache_hits": 0, "cache_misses": 0, "retained": 0}
         return c
 
+    def _forget(self, key: Tuple) -> None:
+        """``key`` left the result cache (the followers drop it too)."""
+        if self._mirror is not None:
+            self._mirror.forget(key)
+
+    def _engine(self, name: str, g: Graph, args: Tuple,
+                kwargs: Dict[str, Any], store=()) -> Any:
+        """One engine call, ``_FOLLOW_FNS[name](*args, **kwargs)`` on ``g``:
+        through the followers when it enters a collective (a d-rank
+        "sharded" service), here alone otherwise."""
+        op = name[len("incremental_"):] if name.startswith("incremental_") \
+            else name
+        if (self._mirror is not None and engine._select_backend(
+                g.plan(), kwargs.get("backend"), op) == "sharded"):
+            return self._mirror.call(name, args, kwargs, store)
+        return _FOLLOW_FNS[name](*_local(args), **_local(kwargs))
+
     def _cache_get(self, key: Optional[Tuple], count_miss: bool = True,
                    session: Optional[str] = None):
         if key is None:
@@ -1044,6 +1339,7 @@ class GraphService:
             self._cache_bytes += cost
             while len(self._cache) > self._max_cache:
                 k, _ = self._cache.popitem(last=False)
+                self._forget(k)
                 self._cache_bytes -= self._cache_cost.pop(k, 0)
         self._mem.on_cache_change()
 
@@ -1064,6 +1360,12 @@ class GraphService:
             if (self.engine_backend is not None and op in _BACKEND_OPS
                     and params.get("backend") is None):
                 params["backend"] = self.engine_backend
+            if (params.get("backend") == "sharded" and self._mirror is None
+                    and engine.shard_count() > 1):
+                raise ServiceError(
+                    "a 'sharded' request at more than one shard needs a "
+                    "service with engine_backend='sharded' (its ranks "
+                    "follow rank 0's calls)")
             canon = prov.canonical_params(params)
             key = self._cache_key(op, inputs, canon)
         except Exception as e:
@@ -1245,20 +1547,25 @@ class GraphService:
         op = q.op
         params = dict(q.payload["params"])
         parent_val, found = self._parent_cached(q, info.parent)
+        # the parent's result as the followers will hold it
+        held = _Held(self._parent_key(q, info.parent), parent_val)
+        store = self._keep([q])
         out = None
         try:
             if not found:
                 pass                  # no parent result to warm from
             elif op == "pagerank":
                 if params.get("tol") is not None and "init" not in params:
-                    out = A.pagerank(g, init=parent_val, **params)
+                    out = self._engine("pagerank", g, (g,),
+                                       dict(params, init=held), store)
             elif op == "personalized_pagerank":
                 source = params.pop("source", None)
                 if (params.get("tol") is not None and "init" not in params
                         and isinstance(source, (int, np.integer))
                         and not isinstance(source, bool)):
-                    out = A.personalized_pagerank(g, int(source),
-                                                  init=parent_val, **params)
+                    out = self._engine("personalized_pagerank", g,
+                                       (g, int(source)),
+                                       dict(params, init=held), store)
             elif op in ("bfs", "sssp"):
                 source = params.pop("source", None)
                 # "backend" is neutral to warm soundness: every backend is
@@ -1269,16 +1576,17 @@ class GraphService:
                         and params.get("weights") is None
                         and isinstance(source, (int, np.integer))
                         and not isinstance(source, bool)):
-                    warm = A.incremental_bfs if op == "bfs" \
-                        else A.incremental_sssp
-                    out = warm(g, int(source), parent_val)
+                    out = self._engine(f"incremental_{op}", g,
+                                       (g, int(source), held), {}, store)
             elif op == "connected_components":
                 if not set(params) - {"backend"}:
-                    out = A.incremental_connected_components(g, parent_val)
+                    out = self._engine("incremental_connected_components",
+                                       g, (g, held), {}, store)
             else:                     # label_propagation
                 if not set(params) - {"n_iter", "backend"}:
-                    out = A.incremental_label_propagation(
-                        g, parent_val, n_iter=params.get("n_iter", 20))
+                    out = self._engine(
+                        "incremental_label_propagation", g, (g, held),
+                        {"n_iter": params.get("n_iter", 20)}, store)
         except Exception:
             _log.exception("warm_start.failed", op=op, session=q.session,
                            action="running cold")
@@ -1304,10 +1612,30 @@ class GraphService:
         with self._on_device():
             return self._run_group_on_device(group)
 
+    @staticmethod
+    def _keep(group: List[QueuedRequest]) -> List[Tuple[Tuple, Optional[int]]]:
+        """What the followers keep of a call for ``group``: each member's
+        result (row ``i`` of a fused call) under its cache key, for the
+        ops a later warm start may read."""
+        if group[0].op not in _WARM_OPS:
+            return []
+        if len(group) == 1:
+            return [(group[0].cache_key, None)]
+        return [(m.cache_key, i) for i, m in enumerate(group)]
+
+    def _call_op(self, q: QueuedRequest) -> Any:
+        """A non-fused request's call of its op."""
+        inputs = dict(q.payload["inputs"])
+        g = inputs.get("g")
+        if q.op in _BACKEND_OPS and isinstance(g, Graph):
+            return self._engine(q.op, g, (), dict(inputs, **q.payload["params"]),
+                                self._keep([q]))
+        fn, _ = _OPS[q.op]
+        return fn(**inputs, **q.payload["params"])
+
     def _run_group_on_device(self, group: List[QueuedRequest]) -> float:
         q0 = group[0]
         op = q0.op
-        fn, _ = _OPS[op]
         self._bump("engine_calls")
         if len(group) > 1:
             self._bump("fused_calls")
@@ -1319,8 +1647,7 @@ class GraphService:
                 out = self._try_warm(q0)
                 if out is None:
                     esp.set(warm=False)
-                    out = self._block(fn(**dict(q0.payload["inputs"]),
-                                         **q0.payload["params"]))
+                    out = self._block(self._call_op(q0))
                     dt = (time.perf_counter() - t0) * 1e3
                     prov.annotate_last(out, self._sched_meta(q0, 1))
                 else:
@@ -1352,7 +1679,8 @@ class GraphService:
                 out = self._try_warm(q0)
                 if out is None:
                     esp.set(warm=False)
-                    out = self._block(fn(g, sources[0], **kw))
+                    out = self._block(self._engine(
+                        op, g, (g, sources[0]), kw, self._keep(group)))
                     dt = (time.perf_counter() - t0) * 1e3
                     prov.annotate_last(out, self._sched_meta(q0, 1))
                 else:
@@ -1383,8 +1711,10 @@ class GraphService:
                         if m.pending.trace is not None],
                 op=op, batch=len(group),
                 sources=sources if len(sources) <= 16 else len(sources)):
-            rows = self._block(fn(g, torch.tensor(sources, dtype=torch.int32,
-                                                  device=g.device), **kw))
+            rows = self._block(self._engine(
+                op, g, (g, torch.tensor(sources, dtype=torch.int32,
+                                        device=g.device)), kw,
+                self._keep(group)))
         dt = (time.perf_counter() - t0) * 1e3
         for i, m in enumerate(group):
             row = rows[i]

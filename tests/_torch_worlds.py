@@ -18,6 +18,7 @@ import datetime
 import multiprocessing as mp
 import os
 import pickle
+import sys
 import time
 import traceback
 from pathlib import Path
@@ -308,6 +309,165 @@ def shard_local_pulls(g, d: int, seed: int = 0):
         got = engine._segment_reduce(ev, b.seg, b.lengths, ns + 2,
                                      "sum")[1: ns + 1]
         out.append((got, wpad[k * ns:(k + 1) * ns]))
+    return out
+
+
+def service_script(workers: int = 0) -> dict:
+    """A scripted session mix through ``GraphService(engine_backend=
+    "sharded")`` on this rank (rank 0 of the world, or a lone process):
+    two sessions, PageRank, a fused BFS group of mixed depths, CC, a cache
+    hit, an insert-only delta with warm re-runs, then a second service
+    under a zero-byte memory budget.  Returns every result (numpy), each
+    service's ``stats`` and the budget service's eviction log."""
+    import numpy as np
+    from repro_torch.core.graph import EdgeDelta, Graph
+    from repro_torch.serve.graph_service import GraphService, MemoryPolicy
+    g, _ = distributed_graph(Graph, device="cpu")
+    out, stats = {}, {}
+    svc = GraphService(engine_backend="sharded", device="cpu",
+                       workers=workers)
+    try:
+        svc.workspace.put("g", g)
+        a, b = svc.session("a"), svc.session("b")
+        out["pr"] = a.execute({"op": "pagerank", "graph": "g",
+                               "params": {"n_iter": 10}})
+        out["pr_tol"] = b.execute({"op": "pagerank", "graph": "g",
+                                   "params": {"tol": 1e-6}})
+        fused = [a.submit({"op": "bfs", "graph": "g",
+                           "params": {"source": 0}}),
+                 b.submit({"op": "bfs", "graph": "g",
+                           "params": {"source": 5, "n_iter": 3}}),
+                 b.submit({"op": "bfs", "graph": "g",
+                           "params": {"source": 9}})]
+        svc.flush()
+        for i, p in enumerate(fused):
+            out[f"bfs{i}"] = p.result()
+        out["cc"] = b.execute({"op": "connected_components", "graph": "g"})
+        again = a.submit({"op": "pagerank", "graph": "g",
+                          "params": {"n_iter": 10}})
+        out["pr_again"] = again.result()
+        out["hit"] = again.cached
+        ids = g.node_ids[:g.n_nodes].numpy()
+        svc.workspace.apply_delta("g", EdgeDelta.inserts(ids[:12], ids[20:32]))
+        out["pr_tol_warm"] = b.execute({"op": "pagerank", "graph": "g",
+                                        "params": {"tol": 1e-6}})
+        out["cc_warm"] = a.execute({"op": "connected_components",
+                                    "graph": "g"})
+        out["bfs_warm"] = a.execute({"op": "bfs", "graph": "g",
+                                     "params": {"source": 0}})
+        out["triangles"] = b.execute({"op": "triangle_count", "graph": "u"}) \
+            if "u" in svc.workspace else None
+        stats["main"] = dict(svc.stats)
+    finally:
+        svc.close()
+    tight = GraphService(engine_backend="sharded", device="cpu",
+                         memory=MemoryPolicy(budget_bytes=0))
+    try:
+        tight.workspace.put("g", g)
+        s = tight.session("s")
+        out["budget_pr"] = s.execute({"op": "pagerank", "graph": "g",
+                                      "params": {"n_iter": 10}})
+        out["budget_cc"] = s.execute({"op": "connected_components",
+                                      "graph": "g"})
+        out["budget_pr_again"] = s.execute({"op": "pagerank", "graph": "g",
+                                            "params": {"n_iter": 10}})
+        stats["budget"] = dict(tight.stats)
+        evlog = list(tight._mem.evlog)
+    finally:
+        tight.close()
+    return {"results": {k: _np(v) for k, v in out.items() if v is not None},
+            "stats": stats,
+            "evicted_results": [b for kind, b in evlog if kind == "result"],
+            "evicted_plan_families": sum(kind == "plan" for kind, _ in evlog)}
+
+
+def service_threads_script() -> dict:
+    """Two sessions submitting at once from two threads into a
+    ``GraphService(engine_backend="sharded", workers=2)``: PageRank, BFS
+    from eight sources, CC; returns the results (numpy), in request
+    order."""
+    import threading
+    from repro_torch.core.graph import Graph
+    from repro_torch.serve.graph_service import GraphService
+    g, _ = distributed_graph(Graph, device="cpu")
+    svc = GraphService(engine_backend="sharded", device="cpu", workers=2)
+    reqs = {"a": [{"op": "pagerank", "graph": "g", "params": {"n_iter": 8}}]
+            + [{"op": "bfs", "graph": "g", "params": {"source": s}}
+               for s in range(0, 8, 2)],
+            "b": [{"op": "connected_components", "graph": "g"}]
+            + [{"op": "bfs", "graph": "g", "params": {"source": s}}
+               for s in range(1, 8, 2)]}
+    got = {}
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)          # interleave the threads finely
+    try:
+        svc.workspace.put("g", g)
+
+        def run(name):
+            sess = svc.session(name)
+            pend = [sess.submit(r) for r in reqs[name]]
+            got[name] = [_np(p.result(timeout=120)) for p in pend]
+        ts = [threading.Thread(target=run, args=(n,)) for n in reqs]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in ts), "a session hung"
+    finally:
+        sys.setswitchinterval(switch)
+        svc.close()
+    return got
+
+
+def service_job() -> dict:
+    """A d-rank "sharded" service: rank 0 runs ``service_script`` (two
+    services) and ``service_threads_script``, every other rank follows
+    each service until its ``close``."""
+    from repro_torch.core.engine import shard_count
+    from repro_torch.launch.mesh import graph_group
+    from repro_torch.serve.graph_service import serve_follower
+    group = graph_group(shard_count())
+    if group.rank == 0:
+        res = service_script()
+        res["threads"] = service_threads_script()
+        return res
+    return {"followed": [serve_follower(device="cpu") for _ in range(3)]}
+
+
+def ddp_job(arrays, batch) -> dict:
+    """One ``make_ddp_step`` of reduced qwen2.5-3b from ``arrays`` on the
+    global ``batch``, plain and int8-compressed, from fresh AdamW state;
+    also this rank's own gradients of its rows (numpy)."""
+    import torch
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.core.engine import shard_count
+    from repro_torch.launch.mesh import graph_group
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train.compress import init_error_feedback
+    from repro_torch.train.optimizer import OptHyper, get_optimizer
+    from repro_torch.train.step import make_ddp_step
+    cfg = reduced(get_config("qwen2.5-3b"))
+    group = graph_group(shard_count())
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    per = tb["tokens"].shape[0] // group.d
+    model = Transformer.from_arrays(cfg, arrays, device="cpu")
+    loss, _ = model.loss_fn({k: v[group.rank * per:(group.rank + 1) * per]
+                             for k, v in tb.items()})
+    loss.backward()
+    out = {"grads": {k: p.grad.numpy().copy()
+                     for k, p in model.named_parameters()}}
+    for tag, comp in (("plain", False), ("compressed", True)):
+        model = Transformer.from_arrays(cfg, arrays, device="cpu")
+        params = dict(model.named_parameters())
+        state = get_optimizer("adamw").init(params)
+        step = make_ddp_step(cfg, group, OptHyper(), compress=comp)
+        res = init_error_feedback(params) if comp else None
+        model, state, loss, res = step(model, state, tb, 0, res)
+        out[tag] = {"params": {k: p.detach().numpy().copy()
+                               for k, p in model.named_parameters()},
+                    "loss": float(loss),
+                    "residuals": None if res is None else
+                    {k: v.numpy() for k, v in res.items()}}
     return out
 
 

@@ -15,7 +15,9 @@ float ``group_by`` sums must give the same bits twice.  The interactive
 service with ``engine_backend="bsr"`` and ``"pallas"`` launches K1, K2 and
 K3 from fused and single requests and answers as direct calls do.  The
 "sharded" backend's shard-local sums on the card equal "xla"'s bit for bit
-at every shard (each shard buffer keeps its segments' alignment).
+at every shard (each shard buffer keeps its segments' alignment).  K4 under
+autograd (its forward, the PyTorch backward) gives gradients within
+``attention_error_ratios``' rule of the float32 plain version's.
 """
 
 import numpy as np
@@ -375,6 +377,26 @@ def test_flash_attention_wgmma_is_deterministic_and_strided(dev):
     ref = flash_attention_fwd_plain(q.float(), k.float(), v.float())
     base = flash_attention_fwd_plain(q, k, v, round_p=True)
     assert attention_error_ratios(a, ref, base)["ok"]
+
+
+def test_flash_attention_backward_under_autograd(dev):
+    # phase 4b's shape: K4's forward through the autograd function, the
+    # PyTorch backward differentiating p rounded to bf16, against autograd
+    # through the float32 plain version (attention_error_ratios' rule for
+    # each of dq, dk, dv)
+    rng = np.random.default_rng(11)
+    shape = (2, 1024, 16, 128)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(4))
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = flash_attention_fwd.launches
+    out = fa.flash_attention(*leaves, causal=True, q_chunk=1024)
+    assert flash_attention_fwd.launches == before + 1
+    got = torch.autograd.grad(out, leaves, dout)
+    ref = fa.plain_grads(q.float(), k.float(), v.float(), dout.float())
+    base = fa.plain_grads(q, k, v, dout, round_p=True)
+    r = fa.grad_error_ratios(got, ref, base)
+    assert r["ok"], r
 
 
 def test_flash_attention_kernel_rejects_head_dim(dev):

@@ -898,10 +898,10 @@ def test_wire_array_parameters_key_on_the_host_then_run_on_the_device():
 
 
 @pytest.mark.parametrize("op", ["pagerank", "bfs", "triangle_count"])
-def test_unported_engine_backend_fails_the_request_loudly(op, monkeypatch):
-    # "sharded" is ported: at one shard every engine call runs through
-    # ShardedExec and answers what "xla" answers, bit for bit; at more than
-    # one shard the service refuses to start
+def test_sharded_engine_backend_at_one_shard_equals_xla(op):
+    # at one shard every engine call runs through ShardedExec in this
+    # process and answers what "xla" answers, bit for bit (more shards:
+    # tests/test_torch_sharded_service.py)
     svc = make_service(engine_backend="sharded")
     params = {"source": 0} if op == "bfs" else {}
     p = svc.session("a").submit({"op": op, "graph": "g", "params": params})
@@ -916,10 +916,6 @@ def test_unported_engine_backend_fails_the_request_loudly(op, monkeypatch):
     assert any(type(ex).__name__ == "ShardedExec"
                for ex in g.plan().execs.values()) or op == "triangle_count"
     assert svc.stats["engine_calls"] == 1
-    monkeypatch.setenv("REPRO_SHARD_COUNT", "2")
-    with pytest.raises(ValueError, match="one shard"):
-        make_service(engine_backend="sharded")
-    make_service(engine_backend="xla")          # other backends start
 
 
 # ---------------------------------------------------------------------------
