@@ -138,6 +138,32 @@ Phases (each prints one JSON line with its seconds):
    largest logit.  With ``--profile``, one more prefill and one decode
    step run under ``torch.profiler``: their device-busy share and K4's
    part of it.
+4c. MoE serving, kernel K4 in every layer's prefill: ``qwen3-moe-235b-a22b``
+   (6 layers) and then ``grok-1-314b`` (2 layers), at full width
+   (d_model 4096 / 6144; 128 experts top 8 / 8 experts top 2) with bf16
+   parameters from a seeded generator, each behind ``Engine`` with phase
+   4's ``ServeConfig`` and prompts (the ids drawn in its own vocab), 32 new
+   tokens, freed before the next.  K4 must launch once per layer in the
+   ``generate``, all ``"sm90_wgmma"``, at (4, 2048, 64, 128) and (4, 2048,
+   48, 128) bf16; outputs, finite logits and a second ``generate`` as in
+   phase 4; ``decode_step`` after ``prefill`` within phase 4's tolerance of
+   ``forward`` at capacity factor E/k (16 and 4: no assignment drops at
+   any T).  Layer 0's MoE on the prefill's own normed activations (T =
+   8192) against ``moe_oracle_check``'s per-token oracle: routing equal to
+   a float64 recomputation but for near ties (gap < 1e-5, counted), kept
+   slots equal to a count in flat order, 256 sampled tokens (64 with a
+   dropped slot) within 2e-2 x max|oracle| in bf16 and 1e-4 x in float32.
+   Its line prints each model's parameters and bytes, memory before and
+   at peak, capacity at prefill and decode, assignments dropped at prefill
+   and in the decode steps, prefill seconds, decode seconds per token and
+   tokens/s; with ``--profile``, one MoE prefill and one decode step under
+   ``torch.profiler`` (busy share, top kernels).  Drops are counted by a
+   spy on ``models.moe.route``.  K4 must launch 5 x 8 + 2 times in the
+   phase (6 x 8 + 2 with ``--profile``) and K1-K3 never.  After the
+   window, K4 runs on the q, k, v that each model's layer 0 gave it in
+   the first ``generate`` (after RoPE and the GQA repeat) and must pass
+   ``attention_error_ratios`` there, as in phase 5; its times there
+   print in the phase line and in K4's row (``moe_path_inputs``).
 4b. training, kernel K4 under autograd: ``qwen2.5-3b`` at full width and
    depth (f32 parameters, bf16 compute, ``remat="full"``, AdamW), seeded
    random weights, on batches of 2 x 1024 random walks
@@ -179,9 +205,9 @@ Phases (each prints one JSON line with its seconds):
    ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
-path's, and phases 3b's to 3g's and 4b's are their own (3d's to 3g's and
-4b's print in each kernel row as ``launches_phase_3d`` ... ``_3g`` and
-``launches_phase_train``): each window's counts are zeroed just before it
+path's, and phases 3b's to 3g's, 4c's and 4b's are their own (3d's to 3g's,
+4c's and 4b's print in each kernel row as ``launches_phase_3d`` ... ``_3g``,
+``launches_phase_moe`` and ``launches_phase_train``): each window's counts are zeroed just before it
 and read just after it.  Any failed check raises, and
 the script exits non-zero without its last line, which on success is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -2305,6 +2331,343 @@ def phase_serve(dev, kernels, profile):
     return launches["flash_attention_fwd"], k4_variants
 
 
+# phase 4c: each MoE config at full width, cut in depth to fit the card
+MOE_MODELS = (("qwen3-moe-235b-a22b", 6), ("grok-1-314b", 2))
+MOE_SAMPLE = 256           # tokens the per-token oracle checks
+MOE_SAMPLE_DROPPED = 64    # of them, tokens with a dropped slot
+MOE_NEAR_TIE = 1e-5        # float64 gap (k-th minus (k+1)-th probability)
+                           # below which the card's routing may differ
+MOE_BF16_TOL = 2e-2        # oracle check in bf16, relative to max|oracle|
+MOE_F32_TOL = 1e-4         # the same in float32 compute
+
+
+@torch.no_grad()
+def moe_oracle_check(layer, x, cfg, seed: int = 0) -> dict:
+    """One MoE layer on ``x`` (B, S, d), in its compute dtype and in
+    float32, against an oracle that neither sorts nor buckets.
+
+    The routing must equal a float64 recomputation on the host, but for
+    tokens whose float64 gap between the k-th and (k+1)-th probability is
+    below ``MOE_NEAR_TIE`` (counted).  An assignment (t, j) is kept iff
+    fewer than C earlier assignments in flat order t·k + j went to its
+    expert; the port's ``keep`` must say the same.  On ``MOE_SAMPLE`` tokens
+    whose routing agrees (``MOE_SAMPLE_DROPPED`` of them with a dropped
+    slot), the oracle is Σ over kept slots of gate · FFN_e(x_t) in float32
+    from the expert's weight slices; the bf16 output must lie within
+    ``MOE_BF16_TOL`` · max|oracle| of it and the float32 one within
+    ``MOE_F32_TOL`` ·."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+    b, s, d = x.shape
+    t, k, e = b * s, cfg.experts_per_token, cfg.n_experts
+    r = moe.route(layer, x, cfg)
+    out = moe.moe_apply(layer, x, cfg)[0].reshape(t, d)
+    out32 = moe.moe_apply(layer, x.float(), cfg)[0].reshape(t, d)
+    cap = r.capacity
+    gate_idx = r.gate_idx.cpu().numpy()
+
+    # the routing against float64 on the host
+    x64 = x.reshape(t, d).double().cpu().numpy()
+    logits = x64 @ layer.router.w.double().cpu().numpy()
+    probs = np.exp(logits - logits.max(axis=1, keepdims=True))
+    probs /= probs.sum(axis=1, keepdims=True)
+    rank64 = np.argsort(-probs, axis=1, kind="stable")[:, :k + 1]
+    p_top = np.take_along_axis(probs, rank64, axis=1)
+    near = p_top[:, k - 1] - p_top[:, k] < MOE_NEAR_TIE
+    agree = (rank64[:, :k] == gate_idx).all(axis=1)
+    check(bool(np.all(agree | near)), f"MoE routing: {int((~agree & ~near).sum())}"
+          f" tokens pick other experts than float64 with a gap >= "
+          f"{MOE_NEAR_TIE}")
+    gates = p_top[:, :k] / p_top[:, :k].sum(axis=1, keepdims=True)
+
+    # kept slots, counted in flat order
+    kept = np.zeros(t * k, bool)
+    seen = np.zeros(e, np.int64)
+    for pos, ex in enumerate(gate_idx.reshape(-1).tolist()):
+        kept[pos] = seen[ex] < cap
+        seen[ex] += 1
+    keep_tk = np.empty(t * k, bool)
+    keep_tk[r.order.cpu().numpy()] = r.keep.cpu().numpy()
+    check(bool(np.array_equal(keep_tk, kept)), "MoE keep differs from the "
+          "flat-order count")
+    kept = kept.reshape(t, k)
+
+    rng = np.random.default_rng(seed)
+    dropped = np.flatnonzero(agree & ~kept.all(axis=1))
+    check(len(dropped) >= MOE_SAMPLE_DROPPED, f"MoE oracle: only "
+          f"{len(dropped)} tokens with a dropped slot")
+    pick = rng.choice(dropped, MOE_SAMPLE_DROPPED, replace=False)
+    rest = np.setdiff1d(np.flatnonzero(agree), pick)
+    sample = np.sort(np.concatenate([pick, rng.choice(
+        rest, MOE_SAMPLE - MOE_SAMPLE_DROPPED, replace=False)]))
+
+    xs = x.reshape(t, d)[torch.from_numpy(sample).to(x.device)].float()
+    oracle = torch.zeros((len(sample), d), dtype=torch.float32,
+                         device=x.device)
+    idx_s, kept_s, gate_s = gate_idx[sample], kept[sample], gates[sample]
+    for ex in np.unique(idx_s[kept_s]).tolist():
+        rows, slots = np.nonzero((idx_s == ex) & kept_s)
+        xe = xs[torch.from_numpy(rows).to(x.device)]
+        h = xe @ layer.wi[ex].float()
+        if layer.wg is not None:
+            h = F.silu(xe @ layer.wg[ex].float()) * h
+        else:
+            h = F.gelu(h, approximate="tanh")
+        y = (h @ layer.wo[ex].float()) * torch.from_numpy(
+            gate_s[rows, slots].astype(np.float32)).to(x.device)[:, None]
+        oracle.index_add_(0, torch.from_numpy(rows).to(x.device), y)
+    scale = float(oracle.abs().max())
+    sel = torch.from_numpy(sample).to(x.device)
+    err = max_abs(out[sel], oracle)
+    err32 = max_abs(out32[sel], oracle)
+    check(err <= MOE_BF16_TOL * scale, f"MoE bf16 vs oracle: max|d| {err} > "
+          f"{MOE_BF16_TOL} * {scale}")
+    check(err32 <= MOE_F32_TOL * scale, f"MoE float32 vs oracle: max|d| "
+          f"{err32} > {MOE_F32_TOL} * {scale}")
+    return {"tokens": t, "capacity": cap,
+            "assignments_dropped": int((~kept).sum()),
+            "tokens_with_a_dropped_slot": int((~kept.all(axis=1)).sum()),
+            "near_ties": int(near.sum()),
+            "near_ties_routed_otherwise": int((near & ~agree).sum()),
+            "sample": len(sample), "sample_with_a_dropped_slot": len(pick),
+            "max_abs_oracle": scale, "bf16_max_abs_diff": err,
+            "bf16_tolerance": MOE_BF16_TOL * scale,
+            "f32_max_abs_diff": err32, "f32_tolerance": MOE_F32_TOL * scale}
+
+
+@contextlib.contextmanager
+def k4_shapes(first):
+    """Record the (shape, dtype) of each call of the models' attention
+    through K4 (``models.attention.flash_attention``); the first call's
+    q, k, v (after RoPE and the GQA repeat) are cloned into ``first``."""
+    from repro_torch.models import attention as attn
+    real, seen = attn.flash_attention, []
+
+    def spy(q, k, v, *args, **kwargs):
+        if not seen:
+            first.extend(t.clone() for t in (q, k, v))
+        seen.append((tuple(q.shape), str(q.dtype)))
+        return real(q, k, v, *args, **kwargs)
+
+    attn.flash_attention = spy
+    try:
+        yield seen
+    finally:
+        attn.flash_attention = real
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Count the assignments the MoE layers drop (``models.moe.route``'s
+    ``keep``): one device scalar a routing, appended to the yielded list
+    (read it with :func:`n_dropped`)."""
+    from repro_torch.models import moe
+    real, seen = moe.route, []
+
+    def spy(*args, **kwargs):
+        r = real(*args, **kwargs)
+        seen.append((~r.keep).sum())
+        return r
+
+    moe.route = spy
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def n_dropped(drops) -> int:
+    return int(torch.stack(drops).sum()) if drops else 0
+
+
+def serve_moe(dev, arch, n_layers, profile):
+    """Phase 4c for one MoE config: serve it, check it, hold layer 0's MoE
+    to the oracle; returns its phase line."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    from repro_torch.models.layers import embed_apply, norm_apply
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine, ServeConfig
+    t0 = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers)   # depth is the cut
+    check(cfg.param_dtype == cfg.compute_dtype == "bfloat16",
+          f"{arch}: bf16 parameters and compute")
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, t_init = timed(lambda: Transformer.init_params(cfg, gen,
+                                                          device=dev))
+    check(len(model.layers) == n_layers and model.param_dtype ==
+          torch.bfloat16, f"{arch}: {n_layers} bf16 layers")
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = nbytes(*model.parameters())
+    max_seq = max(SERVE_PROMPTS) + SERVE_NEW
+    eng = Engine(cfg, model, ServeConfig(batch=4, max_seq=max_seq),
+                 device=dev)
+    check(eng.model is model, f"{arch}: the engine made a weight copy")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SERVE_PROMPTS]
+    plen = max(SERVE_PROMPTS)
+    want_shape = (4, plen, cfg.n_heads, cfg.resolved_head_dim)
+
+    k4_before = flash_attention_fwd.launches
+    by_variant = flash_attention_fwd.launches_by_variant
+    variants_before = dict(by_variant)
+    k4_inputs = []
+    with k4_shapes(k4_inputs) as shapes, moe_drops() as drops:
+        out, t_gen = timed(lambda: eng.generate(prompts, SERVE_NEW))
+    k4 = flash_attention_fwd.launches - k4_before
+    wgmma = by_variant["sm90_wgmma"] - variants_before["sm90_wgmma"]
+    drops_generate = n_dropped(drops)
+    stats = dict(eng.stats)
+    check(k4 == n_layers, f"{arch}: K4 launched {k4} times in one generate, "
+          f"not once per layer ({n_layers})")
+    check(wgmma == n_layers, f"{arch}: {wgmma} of {n_layers} K4 launches "
+          f"through sm90_wgmma")
+    check(shapes == [(want_shape, "torch.bfloat16")] * n_layers,
+          f"{arch}: K4 shapes {shapes}, want {want_shape} bf16")
+    check(all(len(o) == len(p) + SERVE_NEW and o[:len(p)] == p
+              for o, p in zip(out, prompts)),
+          f"{arch}: each output is its prompt plus {SERVE_NEW} tokens")
+    check(all(0 <= tok < cfg.vocab_size for o in out for tok in o),
+          f"{arch}: token ids in [0, vocab)")
+    check(bool(torch.isfinite(eng.last_logits).all()),
+          f"{arch}: finite logits")
+    again, t_again = timed(lambda: eng.generate(prompts, SERVE_NEW))
+    check(again == out, f"{arch}: a second generate gives the same tokens")
+    stats_again = dict(eng.stats)
+
+    # the prefill alone: its drops, and layer 0's normed MoE input
+    padded = np.zeros((4, plen), np.int32)
+    for i, p in enumerate(prompts):
+        padded[i, plen - len(p):] = p
+    batch = {"tokens": torch.from_numpy(padded).to(dev)}
+    with torch.no_grad(), moe_drops() as drops:
+        held = dict(zip(("logits", "cache"), model.prefill(batch, max_seq)))
+    drops_prefill = n_dropped(drops)
+    with torch.no_grad():
+        blk = model.layers[0]
+        x = embed_apply(model.embed["tok"], batch["tokens"], torch.bfloat16)
+        a, _ = attn.attention_prefill(
+            blk.attn, norm_apply(blk.ln1, x, cfg.norm), cfg,
+            model._layer_cache(model.init_cache(4, max_seq), 0))
+        h0 = norm_apply(blk.ln2, x + a, cfg.norm)
+        del x, a
+    oracle, t_oracle = timed(lambda: moe_oracle_check(blk.moe, h0, cfg))
+    check(oracle["assignments_dropped"] <= drops_prefill,
+          f"{arch}: layer 0 dropped more than the whole prefill")
+    del h0
+    peak = torch.cuda.max_memory_allocated()
+
+    # decode agrees with forward, with no drops at any T (capacity E/k)
+    no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts /
+                                  cfg.experts_per_token)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)
+                                         ).astype(np.int32)).to(dev)
+    model.cfg = no_drop
+    try:
+        with moe_drops() as drops:
+            full_logits, _ = model({"tokens": toks})
+            _, cache = model.prefill({"tokens": toks[:, :-1]}, 260)
+            dec, _ = model.decode_step(cache, toks[:, -1:], 255)
+        check(n_dropped(drops) == 0, f"{arch}: drops at capacity factor "
+              f"{no_drop.capacity_factor}")
+    finally:
+        model.cfg = cfg
+    want, got = full_logits[:, -1].float(), dec[:, 0].float()
+    check(bool(torch.isfinite(want).all() and torch.isfinite(got).all()),
+          f"{arch}: finite forward and decode logits")
+    err = max_abs(got, want)
+    scale = float(want.abs().max())
+    check(err <= DECODE_TOL * scale, f"{arch}: decode vs forward: max|d| "
+          f"{err} > {DECODE_TOL} * {scale}")
+    del full_logits, cache, dec
+
+    rec = {}
+    if profile:   # one MoE prefill of the batch, one decode step
+        top = {"k4": ("flash_fwd",)}
+        rec["profile_prefill"] = device_busy(
+            lambda: model.prefill(batch, max_seq), top, top=8)
+        cur = torch.argmax(held["logits"][:, -1], dim=-1)[:, None]
+        rec["profile_decode_step"] = device_busy(
+            lambda: model.decode_step(held["cache"], cur, plen), top, top=8)
+    new_tokens = len(prompts) * stats["decode_steps"]
+    line = {"arch": arch, "n_layers": n_layers,
+            "n_layers_published": full.n_layers, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "n_experts": cfg.n_experts,
+            "experts_per_token": cfg.experts_per_token, "d_ff": cfg.d_ff,
+            "vocab_size": cfg.vocab_size, "params": n_params,
+            "param_bytes": param_bytes, "param_dtype": cfg.param_dtype,
+            "memory_allocated_before": mem_before,
+            "max_memory_allocated": peak, "seconds_init": t_init,
+            "capacity_prefill": moe.capacity(4 * plen, cfg),
+            "capacity_decode": moe.capacity(4, cfg),
+            "assignments_dropped_prefill": drops_prefill,
+            "assignments_dropped_decode": drops_generate - drops_prefill,
+            "assignments_routed_prefill": n_layers * 4 * plen
+            * cfg.experts_per_token,
+            "assignments_routed_decode": n_layers * 4 * stats["decode_steps"]
+            * cfg.experts_per_token,
+            "k4_launches_generate": k4, "k4_shape": list(want_shape),
+            "seconds_generate": t_gen, "seconds_generate_again": t_again,
+            "prefill_seconds": stats["prefill_seconds"],
+            "decode_seconds_per_token": stats["decode_seconds"]
+            / stats["decode_steps"],
+            "decode_tokens_per_second": new_tokens / stats["decode_seconds"],
+            "tokens_per_second": new_tokens / t_gen,
+            "prefill_seconds_again": stats_again["prefill_seconds"],
+            "decode_seconds_per_token_again": stats_again["decode_seconds"]
+            / stats_again["decode_steps"],
+            "oracle": oracle, "seconds_oracle": t_oracle,
+            "decode_vs_forward": {"capacity_factor": no_drop.capacity_factor,
+                                  "max_abs_diff": err, "max_abs_logit": scale,
+                                  "tolerance": DECODE_TOL * scale},
+            **rec, "seconds": time.perf_counter() - t0}
+    return line, k4_inputs
+
+
+def phase_moe_serve(dev, kernels, profile):
+    """Phase 4c: serve each MoE config of ``MOE_MODELS`` in turn, in one
+    launch window; then, outside the window, hold K4 to its plain version
+    on the q, k, v that each model's layer 0 gave it in the first
+    ``generate``.  Returns the window's launches and K4's rows at those
+    shapes."""
+    t0 = time.perf_counter()
+    for k in kernels:
+        k.launches = 0
+    lines, k4_inputs = [], []
+    for arch, n_layers in MOE_MODELS:
+        line, qkv = serve_moe(dev, arch, n_layers, profile)
+        lines.append(line)
+        k4_inputs.append((arch, qkv))
+        del qkv
+        torch.cuda.empty_cache()
+    launches = {k.__name__: k.launches for k in kernels}
+    n = sum(n_layers for _, n_layers in MOE_MODELS)
+    # per model: two generates, the oracle's prefill and layer-0 attention,
+    # the forward and the prefill of the decode check (+ the profile's)
+    want = (5 + profile) * n + len(MOE_MODELS)
+    check(launches["flash_attention_fwd"] == want, f"phase 4c: K4 launched "
+          f"{launches['flash_attention_fwd']} times, not {want}")
+    check(not any(c for name, c in launches.items()
+                  if name != "flash_attention_fwd"),
+          f"phase 4c launched graph kernels: {launches}")
+    k4_rows = []
+    for arch, (q, k, v) in k4_inputs:
+        k4_rows.append({"arch": arch, **k4_on_path_inputs(q, k, v)})
+        del q, k, v
+    del k4_inputs
+    emit({"phase": "moe_serve", "models": lines, "launches": launches,
+          "k4_on_path_inputs": k4_rows, "seconds": time.perf_counter() - t0})
+    return launches, k4_rows
+
+
 TRAIN_BATCH, TRAIN_SEQ = 2, 1024   # phase 4b: sequences of the random-walk corpus
 TRAIN_STEPS = 5
 TRAIN_RMAT = (17, 16)   # phase 4b: R-MAT scale and edge factor of the corpus graph
@@ -2448,8 +2811,52 @@ def one_ulp_ratio(got, want) -> float:
     return float(((got.double() - want.double()).abs() / limit).max())
 
 
-def kernel_k4(launches, by_variant):
+def k4_times(q, k, v, out, want, reps):
+    """K4's, its plain version's and SDPA's CUDA-event times on q, k, v
+    (causal), and the bound for the work."""
     import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_plain)
+    b, s, h, d = q.shape
+    flops = 2 * d * s * (s + 1) * b * h   # causal q·kᵀ and p·v
+    bnd, by = bound_ms(nbytes(q, k, v, out), flops, q.dtype)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    return {"ms": cuda_ms(lambda: flash_attention_fwd(q, k, v), reps),
+            "plain_ms": cuda_ms(
+                lambda: flash_attention_fwd_plain(q, k, v), 3),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), reps),
+            "library_max_abs_diff": max_abs(lib.transpose(1, 2), want),
+            "gflop": flops / 1e9, "shape": list(q.shape),
+            "dtype": str(q.dtype)}
+
+
+def k4_on_path_inputs(q, k, v) -> dict:
+    """K4 on inputs the main path gave it (bf16, after RoPE and the GQA
+    repeat), held to its plain version by ``attention_error_ratios`` (ref:
+    the plain version in float32; base: the plain version with p rounded
+    to bf16, as ``kernel_k4``), then timed beside it and SDPA."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import (
+        attention_error_ratios, flash_attention_fwd, flash_attention_fwd_plain)
+    which = fa.variant(q.dtype, q.shape[3])
+    check(which == "sm90_wgmma", f"K4 at {tuple(q.shape)} takes {which}")
+    out = flash_attention_fwd(q, k, v, causal=True)
+    ref = flash_attention_fwd_plain(q.float(), k.float(), v.float())
+    base = flash_attention_fwd_plain(q, k, v, round_p=True)
+    rule = attention_error_ratios(out, ref, base)
+    check(rule["ok"], f"K4 wgmma {tuple(q.shape)} on the path's inputs: "
+          f"error ratios {rule}")
+    del base
+    row = k4_times(q, k, v, out, ref, 20)
+    row.update(variant=which, max_abs_err=rule["max_abs_err"],
+               error_ratios=rule)
+    return row
+
+
+def kernel_k4(launches, by_variant, moe_rows=()):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
         attention_error_ratios, flash_attention_fwd, flash_attention_fwd_plain)
@@ -2459,21 +2866,7 @@ def kernel_k4(launches, by_variant):
         return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
                 for _ in range(3)]
 
-    def common(q, k, v, out, want, reps):
-        b, s, h, d = q.shape
-        flops = 2 * d * s * (s + 1) * b * h   # causal q·kᵀ and p·v
-        bnd, by = bound_ms(nbytes(q, k, v, out), flops, q.dtype)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        return {"ms": cuda_ms(lambda: flash_attention_fwd(q, k, v), reps),
-                "plain_ms": cuda_ms(
-                    lambda: flash_attention_fwd_plain(q, k, v), 3),
-                "bound_ms": bnd, "bound_by": by,
-                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True), reps),
-                "library_max_abs_diff": max_abs(lib.transpose(1, 2), want),
-                "gflop": flops / 1e9, "shape": list(q.shape),
-                "dtype": str(q.dtype)}
+    common = k4_times
 
     # the prefill's shape (B=4, S=2048, 16 heads after the GQA repeat)
     shape = (4, 2048, 16, 128)
@@ -2522,6 +2915,7 @@ def kernel_k4(launches, by_variant):
                tolerance=2e-5)
     row["f32"] = f32
     row["backward"] = kernel_k4_backward(qkv)
+    row["moe_path_inputs"] = list(moe_rows)   # phase 4c's layer-0 inputs
     return row
 
 
@@ -2814,7 +3208,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile a 10-round \"bsr\" PageRank, one "
-                         "prefill and one decode step")
+                         "prefill and one decode step of each model")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2870,6 +3264,8 @@ def main() -> int:
     for name, n in path.items():
         check(n > 0, f"kernel {name} never launched on the main path")
     torch.cuda.empty_cache()
+    moe_serve, k4_moe = phase_moe_serve(dev, kernels, args.profile)
+    torch.cuda.empty_cache()
     train = phase_train(dev, kernels, args.profile)
     torch.cuda.empty_cache()
 
@@ -2878,7 +3274,7 @@ def main() -> int:
             kernel_k2(g22, path["segment_sum_chunked"]),
             kernel_k3(u14, path["bsr_tricount"], k3_variants,
                       ptxas_report("bsr_tricount.cu")),
-            kernel_k4(path["flash_attention_fwd"], k4_variants)]
+            kernel_k4(path["flash_attention_fwd"], k4_variants, k4_moe)]
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
@@ -2886,6 +3282,7 @@ def main() -> int:
                  launches_phase_3e=service.get(r["name"], 0),
                  launches_phase_3f=sharded.get(r["name"], 0),
                  launches_phase_3g=sharded_service.get(r["name"], 0),
+                 launches_phase_moe=moe_serve.get(r["name"], 0),
                  launches_phase_train=train.get(r["name"], 0))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

@@ -3,9 +3,10 @@
 A copy of ``repro/configs/base.py``: the same frozen :class:`ArchConfig`,
 ``SHAPES``, ``runnable_shapes`` and ``reduced``, so a config of the port
 equals its reference counterpart field by field.  The registry holds the
-configs ported so far, the four ``family="dense"`` ones; ``get_config`` of
-any other architecture of the reference raises ``KeyError`` naming the
-``ROADMAP.md`` item that ports its family.
+configs ported so far, the four ``family="dense"`` ones and the two
+``family="moe"`` ones; ``get_config`` of any other architecture of the
+reference raises ``KeyError`` naming the ``ROADMAP.md`` item that ports
+its family.
 """
 
 from __future__ import annotations
@@ -153,9 +154,10 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get_config(name: str) -> ArchConfig:
     _ensure_loaded()
     if name not in _REGISTRY:
-        raise KeyError(f"arch {name!r} is not in the port, which serves only "
-                       f"the dense configs {sorted(_REGISTRY)} so far: see "
-                       f"ROADMAP.md Queue 1 item 15")
+        raise KeyError(f"arch {name!r} is not in the port, which serves the "
+                       f"dense and MoE configs {sorted(_REGISTRY)}; the "
+                       f"hybrid, ssm, audio and vlm families are not ported "
+                       f"yet: see ROADMAP.md Queue 1 item 15")
     return _REGISTRY[name]
 
 
@@ -177,7 +179,7 @@ def runnable_shapes(cfg: ArchConfig) -> Dict[str, ShapeSpec]:
 def _ensure_loaded() -> None:
     """Import the ported config modules once so registration side-effects run."""
     from . import (qwen1_5_4b, qwen2_5_3b, starcoder2_15b,      # noqa: F401
-                   mistral_nemo_12b)
+                   mistral_nemo_12b, grok_1_314b, qwen3_moe_235b_a22b)
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:

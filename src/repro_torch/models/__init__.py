@@ -1,1 +1,1 @@
-"""The dense transformer: layers, attention and model (see ``repro.models``)."""
+"""The transformer: layers, attention, the MoE FFN and the model (see ``repro.models``)."""

@@ -1,12 +1,13 @@
-"""The dense transformer: init / forward / loss / prefill / decode (see
-``repro.models.transformer``).
+"""The dense and MoE transformer: init / forward / loss / prefill / decode
+(see ``repro.models.transformer``).
 
-``family == "dense"`` with ``n_experts == 0`` is ported: a pre-norm decoder
-(GQA + RoPE + [SwiGLU | GeLU], RMSNorm or LayerNorm).  The layers are a
+``family`` ``"dense"`` and ``"moe"`` are ported: a pre-norm decoder (GQA +
+RoPE + [SwiGLU | GeLU], RMSNorm or LayerNorm) whose FFN is an MLP, or with
+``n_experts > 0`` the sort-routed MoE of :mod:`.moe`.  The layers are a
 Python loop over an ``nn.ModuleList`` where the reference scans stacked
 parameters; ``from_arrays`` / ``to_arrays`` convert between the two, so the
-reference's ``init_params`` pytree loads bit for bit.  Other families and
-MoE raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+reference's ``init_params`` pytree loads bit for bit.  Other families
+raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 
 Training: :meth:`Transformer.forward_train` is the forward with autograd
 on, each block wrapped per ``cfg.remat`` (the reference's ``_maybe_ckpt``):
@@ -16,7 +17,9 @@ and recomputes the rest (selective checkpointing, the nearest policy to
 ``jax.checkpoint_policies.checkpoint_dots``), ``"none"`` keeps everything.
 :meth:`Transformer.loss_fn` is the reference's ``loss_fn``.  The serving
 entry points (``forward``, ``prefill``, ``decode_step``) run under
-``torch.no_grad`` and compute the same bits as before.
+``torch.no_grad`` and compute the same bits as before.  The MoE layers'
+load-balance losses sum into ``forward``'s aux, as in the reference;
+``prefill`` and ``decode_step`` drop them.
 
 The cache keeps the reference's layout, ``{"attn": {"k", "v"}}`` with
 shape (n_layers, B, max_seq, Hkv, D) in the compute dtype; prefill and
@@ -35,6 +38,7 @@ from torch.utils import checkpoint as ckpt
 
 from ..device import DeviceLike, resolve
 from . import attention as attn
+from . import moe as moe_mod
 from .layers import (MLP, Embed, Norm, dtype_of, embed_apply, mlp_apply,
                      norm_apply, unembed_apply)
 
@@ -57,13 +61,22 @@ _DOT_OPS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
             torch.ops.aten.addmm.default, torch.ops.aten.matmul.default}
 
 
+def _ffn(blk: "Block", h: torch.Tensor, cfg
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN on ``h`` -> (output, the MoE's aux loss or None)."""
+    if blk.moe is not None:
+        return moe_mod.moe_apply(blk.moe, h, cfg)
+    return mlp_apply(blk.mlp, h, cfg.act, h.dtype), None
+
+
 def _block_apply(blk: "Block", x: torch.Tensor, cfg, chunk: int,
-                 skip_upper_triangle: bool) -> torch.Tensor:
+                 skip_upper_triangle: bool
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     h = norm_apply(blk.ln1, x, cfg.norm)
     x = x + attn.attention_train(blk.attn, h, cfg, causal=True, chunk=chunk,
                                  skip_upper_triangle=skip_upper_triangle)
-    h = norm_apply(blk.ln2, x, cfg.norm)
-    return x + mlp_apply(blk.mlp, h, cfg.act, h.dtype)
+    f, aux = _ffn(blk, norm_apply(blk.ln2, x, cfg.norm), cfg)
+    return x + f, aux
 
 
 def n_scan_steps(cfg) -> int:
@@ -77,15 +90,14 @@ def n_scan_steps(cfg) -> int:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
                                   f"{_ITEM}")
-    if cfg.n_experts > 0:
-        raise NotImplementedError(f"MoE layers are not ported yet: {_ITEM}")
 
 
 class Block(nn.Module):
-    """One pre-norm decoder layer: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One pre-norm decoder layer: ``ln1``, ``attn``, ``ln2``, and ``mlp``
+    or, with ``cfg.n_experts > 0``, ``moe``."""
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
@@ -95,14 +107,21 @@ class Block(nn.Module):
                                    cfg.resolved_head_dim,
                                    qkv_bias=cfg.qkv_bias, **kw)
         self.ln2 = Norm(cfg.d_model, cfg.norm, **kw)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
+        if cfg.n_experts > 0:
+            self.mlp = None
+            self.moe = moe_mod.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                   cfg.act, **kw)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
+            self.moe = None
 
 
 class Transformer(nn.Module):
-    """A dense decoder whose tensors sit under the reference's pytree keys
+    """A decoder whose tensors sit under the reference's pytree keys
     (``embed.tok.table``, ``norm_f.scale``, ``lm_head.table``,
-    ``layers.<i>.attn.wq.w``, ...), in ``dtype`` (default
-    ``cfg.param_dtype``).  The constructor leaves them uninitialised: use
+    ``layers.<i>.attn.wq.w``, ``layers.<i>.moe.wi``, ...), in ``dtype``
+    (default ``cfg.param_dtype``; an MoE router stays float32, as the
+    reference's).  The constructor leaves them uninitialised: use
     :meth:`init_params` or :meth:`from_arrays`."""
 
     def __init__(self, cfg, *, device: DeviceLike = None, dtype=None):
@@ -134,9 +153,10 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def init_params(cls, cfg, generator: Optional[torch.Generator] = None,
                     device: DeviceLike = None) -> "Transformer":
-        """Random weights with the reference's distributions (dense: normal
-        scaled by 1/√d_in; embeddings: normal·0.02; biases 0; norm scales 1)
-        drawn from ``generator`` (default: seed 0 on the model's device).
+        """Random weights with the reference's distributions (dense and
+        experts: normal scaled by 1/√d_in; embeddings: normal·0.02; biases
+        0; norm scales 1) drawn from ``generator`` (default: seed 0 on the
+        model's device).
         The same seed gives other numbers than the reference's ``PRNGKey``."""
         model = cls(cfg, device=device)
         gen = generator if generator is not None else \
@@ -149,7 +169,7 @@ class Transformer(nn.Module):
             blk.ln1.reset()
             blk.attn.reset(gen)
             blk.ln2.reset()
-            blk.mlp.reset(gen)
+            (blk.mlp if blk.moe is None else blk.moe).reset(gen)
         return model
 
     @classmethod
@@ -200,7 +220,8 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def astype(self, dtype: torch.dtype) -> "Transformer":
         """A copy with every tensor cast to ``dtype`` (round to nearest
-        even): the numbers each apply's own cast would give."""
+        even): the numbers each apply's own cast would give.  An MoE
+        router stays float32, as its apply reads it."""
         new = Transformer(self.cfg, device=self.device, dtype=dtype)
         new.load_state_dict(self.state_dict())
         return new
@@ -218,27 +239,30 @@ class Transformer(nn.Module):
         x = embed_apply(self.embed["tok"], batch["tokens"], compute)
         body = functools.partial(_block_apply, cfg=cfg, chunk=chunk,
                                  skip_upper_triangle=skip_upper_triangle)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.layers:
             if remat == "full":
-                x = ckpt.checkpoint(body, blk, x, use_reentrant=False)
+                x, aux_l = ckpt.checkpoint(body, blk, x, use_reentrant=False)
             elif remat == "dots":
-                x = ckpt.checkpoint(
+                x, aux_l = ckpt.checkpoint(
                     body, blk, x, use_reentrant=False,
                     context_fn=functools.partial(
                         ckpt.create_selective_checkpoint_contexts,
                         _dots_policy))
             else:
-                x = body(blk, x)
+                x, aux_l = body(blk, x)
+            if aux_l is not None:
+                aux = aux + aux_l
         x = norm_apply(self.norm_f, x, cfg.norm)
         logits = unembed_apply(self._head(), x, compute)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, aux
 
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor], chunk: int = 1024,
                 skip_upper_triangle: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward of ``batch["tokens"]`` (B, S) -> (logits
-        (B, S, V), aux loss 0)."""
+        (B, S, V), the MoE layers' summed aux loss; 0 for a dense model)."""
         return self._forward(batch, chunk, skip_upper_triangle, "none")
 
     def forward_train(self, batch: Dict[str, torch.Tensor], chunk: int = 1024,
@@ -304,8 +328,7 @@ class Transformer(nn.Module):
                                           self._layer_cache(cache, i),
                                           chunk=chunk)
             x = x + a
-            h = norm_apply(blk.ln2, x, cfg.norm)
-            x = x + mlp_apply(blk.mlp, h, cfg.act, h.dtype)
+            x = x + _ffn(blk, norm_apply(blk.ln2, x, cfg.norm), cfg)[0]
         x = norm_apply(self.norm_f, x, cfg.norm)
         return unembed_apply(self._head(), x[:, -1:], compute), cache
 
@@ -329,8 +352,7 @@ class Transformer(nn.Module):
             a, _ = attn.attention_decode(blk.attn, h, cfg,
                                          self._layer_cache(cache, i), pos)
             x = x + a
-            h = norm_apply(blk.ln2, x, cfg.norm)
-            x = x + mlp_apply(blk.mlp, h, cfg.act, h.dtype)
+            x = x + _ffn(blk, norm_apply(blk.ln2, x, cfg.norm), cfg)[0]
         x = norm_apply(self.norm_f, x, cfg.norm)
         return unembed_apply(self._head(), x, compute), cache
 

@@ -423,35 +423,35 @@ def spawn_server(extra_args: Tuple[str, ...] = (), *,
         [sys.executable, "-m", "repro_torch.serve.server", "--port", "0",
          *extra_args],
         stdout=subprocess.PIPE, text=True, env=env)
-    import select
+    assert proc.stdout is not None
+    # One thread reads the child's stdout for its whole life, so its prints
+    # never block it.  Waiting on the pipe with select() instead misses a
+    # READY line that arrived in the same read as the line before it: that
+    # line sits in the text buffer, and the pipe stays empty.
+    lines: "queue.Queue[Optional[str]]" = queue.Queue()
+    ready = threading.Event()
+
+    def _read(out):
+        for text in out:
+            if not ready.is_set():
+                lines.put(text)
+        lines.put(None)
+
+    threading.Thread(target=_read, args=(proc.stdout,), daemon=True).start()
     import time as _time
     deadline = _time.monotonic() + timeout
-    assert proc.stdout is not None
     while True:
-        if _time.monotonic() > deadline:
+        try:
+            line = lines.get(timeout=max(deadline - _time.monotonic(), 0.0))
+        except queue.Empty:
             proc.kill()
             raise TimeoutError("server subprocess never reported its port")
-        # poll the pipe so a child hanging *without printing* still fails
-        # at the deadline instead of blocking readline() forever
-        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
-        if not ready:
-            if proc.poll() is not None:
-                raise RuntimeError(
-                    f"server subprocess exited early (rc={proc.poll()})")
-            continue
-        line = proc.stdout.readline()
-        if not line:
+        if line is None:
             raise RuntimeError(
-                f"server subprocess exited early (rc={proc.poll()})")
+                f"server subprocess exited early (rc={proc.wait()})")
         if line.startswith(_READY):
-            port = int(line.split()[-1])
-            break
-    # keep draining the child's stdout so its prints never block it
-    def _drain(out):
-        for _ in out:
-            pass
-    threading.Thread(target=_drain, args=(proc.stdout,), daemon=True).start()
-    return proc, port
+            ready.set()
+            return proc, int(line.split()[-1])
 
 
 def main(argv: Optional[list] = None) -> int:

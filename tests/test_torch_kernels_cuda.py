@@ -17,8 +17,14 @@ K3 from fused and single requests and answers as direct calls do.  The
 "sharded" backend's shard-local sums on the card equal "xla"'s bit for bit
 at every shard (each shard buffer keeps its segments' alignment).  K4 under
 autograd (its forward, the PyTorch backward) gives gradients within
-``attention_error_ratios``' rule of the float32 plain version's.
+``attention_error_ratios``' rule of the float32 plain version's.  The
+qwen3-moe MoE layer at full width holds to ``chip_smoke.py``'s per-token
+oracle (phase 4c), its routing to a float64 recomputation.
 """
+
+import importlib.util
+from pathlib import Path
+
 
 import numpy as np
 import pytest
@@ -26,6 +32,7 @@ import torch
 
 from _torch_oracles import build, corpus
 from _torch_worlds import shard_local_pulls
+from repro_torch.configs.base import get_config
 from repro_torch.core import algorithms as A
 from repro_torch.core import convert as C
 from repro_torch.core import provenance as P
@@ -46,8 +53,11 @@ from repro_torch.kernels.pieces import piece_table
 from repro_torch.kernels.segment_sum import (chunk_layout,
                                              segment_sum_chunked,
                                              segment_sum_chunked_plain)
+from repro_torch.models import moe
 
 pytestmark = pytest.mark.cuda
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -692,3 +702,28 @@ def test_sharded_local_sums_keep_xla_bits_on_the_card(dev, d):
     for k, (got, want) in enumerate(shard_local_pulls(g, d)):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
             f"shard {k} of {d}"
+
+
+def test_moe_layer_at_full_width_matches_the_per_token_oracle(dev):
+    """qwen3-moe's MoE layer at full width (128 experts, top 8, d 4096, f
+    1536, bf16 weights from a seeded generator) on 4 x 2048 tokens, the
+    first 1,024 equal as left padding makes them, so that their experts
+    overflow: ``chip_smoke.moe_oracle_check`` holds the routing to float64,
+    the kept slots to a count in flat order, and the output to the
+    per-token oracle (bf16 within 2e-2, float32 within 1e-4 of its
+    largest value)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = get_config("qwen3-moe-235b-a22b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    layer = moe.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.act,
+                    device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        layer.reset(gen)
+    x = torch.randn((4, 2048, cfg.d_model), generator=gen, device=dev)
+    x.view(-1, cfg.d_model)[:1024] = x[0, 0]
+    got = smoke.moe_oracle_check(layer, x.to(torch.bfloat16), cfg)
+    assert got["capacity"] == 640
+    assert got["assignments_dropped"] >= 8 * (1024 - 640)

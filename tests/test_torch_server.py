@@ -8,7 +8,9 @@ provenance), admission control crosses the wire typed, results stream back
 out of order, shutdown drains, concurrent clients share one workspace.
 Then the port's own cases: the §4.1 workload through the port's remote
 service gives the reference's scores, and one ``spawn_server`` subprocess
-on the CPU prints its ready line, answers, drains and exits with rc 0.
+on the CPU prints its ready line, answers, drains and exits with rc 0,
+also when its ready line reaches the parent in one read with the line
+before it.
 """
 
 import threading
@@ -674,6 +676,51 @@ def test_spawned_server_on_the_cpu_answers_drains_and_exits():
         g = client.workspace.get("g")
         assert g.device.type == "cpu"
         np.testing.assert_array_equal(levels, A.bfs(g, 0).numpy())
+        client.shutdown_server()
+        client.close()
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+
+
+def test_spawn_server_finds_a_ready_line_read_with_the_line_before(
+        monkeypatch):
+    """A parent slow to read (a loaded machine) finds the child's
+    "published" line and its ready line in the pipe together, and one read
+    takes both into the text buffer.  ``spawn_server`` must still return
+    the port: waiting on the pipe with ``select`` saw no more data and
+    timed out."""
+    import fcntl
+    import struct
+    import subprocess
+    import termios
+
+    from repro_torch.serve import server as server_mod
+
+    g = rmat_graph(scale=8, edge_factor=8)
+    both = (len(f"published 'g': {g.n_nodes} nodes {g.n_edges} edges\n")
+            + len(server_mod._READY) + len(" 1024\n"))
+    real_popen = subprocess.Popen
+
+    def popen_then_wait_for_both_lines(*args, **kwargs):
+        proc = real_popen(*args, **kwargs)
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline and proc.poll() is None:
+            queued = struct.unpack("i", fcntl.ioctl(
+                proc.stdout.fileno(), termios.FIONREAD, b"\0" * 4))[0]
+            if queued >= both:
+                break
+            time.sleep(0.05)
+        return proc
+
+    monkeypatch.setattr(server_mod.subprocess, "Popen",
+                        popen_then_wait_for_both_lines)
+    proc, port = server_mod.spawn_server(
+        ("--device", "cpu", "--rmat-scale", "8"), timeout=30.0)
+    try:
+        client = RemoteService(port=port, device="cpu")
+        assert client.server_pid == proc.pid
         client.shutdown_server()
         client.close()
         assert proc.wait(timeout=60) == 0

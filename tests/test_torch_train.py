@@ -1,7 +1,9 @@
 """The port's training slice against the reference, on the CPU.
 
 Reduced configs (``reduced``: 2 layers, d_model 64, vocab 256, float32,
-``remat="none"``) of qwen2.5-3b and starcoder2-15b, with the reference's
+``remat="none"``) of qwen2.5-3b and starcoder2-15b, and of the MoE models
+qwen3-moe and grok-1 (4 experts, top 2; their loss adds 0.01 x the
+routers' aux loss, and they train with Adafactor), with the reference's
 ``init_params`` weights (biases and norms perturbed,
 ``_torch_oracles.lm_arrays``) carried across by ``Transformer.from_arrays``
 and the same numpy tokens through both packages.  Tolerances: the loss to
@@ -55,7 +57,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
-ARCHS = ["qwen2.5-3b", "starcoder2-15b"]
+ARCHS = ["qwen2.5-3b", "starcoder2-15b", "qwen3-moe-235b-a22b", "grok-1-314b"]
 B, S = 2, 16
 GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
 
@@ -88,6 +90,7 @@ class Case:
                 self.r_params)
         self.r_loss = float(loss)
         self.r_ce = float(aux["ce"])
+        self.r_aux = float(aux["aux"])
         # the reference's gradient pytree under the port's parameter names
         self.r_grads = dict(Transformer.from_arrays(
             self.cfg, jax.tree.map(np.asarray, grads),
@@ -114,7 +117,8 @@ def test_loss_matches_reference(case):
     assert loss.dtype == torch.float32 and loss.requires_grad
     np.testing.assert_allclose(float(loss), case.r_loss, rtol=1e-5)
     np.testing.assert_allclose(float(aux["ce"]), case.r_ce, rtol=1e-5)
-    assert float(aux["aux"]) == 0.0
+    np.testing.assert_allclose(float(aux["aux"]), case.r_aux, rtol=1e-5)
+    assert (float(aux["aux"]) > 0.0) == (case.cfg.n_experts > 0)
 
 
 def test_loss_mask_weights_the_mean(case):
@@ -550,6 +554,33 @@ def test_load_train_state_restores_in_place_and_checks_config(tmp_path):
     with pytest.raises(ValueError, match="config mismatch"):
         launch_train.load_train_state(str(tmp_path), other, other_state,
                                       wider)
+
+
+def test_moe_train_state_round_trips_through_a_checkpoint(tmp_path):
+    """An MoE model's parameters (float32 routers, (E, d, f) experts) and
+    its Adafactor state after one step save and load back in place."""
+    cfg = reduced(get_config("qwen3-moe-235b-a22b"))
+    assert cfg.optimizer == "adafactor"
+    model, state = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+    step = make_train_step(cfg, opt.OptHyper(), attn_chunk=S)
+    model, state, _ = step(model, state, _torch_batch(_batch(cfg)), 0)
+    store.save_checkpoint(str(tmp_path), 1,
+                          launch_train.train_state_tree(model, state),
+                          meta={"config": store.config_hash(cfg)})
+    other, other_state = init_train_state(
+        cfg, torch.Generator().manual_seed(1), "cpu")
+    assert launch_train.load_train_state(str(tmp_path), other, other_state,
+                                         cfg) == 1
+    for (k, p), (_, q) in zip(model.named_parameters(),
+                              other.named_parameters()):
+        assert torch.equal(p, q), k
+    want = jax.tree_util.tree_leaves_with_path(state)
+    got = dict(jax.tree_util.tree_leaves_with_path(other_state))
+    assert len(want) == len(got)
+    for path, leaf in want:
+        assert torch.equal(torch.as_tensor(got[path]),
+                           torch.as_tensor(leaf)), path
 
 
 # ---------------------------------------------------------------------------
