@@ -164,6 +164,38 @@ Phases (each prints one JSON line with its seconds):
    the first ``generate`` (after RoPE and the GQA repeat) and must pass
    ``attention_error_ratios`` there, as in phase 5; its times there
    print in the phase line and in K4's row (``moe_path_inputs``).
+4d. the xLSTM, whisper and VLM families, in a launch window of its own
+   (after 4c, before 4b), each model freed before the next, weights from
+   a seeded generator, f32 parameters and bf16 compute.  (a)
+   ``xlstm-350m`` at full width and depth (24 mLSTM/sLSTM blocks) behind
+   ``Engine`` with phase 4's ``ServeConfig`` and prompts, 32 new tokens,
+   twice (the same tokens); layer 0's chunked ``mlstm_train`` and
+   ``slstm_train`` against a token-by-token replay of ``*_decode`` over
+   256 tokens, outputs and terminal states, in bf16 (2e-2 of the largest
+   value) and float32 (1e-4); decode against ``forward``: one step after
+   127 tokens in bf16 (phase 4's tolerance), 128 teacher-forced steps
+   after 128 in float32 (2e-3 of the largest logit), the same 128 steps in
+   bf16 measured only.  (b) ``whisper-small`` at full width and
+   depth (12 + 12 layers, D = 64): stub frames (4, 1536, 768), decoder
+   prompts of 416/320/224/128 ids, ``encode`` and 32 greedy tokens
+   through ``prefill`` / ``decode_step``, twice.  (c) ``internvl2-26b`` at
+   full width, 24 of its 48 layers (f32: its parameters and bytes print):
+   patches (4, 256, 6144) before phase 4's prompts (2304 positions), 32
+   greedy tokens from ``pos = P + S``, twice.  For (b) and (c) decode
+   against ``forward`` (batch 2, 256 tokens); every check within phase
+   4's tolerance.  K4 must launch 0 times for xLSTM, 12 per ``encode`` and
+   36 per whisper prefill or forward, once a layer per internvl2 prefill
+   or forward (276 in the phase, 348 with ``--profile``), all through
+   ``"sm90_wgmma"``, and K1-K3 never.  After the window, K4 runs on the
+   q, k, v of whisper's encoder (non-causal, (4, 1536, 12, 64)), decoder
+   self-attention (causal, (4, 416, 12, 64)) and cross-attention
+   (non-causal, Sq = 416, Sk = 1536) and internvl2's decoder ((4, 2304,
+   48, 128)) at layer 0, each held by ``attention_error_ratios`` and timed
+   beside its plain version, SDPA (``is_causal`` as the call) and its
+   bound (4·D flops a scored pair), in the phase line and in K4's row
+   (``families_path_inputs``).  The line prints prefill seconds and
+   decode seconds per token; with ``--profile``, the busy share of one
+   prefill and one decode step of each model.
 4b. training, kernel K4 under autograd: ``qwen2.5-3b`` at full width and
    depth (f32 parameters, bf16 compute, ``remat="full"``, AdamW), seeded
    random weights, on batches of 2 x 1024 random walks
@@ -205,12 +237,13 @@ Phases (each prints one JSON line with its seconds):
    ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
-path's, and phases 3b's to 3g's, 4c's and 4b's are their own (3d's to 3g's,
-4c's and 4b's print in each kernel row as ``launches_phase_3d`` ... ``_3g``,
-``launches_phase_moe`` and ``launches_phase_train``): each window's counts are zeroed just before it
-and read just after it.  Any failed check raises, and
-the script exits non-zero without its last line, which on success is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+path's, and phases 3b's to 3g's, 4c's, 4d's and 4b's are their own (3d's
+to 3g's, 4c's, 4d's and 4b's print in each kernel row as
+``launches_phase_3d`` ... ``_3g``, ``launches_phase_moe``,
+``launches_phase_families`` and ``launches_phase_train``): each window's
+counts are zeroed just before it and read just after it.  Any failed
+check raises, and the script exits non-zero without its last line, which
+on success is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it fails before any phase.
 """
 
@@ -262,6 +295,7 @@ WARM_REPS = 3   # phase 3b: timed calls of each backend after the checked one
 SERVE_PROMPTS = (2048, 1536, 1024, 512)   # prompt lengths of phase 4
 SERVE_NEW = 32
 DECODE_TOL = 5e-2   # decode vs forward, relative to the largest logit
+DECODE_CHECK = (2, 256)   # decode vs forward: batch and tokens
 BF16_ULP = 2.0 ** -7   # one bf16 ulp relative to the value (8 significant bits)
 
 
@@ -2232,6 +2266,42 @@ def phase_sharded_service(dev, g22, ref):
     return launches
 
 
+def left_padded(prompts) -> np.ndarray:
+    plen = max(len(p) for p in prompts)
+    out = np.zeros((len(prompts), plen), np.int32)
+    for i, p in enumerate(prompts):
+        out[i, plen - len(p):] = p
+    return out
+
+
+def decode_vs_forward(model, batch, n_prompt, enc_out=None,
+                      tol=DECODE_TOL) -> dict:
+    """``decode_step`` after ``prefill`` of the first ``n_prompt`` tokens,
+    fed the batch's own tokens, against ``forward``'s logits at every
+    decoded position: the largest |difference| within ``tol`` of the
+    largest |logit|."""
+    with torch.no_grad():
+        full, _ = model(batch)
+        s = batch["tokens"].shape[1]
+        pre = dict(batch, tokens=batch["tokens"][:, :n_prompt])
+        _, cache = model.prefill(pre, s + model.cfg.n_patches)
+        err, scale = 0.0, 0.0
+        for t in range(n_prompt, s):
+            dec, cache = model.decode_step(
+                cache, batch["tokens"][:, t:t + 1],
+                t + model.cfg.n_patches, enc_out=enc_out)
+            want, got = full[:, t].float(), dec[:, 0].float()
+            check(bool(torch.isfinite(want).all() and
+                       torch.isfinite(got).all()),
+                  f"{model.cfg.name}: finite forward and decode logits")
+            err = max(err, max_abs(got, want))
+            scale = max(scale, float(want.abs().max()))
+    check(err <= tol * scale, f"{model.cfg.name}: decode vs forward: "
+          f"max|d| {err} > {tol} * {scale}")
+    return {"decoded_positions": s - n_prompt, "max_abs_diff": err,
+            "max_abs_logit": scale, "tolerance": tol * scale}
+
+
 def phase_serve(dev, kernels, profile):
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -2281,26 +2351,15 @@ def phase_serve(dev, kernels, profile):
     peak = torch.cuda.max_memory_allocated()
 
     # decode agrees with forward (tests/test_models.py's check, on the card)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)
+    b, s = DECODE_CHECK
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)
                                          ).astype(np.int32)).to(dev)
-    full, _ = model({"tokens": toks})
-    _, cache = model.prefill({"tokens": toks[:, :-1]}, 260)
-    dec, _ = model.decode_step(cache, toks[:, -1:], 255)
-    want, got = full[:, -1].float(), dec[:, 0].float()
-    check(bool(torch.isfinite(want).all() and torch.isfinite(got).all()),
-          "finite forward and decode logits")
-    err = max_abs(got, want)
-    scale = float(want.abs().max())
-    check(err <= DECODE_TOL * scale, f"decode vs forward: max|d| {err} > "
-          f"{DECODE_TOL} * {scale}")
+    dvf = decode_vs_forward(model, {"tokens": toks}, s - 1)
 
     rec = {}
     if profile:   # where the time goes: one prefill of the batch, one decode
         plen = max(SERVE_PROMPTS)
-        padded = np.zeros((4, plen), np.int32)
-        for i, p in enumerate(prompts):
-            padded[i, plen - len(p):] = p
-        batch = {"tokens": torch.from_numpy(padded).to(dev)}
+        batch = {"tokens": torch.from_numpy(left_padded(prompts)).to(dev)}
         held = {}
         k4 = {"k4": ("flash_fwd",)}
         rec["profile_prefill"] = device_busy(lambda: held.update(zip(
@@ -2325,9 +2384,8 @@ def phase_serve(dev, kernels, profile):
           "decode_tokens_per_second": new_tokens / stats["decode_seconds"],
           "tokens_per_second": new_tokens / t_gen,
           "launches": launches, "k4_launches_by_variant": k4_variants,
-          "decode_vs_forward": {"max_abs_diff": err, "max_abs_logit": scale,
-                                "tolerance": DECODE_TOL * scale},
-          **rec, "seconds": time.perf_counter() - t0})
+          "decode_vs_forward": dvf, **rec,
+          "seconds": time.perf_counter() - t0})
     return launches["flash_attention_fwd"], k4_variants
 
 
@@ -2436,22 +2494,25 @@ def moe_oracle_check(layer, x, cfg, seed: int = 0) -> dict:
 
 
 @contextlib.contextmanager
-def k4_shapes(first):
-    """Record the (shape, dtype) of each call of the models' attention
-    through K4 (``models.attention.flash_attention``); the first call's
-    q, k, v (after RoPE and the GQA repeat) are cloned into ``first``."""
+def k4_calls():
+    """Record each call of the models' attention through K4
+    (``models.attention.flash_attention``) as (q shape, k shape, dtype,
+    causal), and clone the q, k, v of the first call of each such key
+    into the yielded dict (layer 0's, after RoPE and the GQA repeat)."""
     from repro_torch.models import attention as attn
-    real, seen = attn.flash_attention, []
+    real, seen, first = attn.flash_attention, [], {}
 
     def spy(q, k, v, *args, **kwargs):
-        if not seen:
-            first.extend(t.clone() for t in (q, k, v))
-        seen.append((tuple(q.shape), str(q.dtype)))
+        causal = kwargs.get("causal", args[0] if args else True)
+        key = (tuple(q.shape), tuple(k.shape), str(q.dtype), bool(causal))
+        seen.append(key)
+        if key not in first:
+            first[key] = tuple(t.clone() for t in (q, k, v))
         return real(q, k, v, *args, **kwargs)
 
     attn.flash_attention = spy
     try:
-        yield seen
+        yield seen, first
     finally:
         attn.flash_attention = real
 
@@ -2518,8 +2579,8 @@ def serve_moe(dev, arch, n_layers, profile):
     k4_before = flash_attention_fwd.launches
     by_variant = flash_attention_fwd.launches_by_variant
     variants_before = dict(by_variant)
-    k4_inputs = []
-    with k4_shapes(k4_inputs) as shapes, moe_drops() as drops:
+    key = (want_shape, want_shape, "torch.bfloat16", True)
+    with k4_calls() as (seen, first), moe_drops() as drops:
         out, t_gen = timed(lambda: eng.generate(prompts, SERVE_NEW))
     k4 = flash_attention_fwd.launches - k4_before
     wgmma = by_variant["sm90_wgmma"] - variants_before["sm90_wgmma"]
@@ -2529,8 +2590,9 @@ def serve_moe(dev, arch, n_layers, profile):
           f"not once per layer ({n_layers})")
     check(wgmma == n_layers, f"{arch}: {wgmma} of {n_layers} K4 launches "
           f"through sm90_wgmma")
-    check(shapes == [(want_shape, "torch.bfloat16")] * n_layers,
-          f"{arch}: K4 shapes {shapes}, want {want_shape} bf16")
+    check(seen == [key] * n_layers,
+          f"{arch}: K4 calls {seen}, want {key} {n_layers} times")
+    k4_inputs = first.pop(key)
     check(all(len(o) == len(p) + SERVE_NEW and o[:len(p)] == p
               for o, p in zip(out, prompts)),
           f"{arch}: each output is its prompt plus {SERVE_NEW} tokens")
@@ -2543,10 +2605,7 @@ def serve_moe(dev, arch, n_layers, profile):
     stats_again = dict(eng.stats)
 
     # the prefill alone: its drops, and layer 0's normed MoE input
-    padded = np.zeros((4, plen), np.int32)
-    for i, p in enumerate(prompts):
-        padded[i, plen - len(p):] = p
-    batch = {"tokens": torch.from_numpy(padded).to(dev)}
+    batch = {"tokens": torch.from_numpy(left_padded(prompts)).to(dev)}
     with torch.no_grad(), moe_drops() as drops:
         held = dict(zip(("logits", "cache"), model.prefill(batch, max_seq)))
     drops_prefill = n_dropped(drops)
@@ -2567,26 +2626,17 @@ def serve_moe(dev, arch, n_layers, profile):
     # decode agrees with forward, with no drops at any T (capacity E/k)
     no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts /
                                   cfg.experts_per_token)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)
+    b, s = DECODE_CHECK
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)
                                          ).astype(np.int32)).to(dev)
     model.cfg = no_drop
     try:
         with moe_drops() as drops:
-            full_logits, _ = model({"tokens": toks})
-            _, cache = model.prefill({"tokens": toks[:, :-1]}, 260)
-            dec, _ = model.decode_step(cache, toks[:, -1:], 255)
+            dvf = decode_vs_forward(model, {"tokens": toks}, s - 1)
         check(n_dropped(drops) == 0, f"{arch}: drops at capacity factor "
               f"{no_drop.capacity_factor}")
     finally:
         model.cfg = cfg
-    want, got = full_logits[:, -1].float(), dec[:, 0].float()
-    check(bool(torch.isfinite(want).all() and torch.isfinite(got).all()),
-          f"{arch}: finite forward and decode logits")
-    err = max_abs(got, want)
-    scale = float(want.abs().max())
-    check(err <= DECODE_TOL * scale, f"{arch}: decode vs forward: max|d| "
-          f"{err} > {DECODE_TOL} * {scale}")
-    del full_logits, cache, dec
 
     rec = {}
     if profile:   # one MoE prefill of the batch, one decode step
@@ -2626,8 +2676,7 @@ def serve_moe(dev, arch, n_layers, profile):
             / stats_again["decode_steps"],
             "oracle": oracle, "seconds_oracle": t_oracle,
             "decode_vs_forward": {"capacity_factor": no_drop.capacity_factor,
-                                  "max_abs_diff": err, "max_abs_logit": scale,
-                                  "tolerance": DECODE_TOL * scale},
+                                  **dvf},
             **rec, "seconds": time.perf_counter() - t0}
     return line, k4_inputs
 
@@ -2665,6 +2714,406 @@ def phase_moe_serve(dev, kernels, profile):
     del k4_inputs
     emit({"phase": "moe_serve", "models": lines, "launches": launches,
           "k4_on_path_inputs": k4_rows, "seconds": time.perf_counter() - t0})
+    return launches, k4_rows
+
+
+# phase 4d: the xLSTM, whisper and VLM families
+WHISPER_PROMPTS = (416, 320, 224, 128)   # + SERVE_NEW within 448 positions
+WHISPER_CONTEXT = 448     # whisper's decoder positions
+VLM_LAYERS = 24           # internvl2-26b's depth on one card (of 48)
+XLSTM_STEP_TOKENS = 256   # layer 0's chunk-against-step check
+XLSTM_BF16_TOL = 2e-2     # chunk vs step in bf16, relative to max|value|
+XLSTM_F32_TOL = 1e-4      # the same in float32
+XLSTM_F32_DECODE_TOL = 2e-3   # 128 decode steps vs forward in float32
+                              # (tests/test_models.py's rtol)
+XLSTM_BF16_DECODE_TOL = 8e-2  # the same steps in bf16: the reference's own
+                              # drift at full width, 7.64% of the largest
+                              # logit (probes/xlstm_bf16_drift.py --full)
+
+
+@torch.no_grad()
+def greedy(model, batch, max_seq, n_new, enc_out=None):
+    """``Engine.generate``'s loop for a batch it does not take (frames,
+    patches): ``prefill``, then ``n_new`` greedy ``decode_step``s at
+    positions from P + S, one host read a token.  Returns (the new ids, a
+    list per row; prefill seconds to the first read; decode seconds; the
+    last logits)."""
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(batch, max_seq)
+    cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    pos = batch["tokens"].shape[1] + model.cfg.n_patches
+    out, t_first = [], None
+    for _ in range(n_new):
+        out.append(cur[:, 0].tolist())
+        if t_first is None:
+            t_first = time.perf_counter()
+        logits, cache = model.decode_step(cache, cur, pos, enc_out=enc_out)
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        pos += 1
+    sync()
+    return [list(r) for r in zip(*out)], t_first - t0, \
+        time.perf_counter() - t_first, logits
+
+
+def rel_err(got, want) -> float:
+    scale = float(want.double().abs().max())
+    return max_abs(got, want) / scale if scale else max_abs(got, want)
+
+
+@torch.no_grad()
+def xlstm_chunk_vs_step(model, tokens, compute) -> dict:
+    """Layer 0's chunked ``mlstm_train`` (block 0) and ``slstm_train``
+    (block 1) in ``compute`` against a token-by-token replay of
+    ``*_decode`` from the zero cache: outputs and terminal states, each
+    within its tolerance of the largest value."""
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.layers import embed_apply, norm_apply
+    cfg = model.cfg
+    tol = XLSTM_F32_TOL if compute == torch.float32 else XLSTM_BF16_TOL
+    blk = model.layers[0]
+    x = embed_apply(model.embed["tok"], tokens, compute)
+    out = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        h = norm_apply(blk.ln.row(i), x, cfg.norm)
+        mix = blk.mixer(i)
+        train, step, init = (X.mlstm_train, X.mlstm_decode,
+                             X.mlstm_init_cache) if kind == "mlstm" else \
+            (X.slstm_train, X.slstm_decode, X.slstm_init_cache)
+        y, st = train(mix, h, cfg, return_state=True)
+        cache = init(h.shape[0], cfg.d_model, cfg, device=h.device)
+        ys = []
+        for t in range(h.shape[1]):
+            y1, cache = step(mix, h[:, t:t + 1], cfg, cache)
+            ys.append(y1)
+        errs = {"output": rel_err(torch.cat(ys, dim=1), y)}
+        errs.update({k: rel_err(cache[k], st[k]) for k in st})
+        check(all(e <= tol for e in errs.values()),
+              f"xLSTM layer 0 {kind} chunk vs step ({compute}): relative "
+              f"errors {errs} > {tol}")
+        out[kind] = errs
+        x = x + y
+    return {"tokens": int(tokens.shape[1]), "tolerance": tol, **out}
+
+
+def serve_xlstm(dev, profile):
+    """xlstm-350m at full width and depth behind ``Engine`` with phase 4's
+    prompts; chunk against step at layer 0; decode against forward."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine, ServeConfig
+    t0 = time.perf_counter()
+    cfg = get_config("xlstm-350m")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, t_init = timed(lambda: Transformer.init_params(cfg, gen,
+                                                          device=dev))
+    check(len(model.layers) * len(cfg.block_pattern) == cfg.n_layers == 24
+          and cfg.d_model == 1024, "xlstm-350m at full depth and width")
+    eng = Engine(cfg, model, ServeConfig(batch=4, max_seq=max(SERVE_PROMPTS)
+                                         + SERVE_NEW), device=dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SERVE_PROMPTS]
+    out, t_gen = timed(lambda: eng.generate(prompts, SERVE_NEW))
+    stats = dict(eng.stats)
+    check(all(len(o) == len(p) + SERVE_NEW and o[:len(p)] == p
+              for o, p in zip(out, prompts)),
+          f"xlstm: each output is its prompt plus {SERVE_NEW} tokens")
+    check(all(0 <= tok < cfg.vocab_size for o in out for tok in o),
+          "xlstm: token ids in [0, vocab)")
+    check(bool(torch.isfinite(eng.last_logits).all()), "xlstm: finite logits")
+    again, t_again = timed(lambda: eng.generate(prompts, SERVE_NEW))
+    check(again == out, "xlstm: a second generate gives the same tokens")
+    stats_again = dict(eng.stats)
+
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, XLSTM_STEP_TOKENS)).astype(np.int32)).to(dev)
+    steps = {"bf16": xlstm_chunk_vs_step(eng.model, toks, torch.bfloat16),
+             "f32": xlstm_chunk_vs_step(model, toks, torch.float32)}
+    # decode vs forward.  bf16: the reference's invariant, a prefill of
+    # S - 1 = 127 tokens (one chunk of 127) and one step.  float32: a
+    # prefill of 128 and 128 teacher-forced steps, within the reference
+    # test's rtol; the same steps in bf16 within the drift the reference's
+    # own bf16 numerics show over them at this width
+    b, s = DECODE_CHECK
+    check_toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                                  .astype(np.int32)).to(dev)
+    chunk = X.CHUNK
+    dvf = decode_vs_forward(eng.model, {"tokens": check_toks[:, :chunk]},
+                            chunk - 1)
+    dvf_steps = decode_vs_forward(eng.model, {"tokens": check_toks}, chunk,
+                                  tol=XLSTM_BF16_DECODE_TOL)
+    model.cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    try:
+        dvf_f32 = decode_vs_forward(model, {"tokens": check_toks}, chunk,
+                                    tol=XLSTM_F32_DECODE_TOL)
+    finally:
+        model.cfg = cfg
+    rec = {}
+    if profile:
+        batch = {"tokens": torch.from_numpy(left_padded(prompts)).to(dev)}
+        held = {}
+        rec["profile_prefill"] = device_busy(lambda: held.update(zip(
+            ("logits", "cache"), eng.model.prefill(batch, eng.scfg.max_seq))),
+            {}, top=8)
+        cur = torch.argmax(held["logits"][:, -1], dim=-1)[:, None]
+        rec["profile_decode_step"] = device_busy(
+            lambda: eng.model.decode_step(held["cache"], cur,
+                                          max(SERVE_PROMPTS)), {}, top=8)
+    new_tokens = len(prompts) * stats["decode_steps"]
+    return {"arch": cfg.name, "blocks": cfg.n_layers,
+            "block_pattern": list(cfg.block_pattern), "d_model": cfg.d_model,
+            "params": sum(t.numel() for t in model.parameters()),
+            "param_bytes": nbytes(*model.parameters()),
+            "seconds_init": t_init, "prompt_lens": list(SERVE_PROMPTS),
+            "seconds_generate": t_gen, "seconds_generate_again": t_again,
+            "prefill_seconds": stats["prefill_seconds"],
+            "decode_seconds_per_token": stats["decode_seconds"]
+            / stats["decode_steps"],
+            "decode_tokens_per_second": new_tokens / stats["decode_seconds"],
+            "prefill_seconds_again": stats_again["prefill_seconds"],
+            "decode_seconds_per_token_again": stats_again["decode_seconds"]
+            / stats_again["decode_steps"],
+            "chunk_vs_step": steps, "decode_vs_forward": dvf,
+            "decode_vs_forward_f32_steps": dvf_f32,
+            "decode_vs_forward_bf16_steps": dvf_steps, **rec,
+            "seconds": time.perf_counter() - t0}
+
+
+def check_outputs(arch, new, n_rows, vocab, logits):
+    check(len(new) == n_rows and all(len(r) == SERVE_NEW for r in new),
+          f"{arch}: {SERVE_NEW} new tokens for each of {n_rows} rows")
+    check(all(0 <= tok < vocab for r in new for tok in r),
+          f"{arch}: token ids in [0, vocab)")
+    check(bool(torch.isfinite(logits).all()), f"{arch}: finite logits")
+
+
+def serve_whisper(dev, profile):
+    """whisper-small at full width and depth: stub frames (4, 1536, 768),
+    decoder prompts of ``WHISPER_PROMPTS`` ids, 32 greedy tokens through
+    ``prefill``, ``encode`` and ``decode_step``; decode against forward."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import Transformer
+    t0 = time.perf_counter()
+    cfg = get_config("whisper-small")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, t_init = timed(lambda: Transformer.init_params(cfg, gen,
+                                                          device=dev))
+    check(len(model.layers) == cfg.n_layers == 12 and
+          len(model.enc["layers"]) == cfg.n_enc_layers == 12 and
+          cfg.d_model == 768 and cfg.resolved_head_dim == 64,
+          "whisper-small at full depth and width, D = 64")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_unpadded, n).tolist()
+               for n in WHISPER_PROMPTS]
+    check(max(WHISPER_PROMPTS) + SERVE_NEW <= WHISPER_CONTEXT,
+          "whisper: prompt plus new tokens within its decoder context")
+    frames = torch.randn((4, cfg.enc_seq_len, cfg.d_model), generator=gen,
+                         device=dev)
+    batch = {"tokens": torch.from_numpy(left_padded(prompts)).to(dev),
+             "enc_embeds": frames}
+
+    def generate():
+        t = time.perf_counter()
+        enc = model.encode(frames)
+        sync()
+        t_enc = time.perf_counter() - t
+        return (t_enc,) + greedy(model, batch, WHISPER_CONTEXT, SERVE_NEW,
+                                 enc_out=enc)
+
+    (t_enc, new, t_pre, t_dec, logits), t_gen = timed(generate)
+    check_outputs(cfg.name, new, 4, cfg.vocab_size, logits)
+    (_, again, t_pre2, t_dec2, _), t_again = timed(generate)
+    check(again == new, "whisper: a second generation gives the same tokens")
+
+    b, s = DECODE_CHECK
+    check_batch = {
+        "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_unpadded, (b, s))
+                                   .astype(np.int32)).to(dev),
+        "enc_embeds": torch.randn((b, cfg.enc_seq_len, cfg.d_model),
+                                  generator=gen, device=dev)}
+    dvf = decode_vs_forward(model, check_batch, s - 1,
+                            enc_out=model.encode(check_batch["enc_embeds"]))
+    rec = {}
+    if profile:
+        k4 = {"k4": ("flash_fwd",)}
+        held = {}
+        rec["profile_prefill"] = device_busy(lambda: held.update(zip(
+            ("logits", "cache"), model.prefill(batch, WHISPER_CONTEXT))),
+            k4, top=8)
+        enc = model.encode(frames)
+        cur = torch.argmax(held["logits"][:, -1], dim=-1)[:, None]
+        rec["profile_decode_step"] = device_busy(
+            lambda: model.decode_step(held["cache"], cur,
+                                      max(WHISPER_PROMPTS), enc_out=enc),
+            k4, top=8)
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "n_enc_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+            "head_dim": cfg.resolved_head_dim, "enc_frames": cfg.enc_seq_len,
+            "params": sum(t.numel() for t in model.parameters()),
+            "param_bytes": nbytes(*model.parameters()),
+            "seconds_init": t_init, "prompt_lens": list(WHISPER_PROMPTS),
+            "seconds_generate": t_gen, "seconds_generate_again": t_again,
+            "encode_seconds": t_enc, "prefill_seconds": t_pre,
+            "decode_seconds_per_token": t_dec / SERVE_NEW,
+            "decode_tokens_per_second": 4 * SERVE_NEW / t_dec,
+            "prefill_seconds_again": t_pre2,
+            "decode_seconds_per_token_again": t_dec2 / SERVE_NEW,
+            "decode_vs_forward": dvf, **rec,
+            "seconds": time.perf_counter() - t0}
+
+
+def serve_vlm(dev, profile):
+    """internvl2-26b at full width, ``VLM_LAYERS`` of its layers, f32
+    parameters: patch embeddings (4, 256, 6144) before phase 4's prompts,
+    32 greedy tokens from position P + S; decode against forward."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import Transformer
+    t0 = time.perf_counter()
+    full = get_config("internvl2-26b")
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)   # depth is the cut
+    check(cfg.param_dtype == "float32" and cfg.compute_dtype == "bfloat16",
+          "internvl2: f32 parameters, bf16 compute")
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, t_init = timed(lambda: Transformer.init_params(cfg, gen,
+                                                          device=dev))
+    check(len(model.layers) == VLM_LAYERS and cfg.d_model == 6144,
+          f"internvl2: {VLM_LAYERS} layers at full width")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_unpadded, n).tolist()
+               for n in SERVE_PROMPTS]
+    patches = torch.randn((4, cfg.n_patches, cfg.d_model), generator=gen,
+                          device=dev)
+    batch = {"tokens": torch.from_numpy(left_padded(prompts)).to(dev),
+             "patch_embeds": patches}
+    max_seq = cfg.n_patches + max(SERVE_PROMPTS) + SERVE_NEW
+    (new, t_pre, t_dec, logits), t_gen = timed(
+        lambda: greedy(model, batch, max_seq, SERVE_NEW))
+    check_outputs(cfg.name, new, 4, cfg.vocab_size, logits)
+    (again, t_pre2, t_dec2, _), t_again = timed(
+        lambda: greedy(model, batch, max_seq, SERVE_NEW))
+    check(again == new, "internvl2: a second generation gives the same "
+          "tokens")
+    b, s = DECODE_CHECK
+    check_batch = {
+        "tokens": torch.from_numpy(rng.integers(0, cfg.vocab_unpadded, (b, s))
+                                   .astype(np.int32)).to(dev),
+        "patch_embeds": torch.randn((b, cfg.n_patches, cfg.d_model),
+                                    generator=gen, device=dev)}
+    dvf = decode_vs_forward(model, check_batch, s - 1)
+    peak = torch.cuda.max_memory_allocated()
+    rec = {}
+    if profile:
+        k4 = {"k4": ("flash_fwd",)}
+        held = {}
+        rec["profile_prefill"] = device_busy(lambda: held.update(zip(
+            ("logits", "cache"), model.prefill(batch, max_seq))), k4, top=8)
+        cur = torch.argmax(held["logits"][:, -1], dim=-1)[:, None]
+        rec["profile_decode_step"] = device_busy(
+            lambda: model.decode_step(held["cache"], cur, max_seq - SERVE_NEW),
+            k4, top=8)
+    kv = 2 * VLM_LAYERS * 4 * max_seq * cfg.n_kv_heads * \
+        cfg.resolved_head_dim * 2
+    return {"arch": cfg.name, "n_layers": VLM_LAYERS,
+            "n_layers_published": full.n_layers, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "n_patches": cfg.n_patches,
+            "params": sum(t.numel() for t in model.parameters()),
+            "param_bytes": nbytes(*model.parameters()),
+            "params_published": full.param_count(),
+            "kv_cache_bytes": kv, "memory_allocated_before": mem_before,
+            "max_memory_allocated": peak, "seconds_init": t_init,
+            "prompt_lens": list(SERVE_PROMPTS), "prefill_positions":
+            cfg.n_patches + max(SERVE_PROMPTS),
+            "seconds_generate": t_gen, "seconds_generate_again": t_again,
+            "prefill_seconds": t_pre,
+            "decode_seconds_per_token": t_dec / SERVE_NEW,
+            "decode_tokens_per_second": 4 * SERVE_NEW / t_dec,
+            "prefill_seconds_again": t_pre2,
+            "decode_seconds_per_token_again": t_dec2 / SERVE_NEW,
+            "decode_vs_forward": dvf, **rec,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_families(dev, kernels, profile):
+    """Phase 4d: serve xlstm-350m, whisper-small and internvl2-26b (cut in
+    depth) in turn, in one launch window; then, outside it, hold K4 to its
+    plain version on the q, k, v of each distinct call the models' layer 0
+    gave it (whisper: encoder, decoder self- and cross-attention).
+    Returns the window's launches and K4's rows at those shapes."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    t0 = time.perf_counter()
+    for k in kernels:
+        k.launches = 0
+    by_variant = flash_attention_fwd.launches_by_variant
+    variants_before = dict(by_variant)
+    lines, calls = [], {}
+    for arch, serve in (("xlstm-350m", serve_xlstm),
+                        ("whisper-small", serve_whisper),
+                        ("internvl2-26b", serve_vlm)):
+        before = flash_attention_fwd.launches
+        with k4_calls() as (seen, first):
+            line = serve(dev, profile)
+        line["k4_launches"] = flash_attention_fwd.launches - before
+        line["k4_calls"] = sorted({str(key): seen.count(key)
+                                   for key in set(seen)}.items())
+        lines.append(line)
+        calls[arch] = (seen, first)
+        torch.cuda.empty_cache()
+    launches = {k.__name__: k.launches for k in kernels}
+    wgmma = by_variant["sm90_wgmma"] - variants_before["sm90_wgmma"]
+
+    wcfg, vcfg = get_config("whisper-small"), get_config("internvl2-26b")
+    n_enc, n_dec, n_vlm = wcfg.n_enc_layers, wcfg.n_layers, VLM_LAYERS
+    per_prefill = n_enc + 2 * n_dec      # whisper: encoder, self, cross
+    # two generations (encode + prefill), the check's forward, prefill and
+    # encode (+ the profile's prefill and encode)
+    want = {"xlstm-350m": 0,
+            "whisper-small": (2 + profile) * (n_enc + per_prefill)
+            + 2 * per_prefill + n_enc,
+            "internvl2-26b": (4 + profile) * n_vlm}
+    for line in lines:
+        check(line["k4_launches"] == want[line["arch"]],
+              f"phase 4d: {line['arch']} launched K4 {line['k4_launches']} "
+              f"times, not {want[line['arch']]}")
+    total = sum(want.values())
+    check(launches["flash_attention_fwd"] == total == wgmma,
+          f"phase 4d: K4 launched {launches['flash_attention_fwd']} times "
+          f"({wgmma} through sm90_wgmma), not {total}")
+    check(not any(c for name, c in launches.items()
+                  if name != "flash_attention_fwd"),
+          f"phase 4d launched graph kernels: {launches}")
+    # whisper's on-path shapes: D = 64, non-causal, Sq != Sk
+    heads = (wcfg.n_heads, wcfg.resolved_head_dim)
+    wq = (4, max(WHISPER_PROMPTS)) + heads
+    wk = (4, wcfg.enc_seq_len) + heads
+    whisper_keys = {"encoder": (wk, wk, False),
+                    "decoder_self": (wq, wq, True),
+                    "cross": (wq, wk, False)}
+    vlm_q = (4, vcfg.n_patches + max(SERVE_PROMPTS), vcfg.n_heads,
+             vcfg.resolved_head_dim)
+    want_keys = {"whisper-small": whisper_keys,
+                 "internvl2-26b": {"decoder": (vlm_q, vlm_q, True)}}
+    check(not calls["xlstm-350m"][0], "phase 4d: xLSTM called attention")
+    k4_rows = []
+    for arch, keys in want_keys.items():
+        seen, first = calls[arch]
+        for role, (qs, ks, causal) in keys.items():
+            key = (qs, ks, "torch.bfloat16", causal)
+            check(key in first, f"phase 4d: {arch} never called K4 at "
+                  f"{key}; saw {sorted(set(seen))}")
+            q, k, v = first.pop(key)
+            k4_rows.append({"arch": arch, "role": role,
+                            **k4_on_path_inputs(q, k, v, causal)})
+            del q, k, v
+        first.clear()
+    emit({"phase": "families", "models": lines, "launches": launches,
+          "k4_launches_predicted": want, "k4_on_path_inputs": k4_rows,
+          "seconds": time.perf_counter() - t0})
     return launches, k4_rows
 
 
@@ -2811,29 +3260,42 @@ def one_ulp_ratio(got, want) -> float:
     return float(((got.double() - want.double()).abs() / limit).max())
 
 
-def k4_times(q, k, v, out, want, reps):
+def attention_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs K4 scores: all Sq·Sk, or with the causal mask
+    (qpos >= kpos, top-left aligned) min(i + 1, Sk) for query i."""
+    if not causal:
+        return sq * sk
+    full = max(0, sq - sk)              # rows past Sk see all Sk keys
+    tri = min(sq, sk)
+    return tri * (tri + 1) // 2 + full * sk
+
+
+def k4_times(q, k, v, out, want, reps, causal=True):
     """K4's, its plain version's and SDPA's CUDA-event times on q, k, v
-    (causal), and the bound for the work."""
+    (causal or not, Sq and Sk as given), and the bound for the work:
+    q·kᵀ and p·v over the scored pairs, 4·D flops a pair."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_fwd, flash_attention_fwd_plain)
-    b, s, h, d = q.shape
-    flops = 2 * d * s * (s + 1) * b * h   # causal q·kᵀ and p·v
+    b, sq, h, d = q.shape
+    flops = 4 * d * attention_pairs(sq, k.shape[1], causal) * b * h
     bnd, by = bound_ms(nbytes(q, k, v, out), flops, q.dtype)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    return {"ms": cuda_ms(lambda: flash_attention_fwd(q, k, v), reps),
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    return {"ms": cuda_ms(lambda: flash_attention_fwd(q, k, v, causal),
+                          reps),
             "plain_ms": cuda_ms(
-                lambda: flash_attention_fwd_plain(q, k, v), 3),
+                lambda: flash_attention_fwd_plain(q, k, v, causal), 3),
             "bound_ms": bnd, "bound_by": by,
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), reps),
+                qt, kt, vt, is_causal=causal), reps),
             "library_max_abs_diff": max_abs(lib.transpose(1, 2), want),
             "gflop": flops / 1e9, "shape": list(q.shape),
+            "k_shape": list(k.shape), "causal": causal,
             "dtype": str(q.dtype)}
 
 
-def k4_on_path_inputs(q, k, v) -> dict:
+def k4_on_path_inputs(q, k, v, causal=True) -> dict:
     """K4 on inputs the main path gave it (bf16, after RoPE and the GQA
     repeat), held to its plain version by ``attention_error_ratios`` (ref:
     the plain version in float32; base: the plain version with p rounded
@@ -2843,20 +3305,20 @@ def k4_on_path_inputs(q, k, v) -> dict:
         attention_error_ratios, flash_attention_fwd, flash_attention_fwd_plain)
     which = fa.variant(q.dtype, q.shape[3])
     check(which == "sm90_wgmma", f"K4 at {tuple(q.shape)} takes {which}")
-    out = flash_attention_fwd(q, k, v, causal=True)
-    ref = flash_attention_fwd_plain(q.float(), k.float(), v.float())
-    base = flash_attention_fwd_plain(q, k, v, round_p=True)
+    out = flash_attention_fwd(q, k, v, causal=causal)
+    ref = flash_attention_fwd_plain(q.float(), k.float(), v.float(), causal)
+    base = flash_attention_fwd_plain(q, k, v, causal, round_p=True)
     rule = attention_error_ratios(out, ref, base)
-    check(rule["ok"], f"K4 wgmma {tuple(q.shape)} on the path's inputs: "
-          f"error ratios {rule}")
+    check(rule["ok"], f"K4 wgmma {tuple(q.shape)} x {tuple(k.shape)} "
+          f"causal={causal} on the path's inputs: error ratios {rule}")
     del base
-    row = k4_times(q, k, v, out, ref, 20)
+    row = k4_times(q, k, v, out, ref, 20, causal)
     row.update(variant=which, max_abs_err=rule["max_abs_err"],
                error_ratios=rule)
     return row
 
 
-def kernel_k4(launches, by_variant, moe_rows=()):
+def kernel_k4(launches, by_variant, moe_rows=(), family_rows=()):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
         attention_error_ratios, flash_attention_fwd, flash_attention_fwd_plain)
@@ -2916,6 +3378,7 @@ def kernel_k4(launches, by_variant, moe_rows=()):
     row["f32"] = f32
     row["backward"] = kernel_k4_backward(qkv)
     row["moe_path_inputs"] = list(moe_rows)   # phase 4c's layer-0 inputs
+    row["families_path_inputs"] = list(family_rows)   # phase 4d's
     return row
 
 
@@ -3266,6 +3729,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_serve, k4_moe = phase_moe_serve(dev, kernels, args.profile)
     torch.cuda.empty_cache()
+    families, k4_families = phase_families(dev, kernels, args.profile)
+    torch.cuda.empty_cache()
     train = phase_train(dev, kernels, args.profile)
     torch.cuda.empty_cache()
 
@@ -3274,7 +3739,8 @@ def main() -> int:
             kernel_k2(g22, path["segment_sum_chunked"]),
             kernel_k3(u14, path["bsr_tricount"], k3_variants,
                       ptxas_report("bsr_tricount.cu")),
-            kernel_k4(path["flash_attention_fwd"], k4_variants, k4_moe)]
+            kernel_k4(path["flash_attention_fwd"], k4_variants, k4_moe,
+                      k4_families)]
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
@@ -3283,6 +3749,7 @@ def main() -> int:
                  launches_phase_3f=sharded.get(r["name"], 0),
                  launches_phase_3g=sharded_service.get(r["name"], 0),
                  launches_phase_moe=moe_serve.get(r["name"], 0),
+                 launches_phase_families=families.get(r["name"], 0),
                  launches_phase_train=train.get(r["name"], 0))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

@@ -3,10 +3,11 @@
 A copy of ``repro/configs/base.py``: the same frozen :class:`ArchConfig`,
 ``SHAPES``, ``runnable_shapes`` and ``reduced``, so a config of the port
 equals its reference counterpart field by field.  The registry holds the
-configs ported so far, the four ``family="dense"`` ones and the two
-``family="moe"`` ones; ``get_config`` of any other architecture of the
-reference raises ``KeyError`` naming the ``ROADMAP.md`` item that ports
-its family.
+configs ported so far: the four ``family="dense"`` ones, the two
+``family="moe"`` ones, and xlstm-350m (``"ssm"``), whisper-small
+(``"audio"``) and internvl2-26b (``"vlm"``); ``get_config`` of the
+reference's ``family="hybrid"`` jamba raises ``KeyError`` naming the
+``ROADMAP.md`` item that ports its family.
 """
 
 from __future__ import annotations
@@ -154,10 +155,9 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get_config(name: str) -> ArchConfig:
     _ensure_loaded()
     if name not in _REGISTRY:
-        raise KeyError(f"arch {name!r} is not in the port, which serves the "
-                       f"dense and MoE configs {sorted(_REGISTRY)}; the "
-                       f"hybrid, ssm, audio and vlm families are not ported "
-                       f"yet: see ROADMAP.md Queue 1 item 15")
+        raise KeyError(f"arch {name!r} is not in the port, which serves "
+                       f"{sorted(_REGISTRY)}; the hybrid family is not "
+                       f"ported yet: see ROADMAP.md Queue 1 item 15")
     return _REGISTRY[name]
 
 
@@ -178,8 +178,9 @@ def runnable_shapes(cfg: ArchConfig) -> Dict[str, ShapeSpec]:
 
 def _ensure_loaded() -> None:
     """Import the ported config modules once so registration side-effects run."""
-    from . import (qwen1_5_4b, qwen2_5_3b, starcoder2_15b,      # noqa: F401
-                   mistral_nemo_12b, grok_1_314b, qwen3_moe_235b_a22b)
+    from . import (whisper_small, qwen1_5_4b, qwen2_5_3b,       # noqa: F401
+                   starcoder2_15b, mistral_nemo_12b, grok_1_314b,
+                   qwen3_moe_235b_a22b, xlstm_350m, internvl2_26b)
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:

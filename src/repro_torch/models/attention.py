@@ -10,12 +10,17 @@
   reference's position mask; plain PyTorch (memory-bound: one pass over the
   cache).
 
+Cross-attention (``kv_override=(enc, enc)``, whisper's decoder): K and V
+are projected from the encoder states (B, Se, d), neither q nor k is
+rotated, and the attention is not causal.  ``attention_train`` sends it to
+K4 with Sq = the decoder length and Sk = Se; ``attention_decode``
+re-projects the encoder states at every step, masks at Se and leaves the
+self-attention cache as it is, as the reference does.
+
 Activations keep the reference's (B, S, H, D) layout and the cache its
 (B, max_seq, Hkv, D) one.  Where the reference rebuilds the cache with
 ``dynamic_update_slice``, the port writes the prompt's (or the token's) K/V
 into the cache tensors in place.
-
-Cross-attention (``kv_override``, whisper) is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,8 +39,6 @@ __all__ = ["rope_frequencies", "apply_rope", "Attention", "flash_attention",
 
 Cache = Dict[str, torch.Tensor]
 NEG_INF = -1e30
-_CROSS = ("cross-attention (kv_override) is not ported yet: ROADMAP.md "
-          "Queue 1 item 15 (whisper)")
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +99,16 @@ def _project_qkv(p: Attention, x: torch.Tensor, n_heads: int,
     return q, k, v
 
 
+def _project_enc_kv(p: Attention, enc: torch.Tensor, n_kv_heads: int,
+                    head_dim: int, compute_dtype):
+    """Cross-attention's K and V: the encoder states (B, Se, d) through
+    ``wk`` and ``wv`` -> (B, Se, Hkv, D) each."""
+    b, se, _ = enc.shape
+    k = dense(p.wk, enc, compute_dtype).reshape(b, se, n_kv_heads, head_dim)
+    v = dense(p.wv, enc, compute_dtype).reshape(b, se, n_kv_heads, head_dim)
+    return k, v
+
+
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
     """(B, S, Hkv, D) -> (B, S, Hkv*groups, D) by head replication."""
     if groups == 1:
@@ -135,17 +148,21 @@ def attention_train(p: Attention, x: torch.Tensor, cfg, *, causal: bool = True,
                     kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                     chunk: int = 1024,
                     skip_upper_triangle: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention (train / forward). x: (B, S, d_model)."""
-    if kv_override is not None:
-        raise NotImplementedError(_CROSS)
+    """Full-sequence attention (train / forward). x: (B, S, d_model);
+    with ``kv_override`` cross-attention to ``kv_override[0]`` (B, Se,
+    d_model), not causal and without RoPE."""
     compute = x.dtype
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, h, hkv, hd, compute)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_override is not None:   # cross-attention: K/V from encoder states
+        k, v = _project_enc_kv(p, kv_override[0], hkv, hd, compute)
+        causal = False            # no RoPE across modalities
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     k = _repeat_kv(k, h // hkv)
     v = _repeat_kv(v, h // hkv)
     out = flash_attention(q, k, v, causal=causal, q_chunk=chunk, k_chunk=chunk,
@@ -188,27 +205,32 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg, cache: Cache,
 
     The token's K/V are written into ``cache`` at ``pos`` in place.  Logits
     and p·v run in float32 (the reference's ``preferred_element_type``); the
-    softmax weights are rounded to the compute dtype first, as there.
+    softmax weights are rounded to the compute dtype first, as there.  With
+    ``kv_override`` the token cross-attends to all Se encoder states,
+    projected anew, and ``cache`` is returned untouched.
     """
-    if kv_override is not None:
-        raise NotImplementedError(_CROSS)
     compute = x.dtype
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     b = x.shape[0]
-    if isinstance(pos, torch.Tensor):
-        pos_t = pos.reshape(1).to(device=x.device, dtype=torch.long)
-    else:   # made on the device: no host-to-device copy per layer
-        pos_t = torch.full((1,), int(pos), dtype=torch.long, device=x.device)
     q = dense(p.wq, x, compute).reshape(b, 1, h, hd)
-    q = apply_rope(q, pos_t, cfg.rope_theta)
-    k1 = dense(p.wk, x, compute).reshape(b, 1, hkv, hd)
-    v1 = dense(p.wv, x, compute).reshape(b, 1, hkv, hd)
-    k1 = apply_rope(k1, pos_t, cfg.rope_theta)
-    cache["k"].index_copy_(1, pos_t, k1.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, pos_t, v1.to(cache["v"].dtype))
-    valid_upto = pos_t + 1
-    k = cache["k"].to(compute)
-    v = cache["v"].to(compute)
+    if kv_override is None:
+        if isinstance(pos, torch.Tensor):
+            pos_t = pos.reshape(1).to(device=x.device, dtype=torch.long)
+        else:   # made on the device: no host-to-device copy per layer
+            pos_t = torch.full((1,), int(pos), dtype=torch.long,
+                               device=x.device)
+        q = apply_rope(q, pos_t, cfg.rope_theta)
+        k1 = dense(p.wk, x, compute).reshape(b, 1, hkv, hd)
+        v1 = dense(p.wv, x, compute).reshape(b, 1, hkv, hd)
+        k1 = apply_rope(k1, pos_t, cfg.rope_theta)
+        cache["k"].index_copy_(1, pos_t, k1.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, pos_t, v1.to(cache["v"].dtype))
+        valid_upto = pos_t + 1
+        k = cache["k"].to(compute)
+        v = cache["v"].to(compute)
+    else:   # cross-attention skips RoPE and the cache (as in train)
+        k, v = _project_enc_kv(p, kv_override[0], hkv, hd, compute)
+        valid_upto = k.shape[1]
     s_max = k.shape[1]
     # query head i*g + j reads KV head i, as after _repeat_kv; grouping the
     # query heads instead of copying the cache g times gives the same dots

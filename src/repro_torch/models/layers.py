@@ -15,6 +15,7 @@ entry points run under ``torch.no_grad``.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -71,19 +72,30 @@ def dense(p: Dense, x: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 
 class Norm(nn.Module):
-    """RMSNorm (``scale``) or LayerNorm (``scale``, ``bias``)."""
+    """RMSNorm (``scale``) or LayerNorm (``scale``, ``bias``).  With
+    ``stack=n`` it holds n norms on a leading axis, (n, d) each, as the
+    reference's stacked ``norm_init`` (an xLSTM period's ``ln``); ``row(i)``
+    is norm i."""
 
-    def __init__(self, d: int, kind: str, *, device=None, dtype=torch.float32):
+    def __init__(self, d: int, kind: str, *, stack: int = 0, device=None,
+                 dtype=torch.float32):
         super().__init__()
         if kind not in ("rmsnorm", "layernorm"):
             raise ValueError(f"unknown norm {kind!r}")
-        self.scale = _empty((d,), device, dtype)
-        self.bias = _empty((d,), device, dtype) if kind == "layernorm" else None
+        shape = (stack, d) if stack else (d,)
+        self.scale = _empty(shape, device, dtype)
+        self.bias = _empty(shape, device, dtype) if kind == "layernorm" \
+            else None
 
     def reset(self, generator: Optional[torch.Generator] = None) -> None:
         self.scale.fill_(1.0)
         if self.bias is not None:
             self.bias.zero_()
+
+    def row(self, i: int) -> SimpleNamespace:
+        """Norm i of a stack, for :func:`norm_apply`."""
+        return SimpleNamespace(scale=self.scale[i], bias=None
+                               if self.bias is None else self.bias[i])
 
 
 def norm_apply(p: Norm, x: torch.Tensor, kind: str,

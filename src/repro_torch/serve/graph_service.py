@@ -1136,15 +1136,20 @@ class GraphService:
     def close(self) -> None:
         """Stop background workers, then drain whatever they left queued.
 
-        Without the drain, a thread already blocked in ``Pending.result()``
-        on a request the dying workers never reached would wait forever —
-        worker-backed services skip the inline drain in ``_ensure_progress``.
+        Each worker finishes the engine call it is in before ``close``
+        goes on: a worker left running is a daemon thread still inside
+        torch when the interpreter exits, and re-taking the GIL there
+        aborts the process ("terminate called without an active
+        exception").  Without the drain, a thread already blocked in
+        ``Pending.result()`` on a request the dying workers never reached
+        would wait forever — worker-backed services skip the inline drain
+        in ``_ensure_progress``.
         """
         self._stop.set()
         with self.scheduler._cond:
             self.scheduler._cond.notify_all()
         for t in self._worker_threads:
-            t.join(timeout=5.0)
+            t.join()
         self._worker_threads = []
         self.scheduler.drain()
         if self._mirror is not None:

@@ -19,7 +19,10 @@ at every shard (each shard buffer keeps its segments' alignment).  K4 under
 autograd (its forward, the PyTorch backward) gives gradients within
 ``attention_error_ratios``' rule of the float32 plain version's.  The
 qwen3-moe MoE layer at full width holds to ``chip_smoke.py``'s per-token
-oracle (phase 4c), its routing to a float64 recomputation.
+oracle (phase 4c), its routing to a float64 recomputation.  K4 at
+whisper's shapes, scaled down (D = 64, non-causal, Sq != Sk, ragged last
+tiles), holds to that rule; sLSTM's float32 recurrence on the card, TF32
+off, to the CPU's.
 """
 
 import importlib.util
@@ -32,7 +35,7 @@ import torch
 
 from _torch_oracles import build, corpus
 from _torch_worlds import shard_local_pulls
-from repro_torch.configs.base import get_config
+from repro_torch.configs.base import get_config, reduced
 from repro_torch.core import algorithms as A
 from repro_torch.core import convert as C
 from repro_torch.core import provenance as P
@@ -53,7 +56,7 @@ from repro_torch.kernels.pieces import piece_table
 from repro_torch.kernels.segment_sum import (chunk_layout,
                                              segment_sum_chunked,
                                              segment_sum_chunked_plain)
-from repro_torch.models import moe
+from repro_torch.models import moe, xlstm
 
 pytestmark = pytest.mark.cuda
 
@@ -407,6 +410,66 @@ def test_flash_attention_backward_under_autograd(dev):
     base = fa.plain_grads(q, k, v, dout, round_p=True)
     r = fa.grad_error_ratios(got, ref, base)
     assert r["ok"], r
+
+
+# whisper's attention, scaled down in batch and heads: D = 64; the encoder
+# (non-causal, Sq = Sk), the decoder's self-attention (causal) and its
+# cross-attention (non-causal, Sq = the prompt != Sk = the frames), with
+# ragged last query tiles (200 = 128 + 72, 416 = 3 x 128 + 32) and a ragged
+# last key tile (300 = 2 x 128 + 44)
+WHISPER_K4_CASES = [(2, 384, 384, 3, False), (2, 208, 208, 3, True),
+                    (2, 200, 768, 3, False), (1, 100, 300, 2, False),
+                    (1, 416, 1536, 2, False), (1, 416, 416, 2, True)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,causal", WHISPER_K4_CASES)
+def test_flash_attention_at_whisper_shapes(dev, b, sq, sk, h, causal):
+    rng = np.random.default_rng(sq * 7 + sk)
+    q, k, v = (_t(rng.normal(size=(b, s, h, 64)).astype(np.float32),
+                  dev).to(torch.bfloat16) for s in (sq, sk, sk))
+    assert fa.variant(q.dtype, 64) == "sm90_wgmma"
+    before = flash_attention_fwd.launches_by_variant["sm90_wgmma"]
+    got = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches_by_variant["sm90_wgmma"] == before + 1
+    assert got.shape == q.shape
+    ref = flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                    causal=causal)
+    base = flash_attention_fwd_plain(q, k, v, causal=causal, round_p=True)
+    r = attention_error_ratios(got, ref, base)
+    assert r["ok"], r
+    again = flash_attention_fwd(q, k, v, causal=causal)
+    assert torch.equal(got, again)
+
+
+def test_slstm_on_the_card_matches_the_cpu(dev):
+    """sLSTM's 256 sequential steps in float32 with TF32 off (``dev``
+    turns it off): the card's outputs and terminal states within 1e-4 of
+    their largest value of the CPU's.  ``h @ r_h`` compounds over the
+    steps, so a TF32 recurrence would drift."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = reduced(get_config("xlstm-350m"), d_model=256)
+    rng = np.random.default_rng(21)
+    cpu = xlstm.sLSTM(cfg.d_model, cfg, device="cpu").requires_grad_(False)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            scale = 0.5 if name.endswith(".b") else 1.0 / p.shape[0] ** 0.5
+            p.copy_(torch.from_numpy(rng.normal(scale=scale, size=p.shape)
+                                     .astype(np.float32)))
+    card = xlstm.sLSTM(cfg.d_model, cfg, device=dev).requires_grad_(False)
+    card.load_state_dict(cpu.state_dict())
+    x = rng.normal(size=(2, 256, cfg.d_model)).astype(np.float32)
+    with torch.no_grad():
+        want, want_st = xlstm.slstm_train(cpu, torch.from_numpy(x), cfg,
+                                          return_state=True)
+        got, got_st = xlstm.slstm_train(card, _t(x, dev), cfg,
+                                        return_state=True)
+    pairs = [("output", got, want)] + [(k, got_st[k], want_st[k])
+                                       for k in want_st]
+    for name, g, w in pairs:
+        scale = float(w.abs().max())
+        err = float((g.cpu().double() - w.double()).abs().max())
+        assert err <= 1e-4 * scale, (name, err, scale)
 
 
 def test_flash_attention_kernel_rejects_head_dim(dev):

@@ -824,6 +824,37 @@ def test_close_resolves_outstanding_requests():
         assert p.result(timeout=30) is not None
 
 
+def test_close_waits_for_a_worker_in_an_engine_call(monkeypatch):
+    """close() returns only once every worker has stopped, even one whose
+    engine call outlasts a few seconds: a worker left running would still
+    be inside torch when the process exits, which aborts it."""
+    from repro_torch.serve import graph_service as gs
+    entered, release = threading.Event(), threading.Event()
+    fn, slots = gs._OPS["pagerank"]
+
+    def slow(*args, **kwargs):
+        entered.set()
+        release.wait(30)
+        return fn(*args, **kwargs)
+
+    monkeypatch.setitem(gs._OPS, "pagerank", (slow, slots))
+    monkeypatch.setitem(gs._FOLLOW_FNS, "pagerank", slow)
+    svc = make_service(workers=1)
+    p = svc.session("a").submit({"op": "pagerank", "graph": "g",
+                                 "params": {"n_iter": 2}})
+    assert entered.wait(30)
+    timer = threading.Timer(6.0, release.set)
+    timer.start()
+    try:
+        svc.close()
+        assert not any(t.is_alive() for t in threading.enumerate()
+                       if t.name.startswith("graph-service-worker"))
+        assert p.result(timeout=0) is not None
+    finally:
+        release.set()
+        timer.cancel()
+
+
 # ---------------------------------------------------------------------------
 # stats consistency under concurrent workers
 # ---------------------------------------------------------------------------
