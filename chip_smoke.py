@@ -196,6 +196,33 @@ Phases (each prints one JSON line with its seconds):
    (``families_path_inputs``).  The line prints prefill seconds and
    decode seconds per token; with ``--profile``, the busy share of one
    prefill and one decode step of each model.
+4e. the hybrid family, in a launch window of its own (after 4d, before
+   4b): ``jamba-1.5-large-398b`` at full width (d 8192, 64 heads, GQA 8,
+   D 128, d_ff 24576, 16 experts top-2, Mamba inner 16384, state 16,
+   conv 4, vocab 65536), **one period cut to ``attn_every = 4``** (the
+   reference's ``reduced`` rule for hybrids: 3 Mamba mixers, then
+   attention; MoE on sub-layers 1 and 3, MLP on 0 and 2), bf16 weights
+   from a seeded generator, behind ``Engine`` with phase 4's
+   ``ServeConfig`` and prompts, 32 new tokens, twice (the same tokens).
+   Layer 0's first Mamba in float32 on its own path input, (2, 256)
+   tokens: the chunked ``mamba_train`` (4 chunks of 64) against
+   ``mamba_decode`` stepped over them, outputs and terminal states, and
+   the chunked terminal state against the plain recurrence over the
+   unchunked sequence, each within atol 1e-4 + rtol 1e-3 (the reference's
+   ``test_mamba_decode_matches_train_tail``).  Decode against ``forward``
+   at capacity factor E/k (no drops) within phase 4's tolerance.  No
+   per-token MoE oracle (a float32 copy of one jamba MoE layer is 38.7
+   GB; the layer is phase 4c's code): the spy on ``models.moe.route``
+   counts drops, and another the near ties (float64 gap < 1e-5) at
+   prefill and at decode.  The line prints parameters counted on the
+   meta device, bytes, memory before and at peak, prefill seconds and
+   decode seconds per token; with ``--profile``, the busy share of one
+   prefill and one decode step.  K4 must launch 4 times (one attention
+   layer: two ``generate`` prefills, the check's forward and prefill; 5
+   with ``--profile``), all ``"sm90_wgmma"``, and K1-K3 never.  After the
+   window, K4 runs on the attention layer's own q, k, v ((4, 2048, 64,
+   128) bf16 causal), held by ``attention_error_ratios`` and timed, in
+   the phase line and in K4's row (``hybrid_path_inputs``).
 4b. training, kernel K4 under autograd: ``qwen2.5-3b`` at full width and
    depth (f32 parameters, bf16 compute, ``remat="full"``, AdamW), seeded
    random weights, on batches of 2 x 1024 random walks
@@ -237,10 +264,11 @@ Phases (each prints one JSON line with its seconds):
    ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
-path's, and phases 3b's to 3g's, 4c's, 4d's and 4b's are their own (3d's
-to 3g's, 4c's, 4d's and 4b's print in each kernel row as
+path's, and phases 3b's to 3g's, 4c's, 4d's, 4e's and 4b's are their own
+(3d's to 3g's, 4c's, 4d's, 4e's and 4b's print in each kernel row as
 ``launches_phase_3d`` ... ``_3g``, ``launches_phase_moe``,
-``launches_phase_families`` and ``launches_phase_train``): each window's
+``launches_phase_families``, ``launches_phase_hybrid`` and
+``launches_phase_train``): each window's
 counts are zeroed just before it and read just after it.  Any failed
 check raises, and the script exits non-zero without its last line, which
 on success is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -3117,6 +3145,248 @@ def phase_families(dev, kernels, profile):
     return launches, k4_rows
 
 
+# phase 4e: jamba's hybrid period at full width
+HYBRID_ARCH = "jamba-1.5-large-398b"
+HYBRID_PERIOD = 4        # attn_every: the reference's reduced() rule (min(8, 4))
+MAMBA_CHECK_CHUNK = 64   # train vs decode: 4 chunks of DECODE_CHECK's 256
+MAMBA_TOL = (1e-4, 1e-3)   # atol, rtol: test_mamba_decode_matches_train_tail's
+
+
+@contextlib.contextmanager
+def moe_near_ties():
+    """Count, for each routing of the MoE layers (``models.moe.route``),
+    the tokens whose k-th and (k+1)-th router probabilities, recomputed in
+    float64, lie within ``MOE_NEAR_TIE``: one (tokens, device count) pair
+    a routing, appended to the yielded list."""
+    from repro_torch.models import moe
+    real, seen = moe.route, []
+
+    def spy(p, x, cfg, *args, **kwargs):
+        t, k = x.shape[0] * x.shape[1], cfg.experts_per_token
+        logits = x.reshape(t, -1).double() @ p.router.w.double()
+        top = torch.softmax(logits, dim=-1).topk(k + 1, dim=-1).values
+        seen.append((t, (top[:, k - 1] - top[:, k] < MOE_NEAR_TIE).sum()))
+        return real(p, x, cfg, *args, **kwargs)
+
+    moe.route = spy
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def allclose_rule(got, want, atol, rtol) -> dict:
+    """``numpy.testing.assert_allclose``'s rule, |got - want| <= atol +
+    rtol·|want| everywhere, with the largest |got - want| and the largest
+    excess over rtol·|want|."""
+    d = (got.double() - want.double()).abs()
+    excess = float((d - rtol * want.double().abs()).max())
+    return {"ok": excess <= atol, "max_abs_diff": float(d.max()),
+            "max_excess": excess}
+
+
+@torch.no_grad()
+def mamba_train_vs_decode(model, tokens) -> dict:
+    """Layer 0's first Mamba at full width in float32, on its own path
+    input (the period's first pre-norm of the token embeddings): the
+    chunked ``mamba_train`` (chunk ``MAMBA_CHECK_CHUNK``, the log-depth
+    scan) against ``mamba_decode`` stepped over the same tokens from the
+    zero cache, outputs and terminal states, by the reference test's rule
+    (atol 1e-4, rtol 1e-3); and the chunked terminal ``h`` against a plain
+    recomputation: the recurrence ``h = dA·h + dBu`` over the unchunked
+    sequence's (dA, dBu), one token at a time."""
+    import torch.nn.functional as F
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import dense, embed_apply, norm_apply
+    cfg = model.cfg
+    blk = model.layers[0]
+    mix = ssm.Mamba(cfg.d_model, cfg, device=tokens.device)
+    mix.load_state_dict(blk.mamba[0].state_dict())         # float32 copy
+    x = norm_apply(blk.mix_ln.row(0), embed_apply(
+        model.embed["tok"], tokens, torch.float32), cfg.norm)
+    b, s = tokens.shape
+    y, st = ssm.mamba_train(mix, x, cfg, chunk=MAMBA_CHECK_CHUNK,
+                            return_state=True)
+    cache = ssm.mamba_init_cache(b, cfg.d_model, cfg, torch.float32,
+                                 device=tokens.device)
+    ys = []
+    for t in range(s):
+        y1, cache = ssm.mamba_decode(mix, x[:, t:t + 1], cfg, cache)
+        ys.append(y1)
+    u = F.silu(ssm._causal_conv(dense(mix.in_proj, x, torch.float32),
+                                mix.conv_w))
+    da, dbu, _ = ssm._ssm_params(mix, u, torch.float32)
+    h = torch.zeros_like(st["h"])
+    for t in range(s):
+        h = da[:, t] * h + dbu[:, t]
+    del u, da, dbu
+    atol, rtol = MAMBA_TOL
+    out = {"shape": [b, s, cfg.d_model], "chunk": MAMBA_CHECK_CHUNK,
+           "mixer_bytes": nbytes(*mix.parameters()),
+           "output": allclose_rule(torch.cat(ys, dim=1), y, atol, rtol),
+           "h_vs_decode": allclose_rule(cache["h"], st["h"], atol, rtol),
+           "conv_vs_decode": allclose_rule(cache["conv"], st["conv"], atol,
+                                           rtol),
+           "h_vs_plain": allclose_rule(st["h"], h, atol, rtol),
+           "h_vs_plain_rel": rel_err(st["h"], h)}
+    for key in ("output", "h_vs_decode", "conv_vs_decode", "h_vs_plain"):
+        check(out[key]["ok"], f"jamba: full-width Mamba {key} outside "
+              f"atol {atol} + rtol {rtol}: {out[key]}")
+    return out
+
+
+def phase_hybrid(dev, kernels, profile):
+    """Phase 4e: jamba-1.5-large at full width, one period cut to
+    ``attn_every = 4`` (3 Mamba mixers, then attention; MoE on sub-layers
+    1 and 3, MLP on 0 and 2), bf16, behind ``Engine`` with phase 4's
+    prompts, in a launch window of its own; then, outside it, K4 on the
+    attention layer's own q, k, v.  Returns the window's launches and
+    K4's row at that shape."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine, ServeConfig
+    t0 = time.perf_counter()
+    for k in kernels:
+        k.launches = 0
+    by_variant = flash_attention_fwd.launches_by_variant
+    variants_before = dict(by_variant)
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, attn_every=HYBRID_PERIOD,
+                              n_layers=HYBRID_PERIOD)   # one period: the cut
+    check(cfg.param_dtype == cfg.compute_dtype == "bfloat16" and
+          (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff,
+           cfg.n_experts, cfg.ssm_expand * cfg.d_model) ==
+          (8192, 64, 8, 24576, 16, 16384),
+          "jamba: full width, bf16 parameters and compute")
+    n_params = sum(t.numel() for t in
+                   Transformer(cfg, device="meta").parameters())
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, t_init = timed(lambda: Transformer.init_params(cfg, gen,
+                                                          device=dev))
+    param_bytes = nbytes(*model.parameters())
+    blk = model.layers[0]
+    check(len(model.layers) == 1 and (len(blk.mamba), len(blk.moe),
+                                      len(blk.mlp)) == (3, 2, 2),
+          "jamba: one period of 3 Mamba mixers, 2 MoE and 2 MLP FFNs")
+    check(sum(t.numel() for t in model.parameters()) == n_params,
+          "jamba: the meta count is the model's")
+    max_seq = max(SERVE_PROMPTS) + SERVE_NEW
+    eng = Engine(cfg, model, ServeConfig(batch=4, max_seq=max_seq),
+                 device=dev)
+    check(eng.model is model, "jamba: the engine made a weight copy")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SERVE_PROMPTS]
+    plen = max(SERVE_PROMPTS)
+    want_shape = (4, plen, cfg.n_heads, cfg.resolved_head_dim)
+    key = (want_shape, want_shape, "torch.bfloat16", True)
+    with k4_calls() as (seen, first), moe_drops() as drops, \
+            moe_near_ties() as ties:
+        out, t_gen = timed(lambda: eng.generate(prompts, SERVE_NEW))
+    stats = dict(eng.stats)
+    drops_generate = n_dropped(drops)
+    check(seen == [key], f"jamba: K4 calls {seen}, want {key} once")
+    k4_inputs = first.pop(key)
+    check(all(len(o) == len(p) + SERVE_NEW and o[:len(p)] == p
+              for o, p in zip(out, prompts)),
+          f"jamba: each output is its prompt plus {SERVE_NEW} tokens")
+    check(all(0 <= tok < cfg.vocab_size for o in out for tok in o),
+          "jamba: token ids in [0, vocab)")
+    check(bool(torch.isfinite(eng.last_logits).all()), "jamba: finite logits")
+    again, t_again = timed(lambda: eng.generate(prompts, SERVE_NEW))
+    check(again == out, "jamba: a second generate gives the same tokens")
+    stats_again = dict(eng.stats)
+    peak = torch.cuda.max_memory_allocated()
+
+    b, s = DECODE_CHECK
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)
+                                         ).astype(np.int32)).to(dev)
+    mamba, t_mamba = timed(lambda: mamba_train_vs_decode(model, toks))
+    no_drop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts /
+                                  cfg.experts_per_token)
+    model.cfg = no_drop
+    try:
+        with moe_drops() as dvf_drops, moe_near_ties() as dvf_ties:
+            dvf = decode_vs_forward(model, {"tokens": toks}, s - 1)
+        check(n_dropped(dvf_drops) == 0, f"jamba: drops at capacity factor "
+              f"{no_drop.capacity_factor}")
+    finally:
+        model.cfg = cfg
+    rec = {}
+    if profile:   # one prefill of the batch, one decode step
+        top = {"k4": ("flash_fwd",)}
+        batch = {"tokens": torch.from_numpy(left_padded(prompts)).to(dev)}
+        held = {}
+        rec["profile_prefill"] = device_busy(lambda: held.update(zip(
+            ("logits", "cache"), model.prefill(batch, max_seq))), top, top=8)
+        cur = torch.argmax(held["logits"][:, -1], dim=-1)[:, None]
+        rec["profile_decode_step"] = device_busy(
+            lambda: model.decode_step(held["cache"], cur, plen), top, top=8)
+        del held
+    launches = {k.__name__: k.launches for k in kernels}
+    wgmma = by_variant["sm90_wgmma"] - variants_before["sm90_wgmma"]
+    # two generates, the check's forward and prefill (+ the profile's)
+    want = 4 + profile
+    check(launches["flash_attention_fwd"] == want == wgmma,
+          f"phase 4e: K4 launched {launches['flash_attention_fwd']} times "
+          f"({wgmma} through sm90_wgmma), not {want}")
+    check(not any(c for name, c in launches.items()
+                  if name != "flash_attention_fwd"),
+          f"phase 4e launched graph kernels: {launches}")
+
+    def tie_counts(rows):   # decode routes the batch's B <= 4 tokens
+        return {"sequence": sum(int(c) for t, c in rows if t > 4),
+                "decode": sum(int(c) for t, c in rows if t <= 4)}
+
+    new_tokens = len(prompts) * stats["decode_steps"]
+    del eng, model, blk
+    torch.cuda.empty_cache()
+    q, k, v = k4_inputs
+    k4_row = {"arch": HYBRID_ARCH, "role": "attention (sub-layer 3)",
+              **k4_on_path_inputs(q, k, v)}
+    del q, k, v, k4_inputs
+    emit({"phase": "hybrid", "arch": HYBRID_ARCH,
+          "attn_every": HYBRID_PERIOD, "attn_every_published":
+          full.attn_every, "n_layers": cfg.n_layers,
+          "n_layers_published": full.n_layers, "d_model": cfg.d_model,
+          "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+          "d_ff": cfg.d_ff, "n_experts": cfg.n_experts,
+          "experts_per_token": cfg.experts_per_token,
+          "d_inner": cfg.ssm_expand * cfg.d_model,
+          "ssm_state_dim": cfg.ssm_state_dim, "vocab_size": cfg.vocab_size,
+          "params": n_params, "param_bytes": param_bytes,
+          "params_published_period": dataclasses.replace(
+              full, n_layers=full.attn_every).param_count(),
+          "params_cut_config": cfg.param_count(),
+          "memory_allocated_before": mem_before,
+          "max_memory_allocated": peak, "seconds_init": t_init,
+          "capacity_prefill": moe.capacity(4 * plen, cfg),
+          "capacity_decode": moe.capacity(4, cfg),
+          "assignments_dropped_generate": drops_generate,
+          "near_ties_generate": tie_counts(ties),
+          "near_ties_decode_vs_forward": tie_counts(dvf_ties),
+          "k4_launches": want, "k4_shape": list(want_shape),
+          "seconds_generate": t_gen, "seconds_generate_again": t_again,
+          "prefill_seconds": stats["prefill_seconds"],
+          "decode_seconds_per_token": stats["decode_seconds"]
+          / stats["decode_steps"],
+          "decode_tokens_per_second": new_tokens / stats["decode_seconds"],
+          "prefill_seconds_again": stats_again["prefill_seconds"],
+          "decode_seconds_per_token_again": stats_again["decode_seconds"]
+          / stats_again["decode_steps"],
+          "mamba_train_vs_decode": mamba, "seconds_mamba_check": t_mamba,
+          "decode_vs_forward": {"capacity_factor": no_drop.capacity_factor,
+                                **dvf},
+          **rec, "launches": launches, "k4_on_path_inputs": k4_row,
+          "seconds": time.perf_counter() - t0})
+    return launches, [k4_row]
+
+
 TRAIN_BATCH, TRAIN_SEQ = 2, 1024   # phase 4b: sequences of the random-walk corpus
 TRAIN_STEPS = 5
 TRAIN_RMAT = (17, 16)   # phase 4b: R-MAT scale and edge factor of the corpus graph
@@ -3318,7 +3588,8 @@ def k4_on_path_inputs(q, k, v, causal=True) -> dict:
     return row
 
 
-def kernel_k4(launches, by_variant, moe_rows=(), family_rows=()):
+def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
+              hybrid_rows=()):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
         attention_error_ratios, flash_attention_fwd, flash_attention_fwd_plain)
@@ -3379,6 +3650,7 @@ def kernel_k4(launches, by_variant, moe_rows=(), family_rows=()):
     row["backward"] = kernel_k4_backward(qkv)
     row["moe_path_inputs"] = list(moe_rows)   # phase 4c's layer-0 inputs
     row["families_path_inputs"] = list(family_rows)   # phase 4d's
+    row["hybrid_path_inputs"] = list(hybrid_rows)     # phase 4e's
     return row
 
 
@@ -3731,6 +4003,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     families, k4_families = phase_families(dev, kernels, args.profile)
     torch.cuda.empty_cache()
+    hybrid, k4_hybrid = phase_hybrid(dev, kernels, args.profile)
+    torch.cuda.empty_cache()
     train = phase_train(dev, kernels, args.profile)
     torch.cuda.empty_cache()
 
@@ -3740,7 +4014,7 @@ def main() -> int:
             kernel_k3(u14, path["bsr_tricount"], k3_variants,
                       ptxas_report("bsr_tricount.cu")),
             kernel_k4(path["flash_attention_fwd"], k4_variants, k4_moe,
-                      k4_families)]
+                      k4_families, k4_hybrid)]
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
@@ -3750,6 +4024,7 @@ def main() -> int:
                  launches_phase_3g=sharded_service.get(r["name"], 0),
                  launches_phase_moe=moe_serve.get(r["name"], 0),
                  launches_phase_families=families.get(r["name"], 0),
+                 launches_phase_hybrid=hybrid.get(r["name"], 0),
                  launches_phase_train=train.get(r["name"], 0))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

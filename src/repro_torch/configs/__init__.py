@@ -1,1 +1,1 @@
-"""Model configurations (see ``repro.configs``): the dense and MoE families so far."""
+"""Model configurations (see ``repro.configs``): every LM family of the reference."""

@@ -4,10 +4,11 @@ A copy of ``repro/configs/base.py``: the same frozen :class:`ArchConfig`,
 ``SHAPES``, ``runnable_shapes`` and ``reduced``, so a config of the port
 equals its reference counterpart field by field.  The registry holds the
 configs ported so far: the four ``family="dense"`` ones, the two
-``family="moe"`` ones, and xlstm-350m (``"ssm"``), whisper-small
-(``"audio"``) and internvl2-26b (``"vlm"``); ``get_config`` of the
-reference's ``family="hybrid"`` jamba raises ``KeyError`` naming the
-``ROADMAP.md`` item that ports its family.
+``family="moe"`` ones, xlstm-350m (``"ssm"``), whisper-small
+(``"audio"``), internvl2-26b (``"vlm"``) and jamba-1.5-large-398b
+(``"hybrid"``); ``get_config`` of the reference's ``family="graph"``
+ringo-graph raises ``KeyError`` naming the ``ROADMAP.md`` item that
+decides on it with the ``launch/`` modules.
 """
 
 from __future__ import annotations
@@ -156,8 +157,9 @@ def get_config(name: str) -> ArchConfig:
     _ensure_loaded()
     if name not in _REGISTRY:
         raise KeyError(f"arch {name!r} is not in the port, which serves "
-                       f"{sorted(_REGISTRY)}; the hybrid family is not "
-                       f"ported yet: see ROADMAP.md Queue 1 item 15")
+                       f"{sorted(_REGISTRY)}; ringo-graph (family "
+                       f"'graph', a cost cell of launch/ringo_cells.py) "
+                       f"is not ported yet: see ROADMAP.md Queue 1 item 15")
     return _REGISTRY[name]
 
 
@@ -180,7 +182,8 @@ def _ensure_loaded() -> None:
     """Import the ported config modules once so registration side-effects run."""
     from . import (whisper_small, qwen1_5_4b, qwen2_5_3b,       # noqa: F401
                    starcoder2_15b, mistral_nemo_12b, grok_1_314b,
-                   qwen3_moe_235b_a22b, xlstm_350m, internvl2_26b)
+                   qwen3_moe_235b_a22b, jamba_1_5_large_398b, xlstm_350m,
+                   internvl2_26b)
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:

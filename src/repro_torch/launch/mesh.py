@@ -28,7 +28,8 @@ is.
 from __future__ import annotations
 
 import pickle
-from dataclasses import dataclass
+import weakref
+from dataclasses import InitVar, dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -51,13 +52,37 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True, eq=False)
 class ShardGroup:
     """``d`` shards, this process's ``rank`` among them, and their process
-    group (``None`` at ``d == 1``).  Every collective is called by every
-    member in the same order, or the members deadlock.
+    group ``pg`` (``None`` at ``d == 1``).  Every collective is called by
+    every member in the same order, or the members deadlock.
+
+    The group is held by a weak reference, so ``destroy_process_group``
+    frees it while the program runs.  A gloo group that a cache still held
+    was freed during interpreter shutdown instead, and that aborted the
+    process now and then ("terminate called without an active
+    exception"; ``probes/group_exit_abort.py``).
     """
 
     d: int
     rank: int
-    group: Optional[object] = None
+    pg: InitVar[Optional[object]] = None
+    _ref: Optional[weakref.ref] = field(init=False, default=None,
+                                        repr=False)
+
+    def __post_init__(self, pg) -> None:
+        object.__setattr__(self, "_ref",
+                           None if pg is None else weakref.ref(pg))
+
+    @property
+    def group(self) -> Optional[object]:
+        """The process group (``None``: none, or the default one); raises
+        once it has been destroyed."""
+        if self._ref is None:
+            return None
+        pg = self._ref()
+        if pg is None:
+            raise RuntimeError(f"the process group of this {self.d}-rank "
+                               f"ShardGroup was destroyed")
+        return pg
 
     def all_gather_cat(self, t: torch.Tensor) -> torch.Tensor:
         """Concatenate the members' equal-shaped blocks in rank order."""
@@ -167,12 +192,12 @@ def graph_group(n_shards: int) -> ShardGroup:
     if d == 1:
         return _GROUPS.setdefault(1, ShardGroup(1, 0))
     world = _world()
-    cached = _GROUPS.get(d)
-    if cached is not None and cached.group is world:
-        return cached
     if world is None:
         raise ValueError(f"graph_group({d}) needs a process group of {d} "
                          f"ranks and none is initialized; {_launch_hint(d)}")
+    cached = _GROUPS.get(d)
+    if cached is not None and cached._ref() is world:
+        return cached
     size = dist.get_world_size()
     if size != d:
         raise ValueError(f"graph_group({d}) but the process group has "
@@ -213,7 +238,7 @@ class GridGroups:
         return out.view(t.dtype)
 
 
-_GRIDS: Dict[int, Tuple[object, GridGroups]] = {}
+_GRIDS: Dict[int, Tuple[weakref.ref, GridGroups]] = {}
 
 
 def graph_grid(side: int) -> GridGroups:
@@ -231,7 +256,7 @@ def graph_grid(side: int) -> GridGroups:
         return GridGroups(1, 0, 0, one, one, one)
     world = _world()
     cached = _GRIDS.get(side)
-    if cached is not None and cached[0] is world:
+    if world is not None and cached is not None and cached[0]() is world:
         return cached[1]
     everyone = graph_group(side * side)
     rank = everyone.rank
@@ -242,5 +267,5 @@ def graph_grid(side: int) -> GridGroups:
     col_pgs = [dist.new_group(list(m)) for m in cols]
     grid = GridGroups(side, r, c, row=ShardGroup(side, c, row_pgs[r]),
                       col=ShardGroup(side, r, col_pgs[c]), world=everyone)
-    _GRIDS[side] = (world, grid)
+    _GRIDS[side] = (weakref.ref(world), grid)
     return grid

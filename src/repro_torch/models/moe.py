@@ -72,9 +72,9 @@ class MoE(nn.Module):
         self.router.reset(generator)
         d, f = self.wi.shape[1:]
         for w, fan_in in ((self.wi, d), (self.wg, d), (self.wo, f)):
-            if w is not None:
+            if w is not None:   # one float32 draw alive at a time
                 w.copy_(torch.randn(w.shape, generator=generator,
-                                    device=w.device) * (1.0 / fan_in ** 0.5))
+                                    device=w.device).mul_(1.0 / fan_in ** 0.5))
 
 
 class Routing(NamedTuple):

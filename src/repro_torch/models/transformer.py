@@ -18,14 +18,20 @@ Ported families:
   its output as ``enc_out``, so a generation runs the encoder twice;
 * ``"ssm"`` (xLSTM): periods of ``cfg.block_pattern`` blocks (mLSTM /
   sLSTM, :mod:`.xlstm`) with a stacked pre-norm ``ln`` and no FFN;
-  ``prefill`` returns the blocks' terminal recurrent states as the cache.
+  ``prefill`` returns the blocks' terminal recurrent states as the cache;
+* ``"hybrid"`` (jamba): periods of ``cfg.attn_every`` sub-layers, the
+  first ``attn_every - 1`` mixing with a Mamba (:mod:`.ssm`), the last
+  with attention (K4); each sub-layer's FFN is an MoE where ``i %
+  cfg.moe_every == 1`` (the reference's model code, not
+  ``param_count``'s ``layer % moe_every == 0``) and an MLP elsewhere.
+  ``prefill`` returns the attention layer's K/V and each Mamba's terminal
+  state (its chunked scan's last carry).
 
-``"hybrid"`` (jamba) raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.  The layers are a Python loop over an
-``nn.ModuleList`` where the reference scans stacked parameters;
-``from_arrays`` / ``to_arrays`` convert between the two (``layers`` and
-``enc.layers`` are stacked), so the reference's ``init_params`` pytree
-loads bit for bit.
+The layers are a Python loop over an ``nn.ModuleList`` where the
+reference scans stacked parameters; ``from_arrays`` / ``to_arrays``
+convert between the two (``layers`` and ``enc.layers`` are stacked, and
+a hybrid period's ``mamba``, ``moe`` and ``mlp`` carry a second, inner
+stack axis), so the reference's ``init_params`` pytree loads bit for bit.
 
 Training: :meth:`Transformer.forward_train` is the forward with autograd
 on, each block (and encoder layer) wrapped per ``cfg.remat`` (the
@@ -43,8 +49,11 @@ drop them.
 The cache keeps the reference's layout: ``{"attn": {"k", "v"}}`` with
 shape (n_layers, B, max_seq, Hkv, D) in the compute dtype for the
 attention families, ``{"b<i>": {"c", "n", "m"} | {"c", "n", "h", "m"}}``
-float32 states with a leading period axis for xLSTM.  Prefill and decode
-write it in place.
+float32 states with a leading period axis for xLSTM, and for the hybrid
+``{"attn": {"k", "v"}, "mamba": {"h", "conv"}}``: K/V (periods, B,
+max_seq, Hkv, D), ``h`` (periods, attn_every - 1, B, di, N) float32,
+``conv`` (periods, attn_every - 1, B, W - 1, di) in the compute dtype.
+Prefill and decode write it in place.
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from torch.utils import checkpoint as ckpt
 from ..device import DeviceLike, resolve
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
 from .layers import (MLP, Embed, Norm, dtype_of, embed_apply, mlp_apply,
                      norm_apply, unembed_apply)
@@ -67,8 +77,9 @@ from .layers import (MLP, Embed, Norm, dtype_of, embed_apply, mlp_apply,
 __all__ = ["Transformer", "n_scan_steps", "REMAT"]
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
-_FAMILIES = ("dense", "moe", "ssm", "audio", "vlm")   # the ported ones
+_FAMILIES = ("dense", "moe", "ssm", "audio", "vlm", "hybrid")
 _STACKED = ("layers.", "enc.layers.")   # stacked on a leading axis
+_INNER = ("mamba.", "moe.", "mlp.")     # a hybrid period's inner stacks
 _ITEM = "ROADMAP.md Queue 1 item 15"
 REMAT = ("full", "dots", "none")
 
@@ -85,12 +96,13 @@ _DOT_OPS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
             torch.ops.aten.addmm.default, torch.ops.aten.matmul.default}
 
 
-def _ffn(blk: "Block", h: torch.Tensor, cfg
+def _ffn(ffn: nn.Module, h: torch.Tensor, cfg
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The block's FFN on ``h`` -> (output, the MoE's aux loss or None)."""
-    if blk.moe is not None:
-        return moe_mod.moe_apply(blk.moe, h, cfg)
-    return mlp_apply(blk.mlp, h, cfg.act, h.dtype), None
+    """An FFN (an MLP or an MoE) on ``h`` -> (output, the MoE's aux loss
+    or None)."""
+    if isinstance(ffn, moe_mod.MoE):
+        return moe_mod.moe_apply(ffn, h, cfg)
+    return mlp_apply(ffn, h, cfg.act, h.dtype), None
 
 
 def _block_apply(blk: "Block", x: torch.Tensor,
@@ -107,7 +119,7 @@ def _block_apply(blk: "Block", x: torch.Tensor,
                                                            cfg.norm),
                                      cfg, kv_override=(enc_out, enc_out),
                                      chunk=chunk)
-    f, aux = _ffn(blk, norm_apply(blk.ln2, x, cfg.norm), cfg)
+    f, aux = _ffn(blk.ffn, norm_apply(blk.ln2, x, cfg.norm), cfg)
     return x + f, aux
 
 
@@ -136,6 +148,36 @@ def _xlstm_apply(blk: "XlstmPeriod", x: torch.Tensor, cfg, states=None
             states.append(st)
         x = x + y
     return x, None
+
+
+def _hybrid_apply(blk: "HybridPeriod", x: torch.Tensor, cfg, chunk: int,
+                  skip_upper_triangle: bool, kv=None, states=None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One hybrid period -> (x, its MoE layers' summed aux loss).  With
+    ``kv`` (the period's K/V cache) the attention layer is prefill's and
+    each Mamba's terminal state is appended to ``states``."""
+    aux = None
+    for i, mixer, ffn in blk.sublayers():
+        h = norm_apply(blk.mix_ln.row(i), x, cfg.norm)
+        if mixer is None:
+            if kv is None:
+                a = attn.attention_train(
+                    blk.attn, h, cfg, causal=True, chunk=chunk,
+                    skip_upper_triangle=skip_upper_triangle)
+            else:
+                a, _ = attn.attention_prefill(blk.attn, h, cfg, kv,
+                                              chunk=chunk)
+        elif states is None:
+            a = ssm_mod.mamba_train(mixer, h, cfg)
+        else:
+            a, st = ssm_mod.mamba_train(mixer, h, cfg, return_state=True)
+            states.append(st)
+        x = x + a
+        f, aux_l = _ffn(ffn, norm_apply(blk.ffn_ln.row(i), x, cfg.norm), cfg)
+        if aux_l is not None:
+            aux = aux_l if aux is None else aux + aux_l
+        x = x + f
+    return x, aux
 
 
 def _remat(body, remat: str):
@@ -194,6 +236,11 @@ class Block(nn.Module):
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
             self.moe = None
 
+    @property
+    def ffn(self) -> nn.Module:
+        """The layer's FFN: ``mlp`` or ``moe``."""
+        return self.mlp if self.moe is None else self.moe
+
     def reset(self, generator: torch.Generator) -> None:
         self.ln1.reset()
         self.attn.reset(generator)
@@ -201,7 +248,7 @@ class Block(nn.Module):
             self.ln_x.reset()
             self.xattn.reset(generator)
         self.ln2.reset()
-        (self.mlp if self.moe is None else self.moe).reset(generator)
+        self.ffn.reset(generator)
 
 
 class XlstmPeriod(nn.Module):
@@ -228,15 +275,59 @@ class XlstmPeriod(nn.Module):
             self.mixer(i).reset(generator)
 
 
+class HybridPeriod(nn.Module):
+    """One jamba period of ``n = cfg.attn_every`` sub-layers: ``mix_ln``
+    and ``ffn_ln``, stacked pre-norms (n, d); ``mamba``, the n - 1 mixers
+    of sub-layers 0..n-2; ``attn``, sub-layer n - 1's; ``moe``, the FFNs
+    of the sub-layers with ``i % cfg.moe_every == 1``, and ``mlp``, the
+    others' (``_hybrid_period_init``'s stacks, in sub-layer order)."""
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        n = cfg.attn_every
+        self.moe_at = tuple(i % cfg.moe_every == 1 for i in range(n))
+        self.mix_ln = Norm(cfg.d_model, cfg.norm, stack=n, **kw)
+        self.ffn_ln = Norm(cfg.d_model, cfg.norm, stack=n, **kw)
+        self.mamba = nn.ModuleList(ssm_mod.Mamba(cfg.d_model, cfg, **kw)
+                                   for _ in range(n - 1))
+        self.attn = attn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim,
+                                   qkv_bias=cfg.qkv_bias, **kw)
+        self.moe = nn.ModuleList(
+            moe_mod.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.act, **kw)
+            for _ in range(sum(self.moe_at)))
+        self.mlp = nn.ModuleList(MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
+                                 for _ in range(n - sum(self.moe_at)))
+
+    def sublayers(self):
+        """(i, the Mamba of sub-layer i or None for attention, its FFN)."""
+        moe, mlp = iter(self.moe), iter(self.mlp)
+        for i, at in enumerate(self.moe_at):
+            mixer = self.mamba[i] if i < len(self.mamba) else None
+            yield i, mixer, next(moe) if at else next(mlp)
+
+    def reset(self, generator: torch.Generator) -> None:
+        self.mix_ln.reset()
+        self.ffn_ln.reset()
+        self.attn.reset(generator)
+        for m in (*self.mamba, *self.moe, *self.mlp):
+            m.reset(generator)
+
+
 def _float32_reads(model: nn.Module):
     """The parameters an apply reads in float32 whatever the compute dtype
     (the reference's ``astype(float32)`` of the parameter): norm scales and
-    biases, and sLSTM's recurrent ``r_h``."""
+    biases, sLSTM's recurrent ``r_h`` and the Mamba's ``a_log`` (its
+    ``dt_bias``, ``d_skip`` and ``conv_w`` are read in the compute
+    dtype)."""
     for m in model.modules():
         if isinstance(m, Norm):
             yield from m.parameters()
         elif isinstance(m, xlstm_mod.sLSTM):
             yield from m.r_h.parameters()
+        elif isinstance(m, ssm_mod.Mamba):
+            yield m.a_log
 
 
 class Transformer(nn.Module):
@@ -262,6 +353,9 @@ class Transformer(nn.Module):
             Embed(cfg.vocab_size, cfg.d_model, **kw)
         if cfg.family == "ssm":
             layers = (XlstmPeriod(cfg, **kw) for _ in range(n_scan_steps(cfg)))
+        elif cfg.family == "hybrid":
+            layers = (HybridPeriod(cfg, **kw)
+                      for _ in range(n_scan_steps(cfg)))
         else:
             layers = (Block(cfg, cross=cfg.is_encoder_decoder, **kw)
                       for _ in range(n_scan_steps(cfg)))
@@ -313,18 +407,26 @@ class Transformer(nn.Module):
     def from_arrays(cls, cfg, arrays: Dict[str, Any],
                     device: DeviceLike = None) -> "Transformer":
         """Load the reference's ``init_params`` pytree: nested dicts of
-        arrays, ``params["layers"]`` leaves with a leading layer axis."""
+        arrays, ``params["layers"]`` leaves with a leading layer axis (and
+        a hybrid period's ``mamba`` / ``moe`` / ``mlp`` a second one)."""
         model = cls(cfg, device=device)
+        inner = _INNER if cfg.family == "hybrid" else ()
         flat = {}
         for key, a in _flatten(arrays):
             a = np.asarray(a)
             stack = _stack_of(key)
-            if stack:
-                rest = key[len(stack):]
-                for i in range(a.shape[0]):
-                    flat[f"{stack}{i}.{rest}"] = a[i]
-            else:
+            if not stack:
                 flat[key] = a
+                continue
+            rest = key[len(stack):]
+            sub = next((q for q in inner if rest.startswith(q)), "")
+            for i in range(a.shape[0]):
+                if sub:
+                    for j in range(a.shape[1]):
+                        flat[f"{stack}{i}.{sub}{j}.{rest[len(sub):]}"] = \
+                            a[i, j]
+                else:
+                    flat[f"{stack}{i}.{rest}"] = a[i]
         params = dict(model.named_parameters())
         if set(flat) != set(params):
             raise ValueError(
@@ -340,19 +442,25 @@ class Transformer(nn.Module):
 
     def to_arrays(self) -> Dict[str, Any]:
         """The inverse of :meth:`from_arrays`: numpy arrays, layers stacked."""
+        inner = _INNER if self.cfg.family == "hybrid" else ()
         out: Dict[str, Any] = {}
-        stacked: Dict[str, list] = {}
+        stacked: Dict[str, Dict[int, Any]] = {}
         for key, p in self.named_parameters():
             a = p.detach().cpu().numpy()
             stack = _stack_of(key)
-            if stack:
-                i, rest = key[len(stack):].split(".", 1)
-                stacked.setdefault(stack + rest, []).append((int(i), a))
-            else:
+            if not stack:
                 _set(out, key, a)
-        for key, items in stacked.items():
-            _set(out, key,
-                 np.stack([a for _, a in sorted(items, key=lambda t: t[0])]))
+                continue
+            i, rest = key[len(stack):].split(".", 1)
+            sub = next((q for q in inner if rest.startswith(q)), "")
+            if sub:
+                j, rest = rest[len(sub):].split(".", 1)
+                stacked.setdefault(stack + sub + rest, {}).setdefault(
+                    int(i), {})[int(j)] = a
+            else:
+                stacked.setdefault(stack + rest, {})[int(i)] = a
+        for key, rows in stacked.items():
+            _set(out, key, _stack_rows(rows))
         return out
 
     @torch.no_grad()
@@ -410,13 +518,17 @@ class Transformer(nn.Module):
             if cfg.is_encoder_decoder else None
         if cfg.family == "ssm":
             body = _remat(functools.partial(_xlstm_apply, cfg=cfg), remat)
+        elif cfg.family == "hybrid":
+            body = _remat(functools.partial(
+                _hybrid_apply, cfg=cfg, chunk=chunk,
+                skip_upper_triangle=skip_upper_triangle), remat)
         else:
             body = _remat(functools.partial(
                 _block_apply, cfg=cfg, chunk=chunk,
                 skip_upper_triangle=skip_upper_triangle), remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.layers:
-            if cfg.family == "ssm":
+            if cfg.family in ("ssm", "hybrid"):
                 x, aux_l = body(blk, x)
             else:
                 x, aux_l = body(blk, x, enc_out)
@@ -474,7 +586,8 @@ class Transformer(nn.Module):
     def init_cache(self, batch_size: int, max_seq: int) -> Cache:
         """Zeroed K/V, (n_layers, B, max_seq, Hkv, D) in the compute dtype;
         for xLSTM each block's zero state (m = -1e30), float32, with a
-        leading period axis."""
+        leading period axis; for the hybrid the period's K/V and its
+        Mambas' zero states, (periods, attn_every - 1, ...)."""
         cfg = self.cfg
         n = n_scan_steps(cfg)
         if cfg.family == "ssm":
@@ -487,11 +600,18 @@ class Transformer(nn.Module):
                 cache[f"b{i}"] = {k: t.view(n, batch_size, *t.shape[1:])
                                   for k, t in per.items()}
             return cache
+        compute = dtype_of(cfg.compute_dtype)
         per = attn.init_kv_cache(n * batch_size, max_seq, cfg.n_kv_heads,
-                                 cfg.resolved_head_dim,
-                                 dtype_of(cfg.compute_dtype), self.device)
-        return {"attn": {k: t.view(n, batch_size, *t.shape[1:])
-                         for k, t in per.items()}}
+                                 cfg.resolved_head_dim, compute, self.device)
+        cache = {"attn": {k: t.view(n, batch_size, *t.shape[1:])
+                          for k, t in per.items()}}
+        if cfg.family == "hybrid":
+            m = cfg.attn_every - 1
+            per = ssm_mod.mamba_init_cache(n * m * batch_size, cfg.d_model,
+                                           cfg, compute, self.device)
+            cache["mamba"] = {k: t.view(n, m, batch_size, *t.shape[1:])
+                              for k, t in per.items()}
+        return cache
 
     @staticmethod
     def _layer_cache(cache: Cache, i: int) -> Dict[str, torch.Tensor]:
@@ -502,8 +622,9 @@ class Transformer(nn.Module):
                 chunk: int = 1024) -> Tuple[torch.Tensor, Cache]:
         """Run the prompt ``batch["tokens"]`` (B, S) (with ``forward``'s
         other keys) -> (last-token logits (B, 1, V), a new cache: the
-        prompt's K/V, or xLSTM's terminal states).  Whisper's encoder runs
-        here, as in the reference."""
+        prompt's K/V, xLSTM's terminal states, or the hybrid's K/V and
+        Mamba states).  Whisper's encoder runs here, as in the
+        reference."""
         cfg = self.cfg
         compute = dtype_of(cfg.compute_dtype)
         x = self._embed_inputs(batch, compute)
@@ -518,6 +639,15 @@ class Transformer(nn.Module):
                     for name, t in st.items():
                         cache[f"b{j}"][name][i] = t
                 continue
+            if cfg.family == "hybrid":
+                states = []
+                x, _ = _hybrid_apply(blk, x, cfg, chunk, True,
+                                     kv=self._layer_cache(cache, i),
+                                     states=states)
+                for j, st in enumerate(states):
+                    for name, t in st.items():
+                        cache["mamba"][name][i, j] = t
+                continue
             h = norm_apply(blk.ln1, x, cfg.norm)
             a, _ = attn.attention_prefill(blk.attn, h, cfg,
                                           self._layer_cache(cache, i),
@@ -528,7 +658,7 @@ class Transformer(nn.Module):
                 x = x + attn.attention_train(blk.xattn, h, cfg,
                                              kv_override=(enc_out, enc_out),
                                              chunk=chunk)
-            x = x + _ffn(blk, norm_apply(blk.ln2, x, cfg.norm), cfg)[0]
+            x = x + _ffn(blk.ffn, norm_apply(blk.ln2, x, cfg.norm), cfg)[0]
         x = norm_apply(self.norm_f, x, cfg.norm)
         return unembed_apply(self._head(), x[:, -1:], compute), cache
 
@@ -561,6 +691,9 @@ class Transformer(nn.Module):
                         lcache[name].copy_(t)
                     x = x + y
                 continue
+            if cfg.family == "hybrid":
+                x = self._hybrid_decode(blk, i, x, cache, pos)
+                continue
             h = norm_apply(blk.ln1, x, cfg.norm)
             a, _ = attn.attention_decode(blk.attn, h, cfg,
                                          self._layer_cache(cache, i), pos)
@@ -571,15 +704,40 @@ class Transformer(nn.Module):
                                              self._layer_cache(cache, i), pos,
                                              kv_override=(enc_out, enc_out))
                 x = x + a
-            x = x + _ffn(blk, norm_apply(blk.ln2, x, cfg.norm), cfg)[0]
+            x = x + _ffn(blk.ffn, norm_apply(blk.ln2, x, cfg.norm), cfg)[0]
         x = norm_apply(self.norm_f, x, cfg.norm)
         return unembed_apply(self._head(), x, compute), cache
+
+    def _hybrid_decode(self, blk: HybridPeriod, i: int, x: torch.Tensor,
+                       cache: Cache, pos: torch.Tensor) -> torch.Tensor:
+        """One token through period ``i``; its cache rows in place."""
+        cfg = self.cfg
+        for j, mixer, ffn in blk.sublayers():
+            h = norm_apply(blk.mix_ln.row(j), x, cfg.norm)
+            if mixer is None:
+                a, _ = attn.attention_decode(blk.attn, h, cfg,
+                                             self._layer_cache(cache, i), pos)
+            else:
+                lcache = {k: t[i, j] for k, t in cache["mamba"].items()}
+                a, st = ssm_mod.mamba_decode(mixer, h, cfg, lcache)
+                for name, t in st.items():
+                    lcache[name].copy_(t)
+            x = x + a
+            x = x + _ffn(ffn, norm_apply(blk.ffn_ln.row(j), x, cfg.norm),
+                         cfg)[0]
+        return x
 
 
 def _stack_of(key: str) -> str:
     """The stacked prefix (``layers.`` or ``enc.layers.``) of a parameter
     key, or ""."""
     return next((p for p in _STACKED if key.startswith(p)), "")
+
+
+def _stack_rows(rows: Dict[int, Any]) -> np.ndarray:
+    """``{i: array or {j: array}}`` stacked in index order, inner first."""
+    return np.stack([_stack_rows(v) if isinstance(v, dict) else v
+                     for _, v in sorted(rows.items())])
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = ""):

@@ -342,7 +342,8 @@ class _Mirror:
     order: a message's drops first, then its call, then what the call
     keeps, so rank 0 always knows what a follower holds.  An idle service
     sends a keep-alive so the followers' wait never reaches the process
-    group's timeout.
+    group's timeout; :meth:`close` stops and joins the thread that sends
+    it, so no thread of the service outlives ``close``.
     """
 
     def __init__(self, group: ShardGroup, keepalive_s: float = 5.0):
@@ -362,6 +363,7 @@ class _Mirror:
                       "results_sent": 0, "keepalives": 0}
         self._last = time.monotonic()
         self._keepalive_s = keepalive_s
+        self._stop = threading.Event()
         self._ticker = threading.Thread(target=self._keepalive, daemon=True,
                                         name="graph-service-keepalive")
         self._ticker.start()
@@ -400,8 +402,7 @@ class _Mirror:
         self._last = time.monotonic()
 
     def _keepalive(self) -> None:
-        while not self.closed:
-            time.sleep(self._keepalive_s / 4)
+        while not self._stop.wait(self._keepalive_s / 4):
             if time.monotonic() - self._last < self._keepalive_s:
                 continue
             if self.lock.acquire(blocking=False):
@@ -469,11 +470,15 @@ class _Mirror:
             return out
 
     def close(self) -> None:
-        with self.lock:
-            if not self.closed:
-                self._take_drops()
-                self._send({"kind": "close"})
-                self.closed = True
+        try:
+            with self.lock:
+                if not self.closed:
+                    self._take_drops()
+                    self._send({"kind": "close"})
+                    self.closed = True
+        finally:
+            self._stop.set()
+            self._ticker.join()
 
 
 def serve_follower(group: Optional[ShardGroup] = None,

@@ -6,7 +6,10 @@ method; each joins a gloo process group over a ``FileStore`` in ``workdir``
 already runs several pytest workers), and pickles what it returns.  The
 parent joins the ranks against a deadline, kills any that outlive it, and
 fails with every rank's traceback when a rank raised or hung: nothing a
-rank raises is swallowed.  It returns the ranks' results in rank order.
+rank raises is swallowed.  A rank that dies on a signal (an abort inside
+torch) or is still running 15 s before the deadline also leaves the
+Python stacks of all its threads (``faulthandler``), and the failure
+shows them.  It returns the ranks' results in rank order.
 
 Jobs live in this module (and import only torch, numpy and ``repro_torch``)
 so a rank never imports jax or the reference.
@@ -15,6 +18,7 @@ so a rank never imports jax or the reference.
 from __future__ import annotations
 
 import datetime
+import faulthandler
 import multiprocessing as mp
 import os
 import pickle
@@ -24,13 +28,19 @@ import traceback
 from pathlib import Path
 
 JOIN_SECONDS = 180.0
+_FAULTS = []        # each rank's faulthandler file, open until it exits
 
 
-def _rank_main(rank: int, d: int, workdir: str, job, args) -> None:
+def _rank_main(rank: int, d: int, workdir: str, timeout: float, job,
+               args) -> None:
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
     out = Path(workdir)
+    _FAULTS.append(open(out / f"rank{rank}.stacks", "w"))
+    faulthandler.enable(_FAULTS[-1], all_threads=True)
+    faulthandler.dump_traceback_later(max(timeout - 15.0, 1.0),
+                                      file=_FAULTS[-1])
     try:
         dist.init_process_group(
             "gloo", init_method=f"file://{out / 'store'}", rank=rank,
@@ -53,7 +63,8 @@ def run_world(job, d: int, workdir, *args, timeout: float = JOIN_SECONDS):
     workdir.mkdir(parents=True, exist_ok=True)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, d, str(workdir), job, args), daemon=True)
+                         args=(r, d, str(workdir), timeout, job, args),
+                         daemon=True)
              for r in range(d)]
     for p in procs:
         p.start()
@@ -65,8 +76,12 @@ def run_world(job, d: int, workdir, *args, timeout: float = JOIN_SECONDS):
         procs[r].kill()
         procs[r].join(10.0)
     codes = [p.exitcode for p in procs]
-    errs = {r: (workdir / f"rank{r}.err").read_text()
-            for r in range(d) if (workdir / f"rank{r}.err").exists()}
+    errs = {}
+    for r in range(d):
+        for kind in ("err", "stacks"):
+            f = workdir / f"rank{r}.{kind}"
+            if f.exists() and f.read_text().strip():
+                errs[r] = errs.get(r, "") + f"[{kind}]\n{f.read_text()}"
     assert not hung and all(c == 0 for c in codes), (
         f"world of {d}: exit codes {codes}, hung ranks {hung} "
         f"(killed after {timeout} s)\n" + "\n".join(
@@ -422,7 +437,9 @@ def service_threads_script() -> dict:
 def service_job() -> dict:
     """A d-rank "sharded" service: rank 0 runs ``service_script`` (two
     services) and ``service_threads_script``, every other rank follows
-    each service until its ``close``."""
+    each service until its ``close``.  Rank 0 also returns the names of
+    the threads still alive after the three services' ``close``."""
+    import threading
     from repro_torch.core.engine import shard_count
     from repro_torch.launch.mesh import graph_group
     from repro_torch.serve.graph_service import serve_follower
@@ -430,8 +447,46 @@ def service_job() -> dict:
     if group.rank == 0:
         res = service_script()
         res["threads"] = service_threads_script()
+        res["threads_after_close"] = sorted(t.name
+                                            for t in threading.enumerate())
         return res
     return {"followed": [serve_follower(device="cpu") for _ in range(3)]}
+
+
+def group_lifetime_job(workdir: str) -> dict:
+    """Whether anything of the port keeps this rank's process group alive
+    past ``destroy_process_group`` (a group freed only at interpreter
+    shutdown aborts a gloo rank now and then): take ``graph_group``, run
+    a "sharded" PageRank (its exec caches the group), destroy the default
+    group and report whether it was freed and what the old ``ShardGroup``
+    says now; then join a second world (a new store in ``workdir``) and
+    report whether ``graph_group`` gives a new group."""
+    import datetime
+    import gc
+    import weakref
+
+    import torch.distributed as dist
+    from repro_torch.core import algorithms as A
+    from repro_torch.core.graph import Graph
+    from repro_torch.launch.mesh import graph_group
+    d, rank = dist.get_world_size(), dist.get_rank()
+    old = graph_group(d)
+    g, _ = distributed_graph(Graph, device="cpu")
+    pr = A.pagerank(g, n_iter=3, backend="sharded")
+    ref = weakref.ref(dist.group.WORLD)
+    dist.barrier()
+    dist.destroy_process_group()
+    gc.collect()
+    out = {"freed": ref() is None, "pagerank": pr.numpy()}
+    try:
+        out["old_group"] = repr(old.group)
+    except RuntimeError as exc:
+        out["old_group"] = str(exc)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{workdir}/store2", rank=rank,
+        world_size=d, timeout=datetime.timedelta(seconds=60))
+    out["new_group"] = graph_group(d) is not old
+    return out
 
 
 def ddp_job(arrays, batch) -> dict:

@@ -22,7 +22,9 @@ qwen3-moe MoE layer at full width holds to ``chip_smoke.py``'s per-token
 oracle (phase 4c), its routing to a float64 recomputation.  K4 at
 whisper's shapes, scaled down (D = 64, non-causal, Sq != Sk, ragged last
 tiles), holds to that rule; sLSTM's float32 recurrence on the card, TF32
-off, to the CPU's.
+off, to the CPU's.  Reduced jamba (Mamba, attention and MoE sub-layers)
+on the card equals its CPU run, and a full-width Mamba mixer's chunked
+train scan equals its decode steps on the card.
 """
 
 import importlib.util
@@ -56,7 +58,8 @@ from repro_torch.kernels.pieces import piece_table
 from repro_torch.kernels.segment_sum import (chunk_layout,
                                              segment_sum_chunked,
                                              segment_sum_chunked_plain)
-from repro_torch.models import moe, xlstm
+from repro_torch.models import moe, ssm, xlstm
+from repro_torch.models.transformer import Transformer
 
 pytestmark = pytest.mark.cuda
 
@@ -790,3 +793,67 @@ def test_moe_layer_at_full_width_matches_the_per_token_oracle(dev):
     got = smoke.moe_oracle_check(layer, x.to(torch.bfloat16), cfg)
     assert got["capacity"] == 640
     assert got["assignments_dropped"] >= 8 * (1024 - 640)
+
+
+def _close_to_largest(got, want, rel):
+    scale = float(want.double().abs().max())
+    err = float((got.cpu().double() - want.cpu().double()).abs().max())
+    return err <= rel * scale, (err, scale)
+
+
+def test_reduced_hybrid_on_the_card_equals_the_cpu(dev):
+    """Reduced jamba (d 64, one 3:1 period of Mamba, Mamba, Mamba,
+    attention; MoE on sub-layers 1 and 3) in float32, the same weights on
+    both: ``forward``, ``prefill`` (logits, K/V and the Mamba states) and
+    two ``decode_step``s on the card within 1e-4 of the largest value of
+    the CPU's."""
+    cfg = reduced(get_config("jamba-1.5-large-398b"), n_layers=4)
+    cpu = Transformer.init_params(cfg, torch.Generator().manual_seed(4),
+                                  device="cpu")
+    card = Transformer(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    tokens = np.random.default_rng(22).integers(0, cfg.vocab_size, (2, 32))
+    toks = torch.from_numpy(tokens.astype(np.int32))
+    pairs = [("forward", card({"tokens": toks.to(dev)})[0],
+              cpu({"tokens": toks})[0])]
+    got, got_cache = card.prefill({"tokens": toks[:, :30].to(dev)}, 36)
+    want, want_cache = cpu.prefill({"tokens": toks[:, :30]}, 36)
+    for t in range(2):
+        pairs.append((f"logits {t}", got, want))
+        pairs += [(f"{t} {name}.{k}", got_cache[name][k],
+                   want_cache[name][k]) for name in want_cache
+                  for k in want_cache[name]]
+        got, got_cache = card.decode_step(got_cache, toks[:, 30 + t:31 + t]
+                                          .to(dev), 30 + t)
+        want, want_cache = cpu.decode_step(want_cache, toks[:, 30 + t:31 + t],
+                                           30 + t)
+    pairs.append(("logits 2", got, want))
+    for name, g, w in pairs:
+        ok, detail = _close_to_largest(g, w, 1e-4)
+        assert ok, (name, detail)
+
+
+def test_mamba_at_full_width_train_equals_decode_steps(dev):
+    """jamba's Mamba mixer at full width (d 8192, di 16384, state 16) in
+    float32 with TF32 off: the chunked ``mamba_train`` (4 chunks of 64,
+    the log-depth scan) over (2, 256) inputs against ``mamba_decode``
+    stepped over them from the zero cache, outputs and terminal states,
+    at the reference test's atol 1e-4 / rtol 1e-3."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("jamba-1.5-large-398b")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    mix = ssm.Mamba(cfg.d_model, cfg, device=dev).requires_grad_(False)
+    with torch.no_grad():
+        mix.reset(gen)
+        x = torch.randn((2, 256, cfg.d_model), generator=gen, device=dev)
+        y, st = ssm.mamba_train(mix, x, cfg, chunk=64, return_state=True)
+        cache = ssm.mamba_init_cache(2, cfg.d_model, cfg, device=dev)
+        ys = []
+        for t in range(256):
+            y1, cache = ssm.mamba_decode(mix, x[:, t:t + 1], cfg, cache)
+            ys.append(y1)
+    pairs = [("output", torch.cat(ys, dim=1), y)] + \
+        [(k, cache[k], st[k]) for k in ("h", "conv")]
+    for name, got, want in pairs:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-3, err_msg=name)

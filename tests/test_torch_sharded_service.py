@@ -15,14 +15,17 @@ collective its peers never enter: the world's deadline turns that into a
 failure.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
 
-from _torch_worlds import (run_world, service_job, service_script,
-                           service_threads_script)
+from _torch_worlds import (group_lifetime_job, run_world, service_job,
+                           service_script, service_threads_script)
 from repro_torch.launch.mesh import ShardGroup
-from repro_torch.serve.graph_service import GraphService, serve_follower
+from repro_torch.serve.graph_service import (GraphService, _Mirror,
+                                             serve_follower)
 
 torch.set_num_threads(2)
 
@@ -94,6 +97,42 @@ def test_threaded_sessions_equal_one_rank(world, one_rank):
         assert len(got[name]) == len(want[name])
         for a, b in zip(got[name], want[name]):
             assert _same(a, b), name
+
+
+def test_no_service_thread_outlives_close(world):
+    """After the three services' ``close`` rank 0 runs only its main
+    thread: a thread left inside torch when the interpreter exits aborts
+    the process ("terminate called without an active exception")."""
+    d, res = world
+    assert res[0]["threads_after_close"] == ["MainThread"]
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_a_destroyed_process_group_is_freed(d, tmp_path):
+    """``destroy_process_group`` frees the group although ``graph_group``
+    and a "sharded" exec hold it (weakly): a gloo group freed only at
+    interpreter shutdown aborted a rank now and then ("terminate called
+    without an active exception", ``probes/group_exit_abort.py``).  The
+    old ``ShardGroup`` then raises, and a new world gets a new group."""
+    res = run_world(group_lifetime_job, d, tmp_path, str(tmp_path))
+    for r in res:
+        assert r["freed"], r
+        assert "was destroyed" in r["old_group"], r["old_group"]
+        assert r["new_group"]
+        assert np.array_equal(r["pagerank"], res[0]["pagerank"])
+
+
+def test_mirror_close_joins_its_keepalive_thread():
+    """``_Mirror.close`` stops and joins the keep-alive thread at once
+    (here over a one-rank group, whose broadcast is the identity): before,
+    the thread slept on for up to ``keepalive_s / 4`` after ``close``."""
+    m = _Mirror(ShardGroup(1, 0), keepalive_s=4.0)
+    assert m._ticker.is_alive()
+    t0 = time.monotonic()
+    m.close()
+    assert not m._ticker.is_alive() and time.monotonic() - t0 < 0.5
+    assert m.closed
+    m.close()                        # a second close is a no-op
 
 
 def test_one_rank_group_broadcast_is_the_identity():
