@@ -158,12 +158,49 @@ Phases (each prints one JSON line with its seconds):
    and in the decode steps, prefill seconds, decode seconds per token and
    tokens/s; with ``--profile``, one MoE prefill and one decode step under
    ``torch.profiler`` (busy share, top kernels).  Drops are counted by a
-   spy on ``models.moe.route``.  K4 must launch 5 x 8 + 2 times in the
-   phase (6 x 8 + 2 with ``--profile``) and K1-K3 never.  After the
+   spy on ``models.moe.route``.  K4 must launch 5 x 8 + 2 + 6 times in
+   the phase (6 x 8 + 2 + 6 with ``--profile``; the last 6 are phase
+   4f's yardstick, which phase 4f hands in as a baseline run on the
+   model) and K1-K3 never.  After the
    window, K4 runs on the q, k, v that each model's layer 0 gave it in
    the first ``generate`` (after RoPE and the GQA repeat) and must pass
    ``attention_error_ratios`` there, as in phase 5; its times there
-   print in the phase line and in K4's row (``moe_path_inputs``).
+   print in the phase line and in K4's row (``moe_path_inputs``).  The
+   models are built over a one-rank ``model_grid(1, 1)`` (the same
+   weights and results as without it).
+4f. the dense and MoE families sharded over ranks (after 4c): two gloo
+   ranks spawned on the card (``build/phase4f/``, removed after), a (1, 2)
+   ``model_grid``, one model at a time, freed before the next:
+   ``qwen2.5-3b`` at full width and depth, then ``qwen3-moe-235b-a22b`` at
+   phase 4c's 6 layers with ``moe_impl="expert_tp"`` at its own capacity
+   factor (1.25).  Each rank draws the full weights from seed 0 and keeps
+   its blocks (half the heads, FFN columns, experts and vocabulary),
+   serves phase 4's prompts behind ``Engine(ServeConfig(batch=4,
+   max_seq=2080))``, 32 new tokens, then runs the yardstick: the last
+   prompt position's prefill logits and 4 decode steps fed the d = 1
+   model's first 4 generated tokens.  The d = 1 yardstick is written by
+   phase 4 (its engine's bf16 weights) and phase 4c (qwen3-moe with
+   ``expert_tp`` over the one-rank grid, so the capacity rule is the
+   same; a spy on ``models.moe.route`` records each routing's experts
+   there and in the ranks' yardsticks).  Checks: every rank's yardstick
+   logits within ``DECODE_TOL`` x the largest d = 1 logit, row by row,
+   except a qwen3-moe decode step whose token chose other experts than
+   at d = 1 in some layer, within ``ROUTED_STEP_TOL`` (a rounding flips
+   tokens among near-equal router probabilities); both ranks route
+   alike, and at most ``ROUTE_FLIP_LIMIT`` of the (token, layer)
+   routings choose other experts than d = 1 (counts by position and
+   layer, and the d = 1 router margins of the flipped tokens, print in
+   the line); both ranks generate the same tokens; on each rank K4
+   launches once a layer in the ``generate`` and once a layer in the
+   yardstick's prefill, all ``"sm90_wgmma"``, at the local shapes
+   (4, 2048, 8, 128) and (4, 2048, 32, 128), and K1-K3 never; rank 0's
+   layer-0 q, k, v held to K4's plain version (``k4_on_path_inputs``,
+   timed beside SDPA and the bound, in K4's row as
+   ``sharded_lm_path_inputs``).  Each rank prints its prefill seconds,
+   ms a decoded token, the collectives (count, bytes sent, host seconds)
+   a prefill and a token, and ``max_memory_allocated``.  The ranks count
+   their own launches: K4's row prints both ranks' sum as
+   ``launches_phase_sharded_lm``.
 4d. the xLSTM, whisper and VLM families, in a launch window of its own
    (after 4c, before 4b), each model freed before the next, weights from
    a seeded generator, f32 parameters and bf16 compute.  (a)
@@ -264,11 +301,11 @@ Phases (each prints one JSON line with its seconds):
    ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
-path's, and phases 3b's to 3g's, 4c's, 4d's, 4e's and 4b's are their own
-(3d's to 3g's, 4c's, 4d's, 4e's and 4b's print in each kernel row as
-``launches_phase_3d`` ... ``_3g``, ``launches_phase_moe``,
-``launches_phase_families``, ``launches_phase_hybrid`` and
-``launches_phase_train``): each window's
+path's, and phases 3b's to 3g's, 4c's, 4f's, 4d's, 4e's and 4b's are
+their own (3d's to 3g's, 4c's, 4f's, 4d's, 4e's and 4b's print in each
+kernel row as ``launches_phase_3d`` ... ``_3g``, ``launches_phase_moe``,
+``launches_phase_sharded_lm``, ``launches_phase_families``,
+``launches_phase_hybrid`` and ``launches_phase_train``): each window's
 counts are zeroed just before it and read just after it.  Any failed
 check raises, and the script exits non-zero without its last line, which
 on success is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -279,6 +316,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -337,7 +375,8 @@ def check(ok: bool, what: str) -> None:
 
 
 def sync() -> None:
-    torch.cuda.synchronize()
+    if torch.cuda.is_initialized():   # a CPU rehearsal has nothing to wait for
+        torch.cuda.synchronize()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -1910,6 +1949,27 @@ SHARDED_RANKS = 2               # phase 3f (b): gloo ranks on the one card
 SHARDED_JOIN_SECONDS = 300.0    # phase 3f (b): the ranks' deadline
 
 
+def run_ranks(target, n: int, seconds: float, what: str, *args) -> None:
+    """Spawn ``n`` processes running ``target(rank, n, *args)``, join them
+    against ``seconds`` (killing any still running) and fail unless every
+    one exited with 0."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, n) + args)
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + seconds
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30.0)
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * n, f"{what}: the ranks exited with {codes}")
+
+
 def same_bits(a, b) -> bool:
     """Equal dtype, shape and bytes (NaN payloads and signed zeros too)."""
     return (a.dtype == b.dtype and a.shape == b.shape and
@@ -1980,7 +2040,6 @@ def sharded_rank(rank: int, d: int, workdir: str, n: int, n_iter: int,
 def sharded_world(g22, n_iter: int):
     """Phase 3f (b): ``SHARDED_RANKS`` spawned ranks on the card over gloo;
     returns rank 0's (PageRank, components) and every rank's record."""
-    import multiprocessing as mp
     import shutil
     work = ROOT / "build" / "phase3f"
     shutil.rmtree(work, ignore_errors=True)
@@ -1989,23 +2048,9 @@ def sharded_world(g22, n_iter: int):
         src, dst = g22.out_edges()
         np.savez(work / "edges.npz", src=src.cpu().numpy(),
                  dst=dst.cpu().numpy())
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=sharded_rank,
-                             args=(r, SHARDED_RANKS, str(work), g22.n_nodes,
-                                   n_iter, g22.device.type))
-                 for r in range(SHARDED_RANKS)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + SHARDED_JOIN_SECONDS
-        for p in procs:
-            p.join(max(deadline - time.monotonic(), 0.0))
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(30.0)
-        codes = [p.exitcode for p in procs]
-        check(codes == [0] * SHARDED_RANKS,
-              f"phase 3f (b): the ranks exited with {codes}")
+        run_ranks(sharded_rank, SHARDED_RANKS, SHARDED_JOIN_SECONDS,
+                  "phase 3f (b)", str(work), g22.n_nodes, n_iter,
+                  g22.device.type)
         res = np.load(work / "rank0.npz")
         ranks = [json.loads((work / f"rank{r}.json").read_text())
                  for r in range(SHARDED_RANKS)]
@@ -2217,7 +2262,6 @@ def phase_sharded_service(dev, g22, ref):
     """Phase 3g: a 2-rank "sharded" ``GraphService`` on the card (gloo
     ranks spawned as in phase 3f (b)); every result equals phase 3f (a)'s
     "xla" bits, in a launch window of its own (no kernel launches)."""
-    import multiprocessing as mp
     import shutil
     from repro_torch.core import algorithms as A
     from repro_torch.core.graph import EdgeDelta
@@ -2248,23 +2292,8 @@ def phase_sharded_service(dev, g22, ref):
                  dst=d_out.cpu().numpy(),
                  ids=g22.node_ids[:n].cpu().numpy(),
                  bfs=np.asarray([src, src2]), add_src=add_s, add_dst=add_d)
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=service_rank,
-                             args=(r, SERVICE_RANKS, str(work), n,
-                                   g22.device.type))
-                 for r in range(SERVICE_RANKS)]
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + SERVICE_JOIN_SECONDS
-        for p in procs:
-            p.join(max(deadline - time.monotonic(), 0.0))
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(30.0)
-        codes = [p.exitcode for p in procs]
-        check(codes == [0] * SERVICE_RANKS,
-              f"phase 3g: the ranks exited with {codes}")
+        run_ranks(service_rank, SERVICE_RANKS, SERVICE_JOIN_SECONDS,
+                  "phase 3g", str(work), n, g22.device.type)
         got = np.load(work / "rank0.npz")
         ranks = [json.loads((work / f"rank{r}.json").read_text())
                  for r in range(SERVICE_RANKS)]
@@ -2377,6 +2406,12 @@ def phase_serve(dev, kernels, profile):
     again, t_again = timed(lambda: eng.generate(prompts, SERVE_NEW))
     check(again == out, "a second generate gives the same tokens")
     peak = torch.cuda.max_memory_allocated()
+    # phase 4f's d = 1 yardstick, on the engine's weights
+    toks, teacher = yardstick_inputs(prompts, out, dev)
+    yard = {"logits": yardstick(eng.model, toks, teacher,
+                                eng.scfg.max_seq)[0],
+            "teacher": teacher, "tokens": out, "prompts": prompts}
+    del toks
 
     # decode agrees with forward (tests/test_models.py's check, on the card)
     b, s = DECODE_CHECK
@@ -2414,7 +2449,7 @@ def phase_serve(dev, kernels, profile):
           "launches": launches, "k4_launches_by_variant": k4_variants,
           "decode_vs_forward": dvf, **rec,
           "seconds": time.perf_counter() - t0})
-    return launches["flash_attention_fwd"], k4_variants
+    return launches["flash_attention_fwd"], k4_variants, yard
 
 
 # phase 4c: each MoE config at full width, cut in depth to fit the card
@@ -2569,11 +2604,42 @@ def n_dropped(drops) -> int:
     return int(torch.stack(drops).sum()) if drops else 0
 
 
-def serve_moe(dev, arch, n_layers, profile):
+@contextlib.contextmanager
+def moe_routes():
+    """Record each routing of the MoE layers (``models.moe.route``): its
+    experts, sorted within a token (T, k) int16, and the router's margin,
+    its k-th minus its (k+1)-th probability (T,) float32, appended to the
+    yielded list on the device (read it with :func:`host_routes`)."""
+    from repro_torch.models import moe
+    real, seen = moe.route, []
+
+    def spy(p, x, cfg, *args, **kwargs):
+        r = real(p, x, cfg, *args, **kwargs)
+        k = cfg.experts_per_token
+        top = torch.topk(r.probs, k + 1, dim=-1).values
+        seen.append((torch.sort(r.gate_idx, dim=-1).values.to(torch.int16),
+                     top[:, k - 1] - top[:, k]))
+        return r
+
+    moe.route = spy
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def host_routes(seen) -> list:
+    return [(e.cpu(), m.cpu()) for e, m in seen]
+
+
+def serve_moe(dev, arch, n_layers, profile, baseline=None):
     """Phase 4c for one MoE config: serve it, check it, hold layer 0's MoE
-    to the oracle; returns its phase line."""
+    to the oracle; returns its phase line, layer 0's K4 inputs and what
+    ``baseline(model, prompts, tokens, max_seq)`` returns, called after the
+    second ``generate`` (None without it)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch.mesh import model_grid
     from repro_torch.models import attention as attn
     from repro_torch.models import moe
     from repro_torch.models.layers import embed_apply, norm_apply
@@ -2588,8 +2654,10 @@ def serve_moe(dev, arch, n_layers, profile):
     mem_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(0)
-    model, t_init = timed(lambda: Transformer.init_params(cfg, gen,
-                                                          device=dev))
+    # a one-rank grid: the same weights and results, and expert_tp's own
+    # path for a baseline that asks for it
+    model, t_init = timed(lambda: Transformer.init_params(
+        cfg, gen, device=dev, group=model_grid(1, 1)))
     check(len(model.layers) == n_layers and model.param_dtype ==
           torch.bfloat16, f"{arch}: {n_layers} bf16 layers")
     n_params = sum(p.numel() for p in model.parameters())
@@ -2631,6 +2699,7 @@ def serve_moe(dev, arch, n_layers, profile):
     again, t_again = timed(lambda: eng.generate(prompts, SERVE_NEW))
     check(again == out, f"{arch}: a second generate gives the same tokens")
     stats_again = dict(eng.stats)
+    yard = baseline(model, prompts, out, max_seq) if baseline else None
 
     # the prefill alone: its drops, and layer 0's normed MoE input
     batch = {"tokens": torch.from_numpy(left_padded(prompts)).to(dev)}
@@ -2706,30 +2775,37 @@ def serve_moe(dev, arch, n_layers, profile):
             "decode_vs_forward": {"capacity_factor": no_drop.capacity_factor,
                                   **dvf},
             **rec, "seconds": time.perf_counter() - t0}
-    return line, k4_inputs
+    return line, k4_inputs, yard
 
 
-def phase_moe_serve(dev, kernels, profile):
+def phase_moe_serve(dev, kernels, profile, baselines=None):
     """Phase 4c: serve each MoE config of ``MOE_MODELS`` in turn, in one
     launch window; then, outside the window, hold K4 to its plain version
     on the q, k, v that each model's layer 0 gave it in the first
-    ``generate``.  Returns the window's launches and K4's rows at those
-    shapes."""
+    ``generate``.  ``baselines``: {arch: a ``serve_moe`` baseline, one
+    prefill of the model}.  Returns the window's launches, K4's rows at
+    those shapes and {arch: its baseline's result}."""
     t0 = time.perf_counter()
+    baselines = baselines or {}
     for k in kernels:
         k.launches = 0
-    lines, k4_inputs = [], []
+    lines, k4_inputs, yards = [], [], {}
     for arch, n_layers in MOE_MODELS:
-        line, qkv = serve_moe(dev, arch, n_layers, profile)
+        line, qkv, yard = serve_moe(dev, arch, n_layers, profile,
+                                    baselines.get(arch))
         lines.append(line)
         k4_inputs.append((arch, qkv))
+        if yard is not None:
+            yards[arch] = yard
         del qkv
         torch.cuda.empty_cache()
     launches = {k.__name__: k.launches for k in kernels}
     n = sum(n_layers for _, n_layers in MOE_MODELS)
     # per model: two generates, the oracle's prefill and layer-0 attention,
-    # the forward and the prefill of the decode check (+ the profile's)
-    want = (5 + profile) * n + len(MOE_MODELS)
+    # the forward and the prefill of the decode check (+ the profile's);
+    # a baseline's prefill
+    want = (5 + profile) * n + len(MOE_MODELS) + \
+        sum(n_layers for arch, n_layers in MOE_MODELS if arch in baselines)
     check(launches["flash_attention_fwd"] == want, f"phase 4c: K4 launched "
           f"{launches['flash_attention_fwd']} times, not {want}")
     check(not any(c for name, c in launches.items()
@@ -2742,7 +2818,319 @@ def phase_moe_serve(dev, kernels, profile):
     del k4_inputs
     emit({"phase": "moe_serve", "models": lines, "launches": launches,
           "k4_on_path_inputs": k4_rows, "seconds": time.perf_counter() - t0})
-    return launches, k4_rows
+    return launches, k4_rows, yards
+
+
+# phase 4f: the dense and MoE families sharded over two ranks
+SHARDED_LM_RANKS = 2            # gloo ranks on the one card
+SHARDED_LM_JOIN_SECONDS = 600.0
+YARD_STEPS = 4                  # teacher-forced decode steps held to d = 1
+# An MoE at d = 2 against d = 1: a rounding difference flips a token's
+# top-k among near-equal router probabilities (random weights).  qwen3-moe
+# flips 6.6% of its (token, layer) routings; a row's decode step whose
+# token flipped reads 3.1-5.0% of the largest logit, the others at most
+# 1.25% (PERF.md, phase 4f).  The flipped steps are held to
+# ROUTED_STEP_TOL, all else to DECODE_TOL.
+ROUTED_STEP_TOL = 1e-1
+ROUTE_FLIP_LIMIT = 0.15         # share of routings whose experts differ
+# (arch, layers, moe_impl): phase 4's and phase 4c's first model
+SHARDED_LM_MODELS = (("qwen2.5-3b", 0, "sorted"),
+                     (MOE_MODELS[0][0], MOE_MODELS[0][1], "expert_tp"))
+
+
+def sharded_lm_config(arch, n_layers, impl):
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                               moe_impl=impl)
+
+
+@torch.no_grad()
+def yardstick(model, tokens, teacher, max_seq, group=None) -> tuple:
+    """The last position's prefill logits of ``tokens`` (B, S) and
+    ``teacher.shape[1]`` teacher-forced decode steps -> ((B, 1 + n, V)
+    float32 on the host, the prefill's and the steps' host seconds and,
+    with ``group``, its collectives' counts, bytes and seconds)."""
+    def snap():
+        sync()
+        return time.perf_counter(), dict(group.stats) if group else {}
+
+    t0, c0 = snap()
+    logits, cache = model.prefill({"tokens": tokens}, max_seq)
+    rows = [logits[:, -1].float()]
+    t1, c1 = snap()
+    s = tokens.shape[1]
+    for j in range(teacher.shape[1]):
+        logits, cache = model.decode_step(cache, teacher[:, j:j + 1], s + j)
+        rows.append(logits[:, -1].float())
+    t2, c2 = snap()
+    n = teacher.shape[1]
+    rec = {"prefill_seconds": t1 - t0, "decode_seconds_per_token":
+           (t2 - t1) / n}
+    if group:
+        rec["collectives_per_prefill"] = {k: c1[k] - c0[k] for k in c0}
+        rec["collectives_per_token"] = {k: (c2[k] - c1[k]) / n for k in c0}
+    return torch.stack(rows, 1).cpu(), rec
+
+
+def sharded_lm_baselines() -> dict:
+    """Phase 4f's d = 1 yardsticks that phase 4c runs: {arch: baseline}."""
+    return {m[0]: sharded_lm_baseline(*m) for m in SHARDED_LM_MODELS
+            if m[0] in dict(MOE_MODELS)}
+
+
+def sharded_lm_baseline(arch, n_layers, impl):
+    """Phase 4f's d = 1 yardstick for a model phase 4c serves (a
+    ``serve_moe`` baseline): the yardstick on a shallow copy of the model
+    that carries ``impl``'s config (over the one-rank grid, ``expert_tp``
+    keeps its own capacity rule), with its routings (:func:`moe_routes`)."""
+    cfg = sharded_lm_config(arch, n_layers, impl)
+
+    def run(model, prompts, out, max_seq):
+        toks, teacher = yardstick_inputs(prompts, out, model.device)
+        view = copy.copy(model)
+        view.cfg = cfg
+        with moe_routes() as routes:
+            logits = yardstick(view, toks, teacher, max_seq)[0]
+        return {"logits": logits, "teacher": teacher, "tokens": out,
+                "prompts": prompts, "routes": host_routes(routes)}
+    return run
+
+
+def route_flips(want, got, n_layers) -> dict:
+    """The tokens whose experts differ between two runs' routings (lists
+    of :func:`moe_routes` pairs in call order: the prefill's layers, then
+    each decode step's), per position summed over the layers; for each
+    decode step, whether each row's token chose other experts in any
+    layer; and the router margins ``want`` had there."""
+    check(len(got) == len(want), f"{len(got)} routings, want {len(want)}")
+    diffs = [(we != ge).any(-1) for (we, _), (ge, _) in zip(want, got)]
+    per = [diffs[c:c + n_layers] for c in range(0, len(diffs), n_layers)]
+    flipped = torch.cat([m[d] for (_, m), d in zip(want, diffs)])
+    first = want[0][1][diffs[0]]
+    return {"flips_per_position": [sum(int(d.sum()) for d in p)
+                                   for p in per],
+            "routings_per_position": [sum(d.numel() for d in p)
+                                      for p in per],
+            "step_rows_flipped": [torch.stack(p).any(0).tolist()
+                                  for p in per[1:]],
+            "flip_share": sum(int(d.sum()) for d in diffs)
+            / sum(d.numel() for d in diffs),
+            "flips_prefill_per_layer": [int(d.sum()) for d in per[0]],
+            "margin_median": float(torch.cat([m for _, m in want]).median()),
+            "margin_median_flipped": float(flipped.median())
+            if flipped.numel() else None,
+            "margin_max_flipped": float(flipped.max())
+            if flipped.numel() else None,
+            "margin_max_flipped_prefill_layer0": float(first.max())
+            if first.numel() else None}
+
+
+def yardstick_inputs(prompts, out, dev):
+    """Phase 4's left-padded prompts and the first ``YARD_STEPS`` tokens
+    the d = 1 ``generate`` gave each, as the teacher."""
+    toks = torch.from_numpy(left_padded(prompts)).to(dev)
+    teacher = torch.tensor([o[len(p):len(p) + YARD_STEPS]
+                            for o, p in zip(out, prompts)], device=dev)
+    return toks, teacher
+
+
+def sharded_lm_rank(rank: int, d: int, workdir: str, jobs, device: str):
+    """Phase 4f, one rank: join a gloo world of ``d`` ranks on ``device``
+    (card 0) and serve each of ``jobs`` ((config, prompts, teacher tokens))
+    in turn over the (1, d) grid, one model at a time, freed before the
+    next: init from seed 0 keeping this rank's blocks, ``Engine.generate``
+    of the prompts, then the yardstick run.  Saves its logits and a JSON
+    record per model; on the card rank 0 also holds K4 to its plain
+    version on its layer-0 q, k, v."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.kernels.bsr_spmv import bsr_spmv
+    from repro_torch.kernels.bsr_tricount import bsr_tricount
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.segment_sum import segment_sum_chunked
+    from repro_torch.launch.mesh import model_grid
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine, ServeConfig
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    work = Path(workdir)
+    kernels = (bsr_spmv, segment_sum_chunked, bsr_tricount,
+               flash_attention_fwd)
+    by_variant = flash_attention_fwd.launches_by_variant
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=d,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        grid = model_grid(1, d)
+        for cfg, prompts, teacher in jobs:
+            t0 = time.perf_counter()
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device=device).manual_seed(0)
+            model, t_init = timed(lambda: Transformer.init_params(
+                cfg, gen, device=device, group=grid))
+            plen = max(len(p) for p in prompts)
+            eng = Engine(cfg, model, ServeConfig(
+                batch=len(prompts), max_seq=plen + SERVE_NEW), device=device)
+            key = ((len(prompts), plen, model.layers[0].attn.n_heads,
+                    cfg.resolved_head_dim),) * 2 + \
+                (str(dtype_of(cfg.compute_dtype)), True)
+            for k in kernels:
+                k.launches = 0
+            for v in by_variant:
+                by_variant[v] = 0
+            c0 = dict(grid.model.stats)
+            with k4_calls() as (seen, first):
+                out, t_gen = timed(lambda: eng.generate(prompts, SERVE_NEW))
+            launches = {k.__name__: k.launches for k in kernels}
+            variants = dict(by_variant)
+            stats = dict(eng.stats)
+            c_gen = {k: grid.model.stats[k] - c0[k] for k in c0}
+            toks = torch.from_numpy(left_padded(prompts)).to(device)
+            with moe_routes() as routes:
+                logits, rec = yardstick(eng.model, toks, teacher.to(device),
+                                        eng.scfg.max_seq, grid.model)
+            torch.save([e for e, _ in host_routes(routes)],
+                       work / f"rank{rank}_{cfg.name}_routes.pt")
+            del routes
+            k4_yard = flash_attention_fwd.launches - launches[
+                "flash_attention_fwd"]
+            torch.save(logits, work / f"rank{rank}_{cfg.name}.pt")
+            info = {"rank": rank, "arch": cfg.name, "n_layers": cfg.n_layers,
+                    "moe_impl": cfg.moe_impl,
+                    "capacity_factor": cfg.capacity_factor,
+                    "params_held": sum(p.numel()
+                                       for p in model.parameters()),
+                    "param_bytes_held": nbytes(*model.parameters()),
+                    "serving_copy_bytes": nbytes(*eng.model.parameters()),
+                    "seconds_init": t_init, "tokens": out,
+                    "seconds_generate": t_gen,
+                    "prefill_seconds": stats["prefill_seconds"],
+                    "decode_seconds_per_token": stats["decode_seconds"]
+                    / stats["decode_steps"],
+                    "collectives_generate": c_gen, "yardstick_run": rec,
+                    "launches": launches, "k4_launches_by_variant": variants,
+                    "k4_launches_yardstick": k4_yard,
+                    "k4_local_shape": list(key[0])}
+            if on_card:
+                info["max_memory_allocated"] = \
+                    torch.cuda.max_memory_allocated()
+            check(seen == [key] * cfg.n_layers,
+                  f"phase 4f rank {rank} {cfg.name}: K4 calls {seen}, want "
+                  f"{key} {cfg.n_layers} times")
+            if rank == 0 and on_card:
+                info["k4_on_path_inputs"] = k4_on_path_inputs(*first[key])
+            del first, model, eng, logits
+            info["seconds"] = time.perf_counter() - t0
+            (work / f"rank{rank}_{cfg.name}.json").write_text(
+                json.dumps(info))
+            dist.barrier()      # one model on the card at a time
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded_lm(dev, yards):
+    """Phase 4f: qwen2.5-3b and qwen3-moe (phase 4c's cut, ``expert_tp``)
+    served over two gloo ranks sharing the card, each held to the d = 1
+    yardstick phases 4 and 4c wrote (``yards``: {arch: {"logits",
+    "teacher", "tokens", "prompts"}}).  The ranks count their own
+    launches.  Returns K4's launches in the phase (both ranks) and rank
+    0's K4 rows at the local shapes."""
+    import shutil
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "phase4f"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    lines, total = [], 0
+    try:
+        jobs = [(sharded_lm_config(*m), yards[m[0]]["prompts"],
+                 yards[m[0]]["teacher"].cpu()) for m in SHARDED_LM_MODELS]
+        run_ranks(sharded_lm_rank, SHARDED_LM_RANKS, SHARDED_LM_JOIN_SECONDS,
+                  "phase 4f", str(work), jobs, dev.type)
+        for arch, n_layers, impl in SHARDED_LM_MODELS:
+            want, d1_tokens = yards[arch]["logits"], yards[arch]["tokens"]
+            ranks = [json.loads((work / f"rank{r}_{arch}.json").read_text())
+                     for r in range(SHARDED_LM_RANKS)]
+            scale = float(want.abs().max())
+            errs, per_row = [], []
+            for r, info in enumerate(ranks):
+                got = torch.load(work / f"rank{r}_{arch}.pt")
+                check(bool(torch.isfinite(got).all()) and
+                      got.shape == want.shape,
+                      f"phase 4f rank {r} {arch}: logits {tuple(got.shape)}")
+                errs.append(max_abs(got, want))
+                per_row.append((got.double() - want.double()).abs()
+                               .amax(-1))                      # (B, 1 + n)
+                n = info["n_layers"]
+                la = info["launches"]
+                check(la["flash_attention_fwd"] == n and
+                      info["k4_launches_by_variant"]["sm90_wgmma"] == n and
+                      info["k4_launches_yardstick"] == n,
+                      f"phase 4f rank {r} {arch}: K4 {la}, "
+                      f"{info['k4_launches_by_variant']}, yardstick "
+                      f"{info['k4_launches_yardstick']}: not once a layer "
+                      f"a prefill through sm90_wgmma")
+                check(not any(c for k, c in la.items()
+                              if k != "flash_attention_fwd"),
+                      f"phase 4f rank {r} {arch} launched graph kernels: "
+                      f"{la}")
+                total += la["flash_attention_fwd"] + \
+                    info["k4_launches_yardstick"]
+            # DECODE_TOL, but ROUTED_STEP_TOL for a row's decode step whose
+            # token chose other experts than d = 1's in some layer
+            limit = torch.full_like(per_row[0], DECODE_TOL)
+            flips = None
+            if "routes" in yards[arch]:
+                got = [torch.load(work / f"rank{r}_{arch}_routes.pt")
+                       for r in range(SHARDED_LM_RANKS)]
+                check(all(len(g) == len(got[0]) and
+                          all(torch.equal(a, b) for a, b in zip(g, got[0]))
+                          for g in got),
+                      f"phase 4f {arch}: the ranks routed differently")
+                flips = route_flips(yards[arch]["routes"],
+                                    [(e, None) for e in got[0]],
+                                    ranks[0]["n_layers"])
+                check(flips["flip_share"] <= ROUTE_FLIP_LIMIT,
+                      f"phase 4f {arch}: routings unlike d=1's {flips}")
+                flipped = torch.tensor(flips["step_rows_flipped"]).T  # (B, n)
+                limit[:, 1:][flipped] = ROUTED_STEP_TOL
+            per_position = [p.amax(0).tolist() for p in per_row]
+            check(all(bool((p <= limit * scale).all()) for p in per_row),
+                  f"phase 4f {arch}: d=2 logits vs d=1 by row "
+                  f"{[p.tolist() for p in per_row]} over {limit.tolist()} "
+                  f"x {scale}")
+            check(all(r["tokens"] == ranks[0]["tokens"] for r in ranks),
+                  f"phase 4f {arch}: the ranks generated other tokens")
+            k4 = ranks[0].pop("k4_on_path_inputs")
+            prompts = yards[arch]["prompts"]
+            same = sum(a == b for o, w, p in zip(ranks[0]["tokens"],
+                                                 d1_tokens, prompts)
+                       for a, b in zip(o[len(p):], w[len(p):]))
+            lines.append({"arch": arch, "moe_impl": impl,
+                          "yardstick_max_abs_diff": errs,
+                          "yardstick_per_position": per_position,
+                          "yardstick_max_abs_logit": scale,
+                          "yardstick_per_row": per_row[0].tolist(),
+                          "tolerance_per_row": (limit * scale).tolist(),
+                          "routing_vs_d1": flips,
+                          "new_tokens_equal_to_d1": same,
+                          "new_tokens": len(prompts) * SERVE_NEW,
+                          "k4_on_path_inputs": k4,
+                          "per_rank": [{k: v for k, v in r.items()
+                                        if k != "tokens"} for r in ranks]})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "sharded_lm", "ranks": SHARDED_LM_RANKS,
+          "backend": "gloo", "grid": [1, SHARDED_LM_RANKS], "models": lines,
+          "k4_launches": total, "seconds": time.perf_counter() - t0})
+    return {"flash_attention_fwd": total}, [
+        {"arch": line["arch"], **line["k4_on_path_inputs"]}
+        for line in lines]
 
 
 # phase 4d: the xLSTM, whisper and VLM families
@@ -3589,7 +3977,7 @@ def k4_on_path_inputs(q, k, v, causal=True) -> dict:
 
 
 def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
-              hybrid_rows=()):
+              hybrid_rows=(), sharded_rows=()):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
         attention_error_ratios, flash_attention_fwd, flash_attention_fwd_plain)
@@ -3651,6 +4039,7 @@ def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
     row["moe_path_inputs"] = list(moe_rows)   # phase 4c's layer-0 inputs
     row["families_path_inputs"] = list(family_rows)   # phase 4d's
     row["hybrid_path_inputs"] = list(hybrid_rows)     # phase 4e's
+    row["sharded_lm_path_inputs"] = list(sharded_rows)   # phase 4f's rank 0
     return row
 
 
@@ -3994,13 +4383,17 @@ def main() -> int:
     sharded, sharded_ref = phase_sharded(dev, g22, u14)
     sharded_service = phase_sharded_service(dev, g22, sharded_ref)
     del sharded_ref
-    path["flash_attention_fwd"], k4_variants = phase_serve(dev, kernels,
-                                                            args.profile)
+    path["flash_attention_fwd"], k4_variants, yard = phase_serve(
+        dev, kernels, args.profile)
     for name, n in path.items():
         check(n > 0, f"kernel {name} never launched on the main path")
     torch.cuda.empty_cache()
-    moe_serve, k4_moe = phase_moe_serve(dev, kernels, args.profile)
+    moe_serve, k4_moe, yards = phase_moe_serve(
+        dev, kernels, args.profile, sharded_lm_baselines())
     torch.cuda.empty_cache()
+    sharded_lm, k4_sharded = phase_sharded_lm(
+        dev, {SHARDED_LM_MODELS[0][0]: yard, **yards})
+    del yard, yards
     families, k4_families = phase_families(dev, kernels, args.profile)
     torch.cuda.empty_cache()
     hybrid, k4_hybrid = phase_hybrid(dev, kernels, args.profile)
@@ -4014,7 +4407,7 @@ def main() -> int:
             kernel_k3(u14, path["bsr_tricount"], k3_variants,
                       ptxas_report("bsr_tricount.cu")),
             kernel_k4(path["flash_attention_fwd"], k4_variants, k4_moe,
-                      k4_families, k4_hybrid)]
+                      k4_families, k4_hybrid, k4_sharded)]
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
@@ -4023,6 +4416,7 @@ def main() -> int:
                  launches_phase_3f=sharded.get(r["name"], 0),
                  launches_phase_3g=sharded_service.get(r["name"], 0),
                  launches_phase_moe=moe_serve.get(r["name"], 0),
+                 launches_phase_sharded_lm=sharded_lm.get(r["name"], 0),
                  launches_phase_families=families.get(r["name"], 0),
                  launches_phase_hybrid=hybrid.get(r["name"], 0),
                  launches_phase_train=train.get(r["name"], 0))

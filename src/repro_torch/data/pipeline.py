@@ -6,8 +6,9 @@ Determinism contract (fault tolerance): batch ``i`` is a pure function of
 mid-way exactly, with nothing to save beyond the step counter.
 
 The reference's ``make_batch_specs`` (``jax.ShapeDtypeStruct``s for
-lowering a sharded step) has no counterpart: the port lowers nothing
-ahead of time (``ROADMAP.md`` Queue 1 item 15, ``launch/sharding``).
+lowering a sharded step) has no counterpart here: the port lowers nothing
+ahead of time, and a rank's batch shapes and specs are
+``launch/specs.batch_structs``'s meta tensors.
 """
 
 from __future__ import annotations

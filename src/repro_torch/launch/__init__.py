@@ -1,6 +1,8 @@
-"""Process-group helpers of the graph engine's multi-rank paths.
+"""Launchers and the multi-rank layout.
 
-Counterpart of ``repro/launch/mesh.py``'s graph mesh: a shard is one rank of
-a ``torch.distributed`` world, not one device of a JAX mesh.  The LM mesh
-helpers come with the training slice (ROADMAP Queue 1 item 15).
+``mesh.py``: the graph engine's shard groups and the LM's (data, model)
+grid, ranks of a ``torch.distributed`` world where the reference has
+devices of a JAX mesh; ``sharding.py`` and ``specs.py``: the logical-axis
+rules, parameter specs and per-rank input shapes; ``train.py`` and
+``elastic.py``: training.
 """

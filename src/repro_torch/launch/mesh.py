@@ -1,4 +1,5 @@
-"""The graph engine's shard groups over ``torch.distributed``.
+"""Shard groups over ``torch.distributed``: the graph engine's, and the
+LM's (data, model) grid.
 
 Counterpart of ``repro/launch/mesh.py:26-49`` (``graph_mesh``).  The
 reference shards over the devices of a 1-D JAX mesh inside one process; the
@@ -23,11 +24,28 @@ The collectives move ``bool`` and the 16-bit floats as their bytes (a
 ``uint8`` view, not a conversion): gloo carries neither bfloat16 nor
 int16, and every backend carries bytes, so a bfloat16 payload crosses as it
 is.
+
+The LM side (counterpart of ``make_host_mesh`` / ``make_production_mesh``,
+``repro/launch/mesh.py:52-64``): ``model_grid(data, model)`` lays a world of
+``data · model`` ranks out as the reference's ("data", "model") mesh,
+
+    rank  ==  data_i · model + model_i,
+
+and gives each rank its :class:`ModelGroup` along each axis: the ranks
+that share its ``data_i`` (tensor and expert parallelism) and those that
+share its ``model_i``.  A :class:`ModelGroup` adds the float collectives
+tensor parallelism needs (:meth:`ModelGroup.psum`, :meth:`ModelGroup.pmean`,
+:meth:`ModelGroup.all_gather_dim`), which the graph engine's
+``ShardGroup.all_reduce_sum`` refuses on purpose.
+``make_production_mesh`` is a :class:`MeshShape`: axis names and sizes with
+no ranks behind them, which ``launch/specs.py`` reads.
 """
 
 from __future__ import annotations
 
+import math
 import pickle
+import time
 import weakref
 from dataclasses import InitVar, dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -36,7 +54,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["GRAPH_AXIS", "ShardGroup", "GridGroups", "graph_group",
-           "graph_grid"]
+           "graph_grid", "MeshShape", "make_production_mesh", "ModelGroup",
+           "ModelGrid", "model_grid"]
 
 #: the reference's name for the graph engine's 1-D partition axis
 GRAPH_AXIS = "gp"
@@ -268,4 +287,178 @@ def graph_grid(side: int) -> GridGroups:
     grid = GridGroups(side, r, c, row=ShardGroup(side, c, row_pgs[r]),
                       col=ShardGroup(side, r, col_pgs[c]), world=everyone)
     _GRIDS[side] = (weakref.ref(world), grid)
+    return grid
+
+
+# ---------------------------------------------------------------------------
+# the LM's (data, model) grid
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes, with no ranks behind them: what the
+    reference's ``rules_for`` reads of a ``Mesh`` (``shape``,
+    ``axis_names``)."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """16×16 single-pod mesh, or 2×16×16 across two pods."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+@dataclass(frozen=True, eq=False)
+class ModelGroup(ShardGroup):
+    """One axis of a :class:`ModelGrid`: a :class:`ShardGroup` with the float
+    collectives of tensor parallelism.
+
+    ``stats`` counts this member's calls, the bytes it sends and the host
+    seconds spent in them (a collective on card tensors waits for the work
+    queued before it, and that wait is counted too).  At ``d == 1`` every
+    collective returns its input and counts nothing.  A group built
+    without a process group at ``d > 1`` (a description, as
+    ``launch/specs.py`` uses) raises on any collective.
+    """
+
+    stats: Dict[str, float] = field(
+        default_factory=lambda: {"calls": 0, "bytes": 0, "seconds": 0.0},
+        compare=False)
+
+    def _parts(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every member's ``t`` (equal shapes), in member order."""
+        if self._ref is None:
+            raise RuntimeError(f"this {self.d}-rank ModelGroup has no "
+                               f"process group; it only describes a layout")
+        t0 = time.perf_counter()
+        w = _wire(t)
+        parts = [torch.empty_like(w) for _ in range(self.d)]
+        dist.all_gather(parts, w, group=self.group)
+        self.stats["calls"] += 1
+        self.stats["bytes"] += w.numel() * w.element_size()
+        self.stats["seconds"] += time.perf_counter() - t0
+        return [p.view(t.dtype) for p in parts]
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of the members' ``t``, in ``t``'s dtype on every member.
+
+        The parts cross as they are (a bfloat16 tensor as its bytes) and
+        are added in float32 in member order, then cast back, so every
+        member holds the same bits and two runs agree.  The reference sums
+        in the compute dtype (``psum`` in ``models/moe.py:253``); gloo has
+        no bfloat16 sum.  At ``d == 2`` the float32 sum of two bfloat16
+        values rounded to bfloat16 is their bfloat16 sum itself; at
+        ``d > 2`` it rounds once where a bfloat16 sum rounds ``d - 1``
+        times, so the two agree within tolerance only.
+        """
+        if self.d == 1:
+            return t
+        parts = self._parts(t.contiguous())
+        out = parts[0].float()
+        for p in parts[1:]:
+            out = out + p.float()
+        return out.to(t.dtype)
+
+    def pmean(self, t: torch.Tensor) -> torch.Tensor:
+        """:meth:`psum` / ``d`` (the reference's ``pmean``)."""
+        if self.d == 1:
+            return t
+        return self.psum(t) / self.d
+
+    def all_gather_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The members' equal-shaped blocks concatenated along ``dim`` in
+        member order (exact: nothing is added)."""
+        if self.d == 1:
+            return t
+        return torch.cat(self._parts(t.contiguous()), dim=dim)
+
+
+@dataclass(frozen=True, eq=False)
+class ModelGrid:
+    """A world of ``data · model`` ranks as the reference's ("data",
+    "model") mesh: rank ``data_i · model + model_i``.
+
+    ``model`` holds the ranks with this rank's ``data_i`` (group rank
+    ``model_i``), ``data`` those with its ``model_i`` (group rank
+    ``data_i``).  ``shape`` and ``axis_names`` read as a mesh's, so
+    ``launch/specs.rules_for`` takes a grid.
+    """
+
+    data: ModelGroup
+    model: ModelGroup
+
+    axis_names = ("data", "model")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data.d, "model": self.model.d}
+
+    @property
+    def size(self) -> int:
+        return self.data.d * self.model.d
+
+    @property
+    def coords(self) -> Dict[str, Tuple[int, int]]:
+        """{axis: (this rank's index, the axis size)}: what
+        ``launch/sharding.local_block`` reads."""
+        return {"data": (self.data.rank, self.data.d),
+                "model": (self.model.rank, self.model.d)}
+
+
+_MODEL_GRIDS: Dict[Tuple[int, int], Tuple[weakref.ref, ModelGrid]] = {}
+
+
+def model_grid(data: int = 1, model: int = 1) -> ModelGrid:
+    """The cached (``data``, ``model``) grid of the default process group,
+    the port's ``make_host_mesh(data, model)``.
+
+    A grid of one rank needs no process group.  Any other needs a world of
+    exactly ``data · model`` ranks; every rank builds every model group,
+    then every data group, in the same order (``dist.new_group`` is
+    collective over the world).  An axis of size 1 gets no process group.
+    """
+    data, model = int(data), int(model)
+    if data < 1 or model < 1:
+        raise ValueError(f"model_grid needs data, model >= 1, got "
+                         f"({data}, {model})")
+    n = data * model
+    if n == 1:
+        return ModelGrid(ModelGroup(1, 0), ModelGroup(1, 0))
+    world = _world()
+    if world is None:
+        raise ValueError(f"model_grid({data}, {model}) needs a process group "
+                         f"of {n} ranks and none is initialized; "
+                         f"{_launch_hint(n)}")
+    cached = _MODEL_GRIDS.get((data, model))
+    if cached is not None and cached[0]() is world:
+        return cached[1]
+    size = dist.get_world_size()
+    if size != n:
+        raise ValueError(f"model_grid({data}, {model}) but the process group "
+                         f"has {size} rank(s); {_launch_hint(n)}")
+    d_i, m_i = divmod(dist.get_rank(), model)
+
+    def axis(count, members, mine, index):
+        if count == 1:
+            return ModelGroup(1, 0)
+        pgs = [dist.new_group(list(m)) for m in members]
+        return ModelGroup(count, index, pgs[mine])
+
+    model_g = axis(model, [range(i * model, (i + 1) * model)
+                           for i in range(data)], d_i, m_i)
+    data_g = axis(data, [range(j, n, model) for j in range(model)], m_i, d_i)
+    grid = ModelGrid(data=data_g, model=model_g)
+    _MODEL_GRIDS[(data, model)] = (weakref.ref(world), grid)
     return grid

@@ -38,8 +38,8 @@ from ..train.step import init_train_state, make_ddp_step, make_train_step
 
 __all__ = ["main", "train_state_tree", "load_train_state"]
 
-_SHARDING = ("model parallelism (--model > 1) is not ported yet: ROADMAP.md "
-             "Queue 1 item 15 (launch/sharding)")
+_SHARDING = ("the sharded train step (--model > 1) is not ported yet: "
+             "ROADMAP.md Queue 1 item 15 (b)")
 
 
 def _world() -> int:

@@ -21,6 +21,17 @@ Activations keep the reference's (B, S, H, D) layout and the cache its
 (B, max_seq, Hkv, D) one.  Where the reference rebuilds the cache with
 ``dynamic_update_slice``, the port writes the prompt's (or the token's) K/V
 into the cache tensors in place.
+
+Tensor parallel (an :class:`Attention` built with a ``group``): the module
+holds its rank's heads, ``wq`` / ``wk`` / ``wv`` column blocks and ``wo``'s
+row block (Megatron's split), so every function here runs on the local
+heads (K4 at (B, S, H / m, D)) and one all-reduce over the group follows
+``wo``.  The cache holds the local KV heads.  Heads stay whole: where
+``n_kv_heads`` does not split ``m`` ways, a rank holds the KV heads its
+query heads read (:func:`kv_head_range`), so a KV head is held by
+``m / n_kv_heads`` ranks.  The reference's rule splits ``wk``'s flat
+output over "model" instead (``repro/launch/sharding.py:151``), splitting
+a head, and GSPMD reshards it.
 """
 
 from __future__ import annotations
@@ -35,7 +46,7 @@ from .layers import Dense, dense
 
 __all__ = ["rope_frequencies", "apply_rope", "Attention", "flash_attention",
            "attention_train", "init_kv_cache", "attention_prefill",
-           "attention_decode"]
+           "attention_decode", "kv_head_range"]
 
 Cache = Dict[str, torch.Tensor]
 NEG_INF = -1e30
@@ -72,14 +83,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def kv_head_range(n_heads: int, n_kv_heads: int, m: int, r: int
+                  ) -> Tuple[int, int]:
+    """The KV heads [lo, hi) that rank ``r`` of ``m`` reads: its query
+    heads are [r·H/m, (r+1)·H/m), and query head i reads KV head
+    i // (H / Hkv).  Needs ``H % m == 0`` and ``Hkv % m == 0`` (each rank
+    Hkv / m heads of its own) or ``m % Hkv == 0`` (one head, read by m /
+    Hkv ranks); raises ``ValueError`` otherwise."""
+    if n_heads % m or (n_kv_heads % m and m % n_kv_heads):
+        raise ValueError(f"{n_heads} query and {n_kv_heads} KV heads do not "
+                         f"split into whole heads over {m} ranks")
+    per, group = n_heads // m, n_heads // n_kv_heads
+    lo = r * per // group
+    return lo, (r * per + per - 1) // group + 1
+
+
 class Attention(nn.Module):
-    """``wq``, ``wk``, ``wv`` (optional bias) and ``wo``."""
+    """``wq``, ``wk``, ``wv`` (optional bias) and ``wo``, for ``n_heads``
+    query and ``n_kv_heads`` KV heads; with ``group`` (a
+    ``launch.mesh.ModelGroup``) those are the rank's heads and ``wo``'s
+    output is summed over the group."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
-                 head_dim: int, *, qkv_bias: bool = False, device=None,
-                 dtype=torch.float32):
+                 head_dim: int, *, qkv_bias: bool = False, group=None,
+                 device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
+        self.n_heads, self.n_kv_heads, self.head_dim = (n_heads, n_kv_heads,
+                                                        head_dim)
+        self.group = group
         self.wq = Dense(d_model, n_heads * head_dim, bias=qkv_bias, **kw)
         self.wk = Dense(d_model, n_kv_heads * head_dim, bias=qkv_bias, **kw)
         self.wv = Dense(d_model, n_kv_heads * head_dim, bias=qkv_bias, **kw)
@@ -107,6 +139,14 @@ def _project_enc_kv(p: Attention, enc: torch.Tensor, n_kv_heads: int,
     k = dense(p.wk, enc, compute_dtype).reshape(b, se, n_kv_heads, head_dim)
     v = dense(p.wv, enc, compute_dtype).reshape(b, se, n_kv_heads, head_dim)
     return k, v
+
+
+def _out(p: Attention, o: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``wo`` over the heads' outputs (B, S, H, D); summed over the group
+    when ``p`` holds a rank's heads."""
+    b, s = o.shape[:2]
+    y = dense(p.wo, o.reshape(b, s, -1), compute_dtype)
+    return y if p.group is None else p.group.psum(y)
 
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
@@ -152,7 +192,7 @@ def attention_train(p: Attention, x: torch.Tensor, cfg, *, causal: bool = True,
     with ``kv_override`` cross-attention to ``kv_override[0]`` (B, Se,
     d_model), not causal and without RoPE."""
     compute = x.dtype
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    h, hkv, hd = p.n_heads, p.n_kv_heads, p.head_dim
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
@@ -167,7 +207,7 @@ def attention_train(p: Attention, x: torch.Tensor, cfg, *, causal: bool = True,
     v = _repeat_kv(v, h // hkv)
     out = flash_attention(q, k, v, causal=causal, q_chunk=chunk, k_chunk=chunk,
                           skip_upper_triangle=skip_upper_triangle)
-    return dense(p.wo, out.reshape(b, s, h * hd), compute)
+    return _out(p, out, compute)
 
 
 def init_kv_cache(batch: int, max_seq: int, n_kv_heads: int, head_dim: int,
@@ -182,7 +222,7 @@ def attention_prefill(p: Attention, x: torch.Tensor, cfg, cache: Cache,
     """Causal attention over the prompt; its K/V are written into ``cache``
     (B, max_seq, Hkv, D) in place, at positions [0, S)."""
     compute = x.dtype
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    h, hkv, hd = p.n_heads, p.n_kv_heads, p.head_dim
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, h, hkv, hd, compute)
@@ -193,8 +233,7 @@ def attention_prefill(p: Attention, x: torch.Tensor, cfg, cache: Cache,
     kf = _repeat_kv(k, h // hkv)
     vf = _repeat_kv(v, h // hkv)
     out = flash_attention(q, kf, vf, causal=True, q_chunk=chunk, k_chunk=chunk)
-    y = dense(p.wo, out.reshape(b, s, h * hd), compute)
-    return y, cache
+    return _out(p, out, compute), cache
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cfg, cache: Cache,
@@ -210,7 +249,7 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg, cache: Cache,
     projected anew, and ``cache`` is returned untouched.
     """
     compute = x.dtype
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    h, hkv, hd = p.n_heads, p.n_kv_heads, p.head_dim
     b = x.shape[0]
     q = dense(p.wq, x, compute).reshape(b, 1, h, hd)
     if kv_override is None:
@@ -241,5 +280,4 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg, cache: Cache,
     logits = torch.where(mask, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1).to(compute)
     out = torch.einsum("bkgs,bskd->bkgd", w.float(), v.float()).to(compute)
-    y = dense(p.wo, out.reshape(b, 1, h * hd), compute)
-    return y, cache
+    return _out(p, out.reshape(b, 1, h, hd), compute), cache

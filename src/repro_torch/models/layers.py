@@ -11,6 +11,14 @@ A module holds its tensors under the reference's pytree keys (``w``, ``b``,
 ``scale``, ``bias``, ``table``), so a ``state_dict`` key names the same leaf
 as the reference's parameter path.  Parameters are trainable; the serving
 entry points run under ``torch.no_grad``.
+
+Tensor parallel: a parameter of a model sharded over ranks holds its
+rank's block and carries ``full_shape`` (the unsharded shape) and
+``keep`` (full tensor -> the rank's block); :func:`fill_normal_` draws the
+full tensor, as an unsharded model draws it, and keeps the block, so the
+ranks together hold the unsharded model's numbers.  An :class:`Embed` or
+:class:`MLP` built with a ``group`` is vocab- or column/row-parallel over
+it (:func:`embed_apply`, :func:`unembed_apply`, :func:`mlp_apply`).
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["dtype_of", "Dense", "Norm", "Embed", "MLP", "dense",
-           "norm_apply", "embed_apply", "unembed_apply", "mlp_apply"]
+           "norm_apply", "embed_apply", "unembed_apply", "mlp_apply",
+           "full_shape", "fill_normal_"]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -33,6 +42,23 @@ def dtype_of(name: str) -> torch.dtype:
 
 def _empty(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
+
+
+def full_shape(p: torch.Tensor) -> tuple:
+    """``p``'s unsharded shape (its own shape unless it is a rank's
+    block)."""
+    return getattr(p, "full_shape", tuple(p.shape))
+
+
+def fill_normal_(p: torch.Tensor, generator: torch.Generator,
+                 scale: float) -> None:
+    """``p`` <- normal(0, 1) · ``scale`` from ``generator``, drawn in float32
+    at ``p``'s full shape (one tensor alive at a time), then cut to its
+    block and cast."""
+    w = torch.randn(full_shape(p), generator=generator,
+                    device=p.device).mul_(scale)
+    keep = getattr(p, "keep", None)
+    p.copy_(w if keep is None else keep(w))
 
 
 # ---------------------------------------------------------------------------
@@ -51,10 +77,7 @@ class Dense(nn.Module):
 
     def reset(self, generator: torch.Generator) -> None:
         """Normal(0, 1/d_in) weights and zero bias, as ``dense_init``."""
-        d_in = self.w.shape[0]
-        w = torch.randn(self.w.shape, generator=generator,
-                        device=self.w.device) * (1.0 / d_in ** 0.5)
-        self.w.copy_(w)
+        fill_normal_(self.w, generator, 1.0 / full_shape(self.w)[0] ** 0.5)
         if self.b is not None:
             self.b.zero_()
 
@@ -119,27 +142,41 @@ def norm_apply(p: Norm, x: torch.Tensor, kind: str,
 
 
 class Embed(nn.Module):
-    """A (vocab, d) ``table``: token lookup, or logits ``x @ tableᵀ``."""
+    """A (vocab, d) ``table``: token lookup, or logits ``x @ tableᵀ``.  With
+    ``group``, the table's rows [``lo``, ``lo + vocab``) of a vocabulary
+    split over the group."""
 
-    def __init__(self, vocab: int, d: int, *, device=None,
-                 dtype=torch.float32):
+    def __init__(self, vocab: int, d: int, *, group=None, lo: int = 0,
+                 device=None, dtype=torch.float32):
         super().__init__()
         self.table = _empty((vocab, d), device, dtype)
+        self.group, self.lo = group, lo
 
     def reset(self, generator: torch.Generator) -> None:
         """Normal(0, 0.02²), as ``embed_init``."""
-        self.table.copy_(torch.randn(self.table.shape, generator=generator,
-                                     device=self.table.device) * 0.02)
+        fill_normal_(self.table, generator, 0.02)
 
 
 def embed_apply(p: Embed, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
-    # rows cast after the lookup: the same numbers as casting the table
-    return F.embedding(tokens.long(), p.table).to(compute_dtype)
+    """Token rows; vocab-parallel, each rank looks up the ids in its range
+    (the others give zeros) and the group sums: one rank's row plus zeros,
+    exact."""
+    if p.group is None:
+        # rows cast after the lookup: the same numbers as casting the table
+        return F.embedding(tokens.long(), p.table).to(compute_dtype)
+    ids = tokens.long() - p.lo
+    mine = (ids >= 0) & (ids < p.table.shape[0])
+    rows = F.embedding(torch.where(mine, ids, 0), p.table)
+    rows = rows * mine[..., None].to(rows.dtype)
+    return p.group.psum(rows.to(compute_dtype))
 
 
 def unembed_apply(p: Embed, x: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """Logits = x @ tableᵀ (tied or with a separate lm_head table)."""
-    return torch.matmul(x.to(compute_dtype), p.table.to(compute_dtype).t())
+    """Logits = x @ tableᵀ (tied or with a separate lm_head table);
+    vocab-parallel, the ranks' logits gathered along the vocabulary, so
+    every rank holds them all."""
+    y = torch.matmul(x.to(compute_dtype), p.table.to(compute_dtype).t())
+    return y if p.group is None else p.group.all_gather_dim(y, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -148,13 +185,16 @@ def unembed_apply(p: Embed, x: torch.Tensor, compute_dtype) -> torch.Tensor:
 
 
 class MLP(nn.Module):
-    """``wi`` (up), ``wo`` (down) and, for SwiGLU, ``wg`` (gate)."""
+    """``wi`` (up), ``wo`` (down) and, for SwiGLU, ``wg`` (gate).  With
+    ``group``, ``d_ff`` is the rank's share: ``wi`` / ``wg`` column blocks,
+    ``wo`` a row block, its output summed over the group."""
 
-    def __init__(self, d: int, d_ff: int, act: str, *, device=None,
-                 dtype=torch.float32):
+    def __init__(self, d: int, d_ff: int, act: str, *, group=None,
+                 device=None, dtype=torch.float32):
         super().__init__()
         if act not in ("swiglu", "gelu"):
             raise ValueError(f"unknown activation {act!r}")
+        self.group = group
         self.wi = Dense(d, d_ff, device=device, dtype=dtype)
         self.wo = Dense(d_ff, d, device=device, dtype=dtype)
         self.wg = Dense(d, d_ff, device=device, dtype=dtype) \
@@ -172,4 +212,5 @@ def mlp_apply(p: MLP, x: torch.Tensor, act: str, compute_dtype) -> torch.Tensor:
         h = F.silu(dense(p.wg, x, compute_dtype)) * h
     else:
         h = F.gelu(h, approximate="tanh")    # jax.nn.gelu's default
-    return dense(p.wo, h, compute_dtype)
+    y = dense(p.wo, h, compute_dtype)
+    return y if p.group is None else p.group.psum(y)

@@ -29,38 +29,82 @@ then casts to the compute dtype: the same sum in a fixed order.
 runs on the same input could differ in the last bit and a greedy decode
 could then pick another token.
 
-``"expert_tp"`` (the reference's expert-parallel ``shard_map``) needs an
-expert group over ranks, which the port does not have yet; without one the
-reference runs the sorted path, and so does the port.  The ``shard(...)``
-annotations are dropped, as in the dense port.
+Over ranks (an :class:`MoE` built with an :class:`ExpertShard`, by a
+``Transformer`` built for a ``launch.mesh.ModelGrid``), a rank holds either
+its experts [e0, e0 + E/m) (experts on "model") or a column block of
+every expert's FFN (``expert_ff`` on "model"), and the routing runs on
+tokens every model rank holds alike:
+
+* ``"expert_tp"``, the reference's ``moe_apply_expert_tp``
+  (``repro/models/moe.py:151-258``), where the experts are on "model":
+  each data shard routes its own tokens with capacity ``max(int(t·k/E·cf),
+  8)`` per (data shard, expert), no 128 round-up (:func:`tp_capacity`);
+  each rank buckets its experts' assignments from the stable sort, runs
+  them, combines in the fixed order above, and one all-reduce over the
+  model group sums the ranks' parts (each cast to the compute dtype
+  first, as the reference's ``psum`` sums them); the aux loss is the
+  reference's pmean over the model group, then over the data group when
+  the batch is split over it.
+* ``"sorted"`` (and ``"expert_tp"`` wherever the reference's returns
+  ``None``: experts not on "model"): the sorted path's global routing.
+  Where the batch is split over the data group the ranks gather it
+  first, so the capacity and the aux loss are those of the whole batch,
+  as GSPMD computes them; each rank runs its share of the experts and the
+  model group sums.
+
+The expert weights' d_model dim is never split here: a model whose rules
+put it on a data axis of more than one rank raises at construction
+(``models/transformer.py``).  The ``shard(...)`` annotations are dropped,
+as in the dense port.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dense, _empty
+from .layers import Dense, _empty, fill_normal_, full_shape
 
-__all__ = ["MoE", "Routing", "capacity", "route", "moe_apply",
-           "moe_apply_sorted", "MOE_IMPLS"]
+__all__ = ["MoE", "Routing", "ExpertShard", "capacity", "tp_capacity",
+           "route", "moe_apply", "moe_apply_sorted", "moe_apply_expert_tp",
+           "MOE_IMPLS"]
 
 MOE_IMPLS = ("sorted", "expert_tp")
 
 
+@dataclass(frozen=True)
+class ExpertShard:
+    """An MoE layer's place on a ``launch.mesh.ModelGrid``: this rank holds
+    experts [``lo``, ``lo + n``) (all E, with ``expert_ff`` split, when
+    ``experts_on_model`` is false); ``batch_split``: the batch is split
+    over the data group (the rules map "batch" to it)."""
+    grid: object
+    lo: int
+    n: int
+    experts_on_model: bool
+    batch_split: bool
+
+
 class MoE(nn.Module):
     """``router.w`` (d, E), always float32; ``wi`` (E, d, f), ``wo``
-    (E, f, d) and, for SwiGLU, ``wg`` (E, d, f) in ``dtype``."""
+    (E, f, d) and, for SwiGLU, ``wg`` (E, d, f) in ``dtype``.  With
+    ``shard``, ``n_experts`` and ``d_ff`` are the rank's share (the router
+    stays whole)."""
 
     def __init__(self, d: int, d_ff: int, n_experts: int, act: str, *,
-                 device=None, dtype=torch.float32):
+                 shard: Optional[ExpertShard] = None, device=None,
+                 dtype=torch.float32):
         super().__init__()
         if act not in ("swiglu", "gelu"):
             raise ValueError(f"unknown activation {act!r}")
-        self.router = Dense(d, n_experts, device=device, dtype=torch.float32)
+        self.shard = shard
+        routed = n_experts * shard.grid.model.d \
+            if shard is not None and shard.experts_on_model else n_experts
+        self.router = Dense(d, routed, device=device, dtype=torch.float32)
         self.wi = _empty((n_experts, d, d_ff), device, dtype)
         self.wg = _empty((n_experts, d, d_ff), device, dtype) \
             if act == "swiglu" else None
@@ -70,11 +114,10 @@ class MoE(nn.Module):
         """``moe_init``'s distributions: normal/√d for the router, ``wi``
         and ``wg``; normal/√f for ``wo``."""
         self.router.reset(generator)
-        d, f = self.wi.shape[1:]
+        d, f = full_shape(self.wi)[1:]
         for w, fan_in in ((self.wi, d), (self.wg, d), (self.wo, f)):
             if w is not None:   # one float32 draw alive at a time
-                w.copy_(torch.randn(w.shape, generator=generator,
-                                    device=w.device).mul_(1.0 / fan_in ** 0.5))
+                fill_normal_(w, generator, 1.0 / fan_in ** 0.5)
 
 
 class Routing(NamedTuple):
@@ -103,12 +146,21 @@ def capacity(t: int, cfg) -> int:
     return -(-c // 128) * 128 if c >= 128 else c
 
 
-def route(p: MoE, x: torch.Tensor, cfg) -> Routing:
-    """Route ``x`` (B, S, d) as the reference's ``moe_apply_sorted`` does."""
+def tp_capacity(t: int, cfg) -> int:
+    """``moe_apply_expert_tp``'s capacity for a data shard's ``t`` tokens:
+    per (data shard, expert), at least 8, no 128 round-up."""
+    return max(int(t * cfg.experts_per_token / cfg.n_experts
+                   * cfg.capacity_factor), 8)
+
+
+def route(p: MoE, x: torch.Tensor, cfg, cap: Optional[int] = None
+          ) -> Routing:
+    """Route ``x`` (B, S, d) as the reference's ``moe_apply_sorted`` does
+    (``cap``: another capacity than :func:`capacity`'s)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     t = b * s
-    cap = capacity(t, cfg)
+    cap = capacity(t, cfg) if cap is None else cap
     dev = x.device
     logits = torch.matmul(x.reshape(t, d).float(), p.router.w)     # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -143,43 +195,89 @@ def route(p: MoE, x: torch.Tensor, cfg) -> Routing:
                    keep, bucket_tok, bucket_valid, cap, aux.float())
 
 
-def moe_apply_sorted(p: MoE, x: torch.Tensor, cfg
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out in x's dtype, aux loss float32)."""
-    compute = x.dtype
-    b, s, d = x.shape
-    t, k = b * s, cfg.experts_per_token
-    r = route(p, x, cfg)
-    cap = r.capacity
-
-    xf = x.reshape(t, d)
-    xe = xf[r.bucket_tok] * r.bucket_valid[..., None].to(compute)  # (E, C, d)
+def _expert_outputs(p: MoE, xf: torch.Tensor, r: Routing, lo: int
+                    ) -> torch.Tensor:
+    """The held experts' FFNs on their buckets (buckets ``lo`` ...): (n, C,
+    d) in ``xf``'s dtype, a bucket's empty slots zero."""
+    compute = xf.dtype
+    n = p.wi.shape[0]
+    tok, valid = r.bucket_tok[lo:lo + n], r.bucket_valid[lo:lo + n]
+    xe = xf[tok] * valid[..., None].to(compute)                   # (n, C, d)
     h = torch.bmm(xe, p.wi.to(compute))
     if p.wg is not None:
         h = F.silu(torch.bmm(xe, p.wg.to(compute))) * h
     else:
         h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
-    ye = torch.bmm(h, p.wo.to(compute))                             # (E, C, d)
+    return torch.bmm(h, p.wo.to(compute))
 
+
+def _combine(ye: torch.Tensor, r: Routing, lo: int, t: int, k: int
+             ) -> torch.Tensor:
+    """Each token's kept slots on experts [lo, lo + len(ye)), weighted by
+    their gates and summed in float32 in slot order -> (T, d) in ``ye``'s
+    dtype."""
+    compute, cap, d = ye.dtype, r.capacity, ye.shape[-1]
+    mine = r.keep
+    if lo or ye.shape[0] < r.bucket_tok.shape[0]:
+        mine = mine & (r.expert >= lo) & (r.expert < lo + ye.shape[0])
     # each assignment's bucket row and weight, back in (token, slot) order
-    flat_out = ye.reshape(-1, d)
-    assign_bucket = torch.where(r.keep, r.expert * cap +
+    assign_bucket = torch.where(mine, (r.expert - lo) * cap +
                                 torch.clamp(r.rank, max=cap - 1), 0)
     inv = torch.empty_like(r.order)
-    inv[r.order] = torch.arange(t * k, device=x.device)
-    weight = (r.gate * r.keep)[inv]
-    contrib = flat_out[assign_bucket[inv]] * weight[:, None].to(compute)
+    inv[r.order] = torch.arange(t * k, device=ye.device)
+    weight = (r.gate * mine)[inv]
+    contrib = ye.reshape(-1, d)[assign_bucket[inv]] * \
+        weight[:, None].to(compute)
     out = contrib.view(t, k, d).sum(dim=1, dtype=torch.float32)
-    return out.to(compute).reshape(b, s, d), r.aux
+    return out.to(compute)
+
+
+def moe_apply_sorted(p: MoE, x: torch.Tensor, cfg
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out in x's dtype, aux loss float32)."""
+    b, s, d = x.shape
+    sh = p.shard
+    split = sh is not None and sh.batch_split and sh.grid.data.d > 1
+    if split:                       # route the whole batch
+        x = sh.grid.data.all_gather_dim(x, 0)
+    t, k = x.shape[0] * s, cfg.experts_per_token
+    r = route(p, x, cfg)
+    lo = sh.lo if sh is not None and sh.experts_on_model else 0
+    out = _combine(_expert_outputs(p, x.reshape(t, d), r, lo), r, lo, t, k)
+    if sh is not None:
+        out = sh.grid.model.psum(out)
+    if split:                       # this data shard's rows
+        out = out.view(sh.grid.data.d, b * s, d)[sh.grid.data.rank]
+    return out.reshape(b, s, d), r.aux
+
+
+def moe_apply_expert_tp(p: MoE, x: torch.Tensor, cfg
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``moe_apply_expert_tp`` on a layer whose experts are
+    on "model" (module docstring); x: (B, S, d), this data shard's tokens
+    -> (out in x's dtype, aux float32, equal on every rank)."""
+    sh = p.shard
+    b, s, d = x.shape
+    t, k = b * s, cfg.experts_per_token
+    r = route(p, x, cfg, tp_capacity(t, cfg))
+    out = _combine(_expert_outputs(p, x.reshape(t, d), r, sh.lo), r, sh.lo,
+                   t, k)
+    out = sh.grid.model.psum(out)
+    aux = sh.grid.model.pmean(r.aux)
+    if sh.batch_split:
+        aux = sh.grid.data.pmean(aux)
+    return out.reshape(b, s, d), aux
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dispatch on ``cfg.moe_impl``: ``"sorted"``, or ``"expert_tp"``,
-    which without an expert group (the port has none yet: ROADMAP.md
-    Queue 1 item 15, ``launch/sharding``) is the sorted path, as the
-    reference's is without a mesh."""
+    """Dispatch on ``cfg.moe_impl``: ``"sorted"``, or ``"expert_tp"``, which
+    runs the sorted path where the reference's returns ``None``: no grid
+    (the reference's: no mesh), or the experts not on "model"."""
     if cfg.moe_impl not in MOE_IMPLS:
         raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}; want one of "
                          f"{MOE_IMPLS}")
+    if cfg.moe_impl == "expert_tp" and p.shard is not None and \
+            p.shard.experts_on_model:
+        return moe_apply_expert_tp(p, x, cfg)
     return moe_apply_sorted(p, x, cfg)

@@ -46,6 +46,25 @@ same bits as before.  The MoE layers' load-balance losses sum into
 ``forward``'s aux, as in the reference; ``prefill`` and ``decode_step``
 drop them.
 
+Sharded over ranks (``group=``, a ``launch.mesh.ModelGrid``): the dense
+and MoE families hold each parameter's block by ``launch.sharding.
+param_specs`` and compute Megatron-style: ``wq`` / ``wk`` / ``wv`` and the
+MLP's ``wi`` / ``wg`` column-parallel, attention's and the MLP's ``wo``
+row-parallel with one all-reduce after each, the token embedding
+vocab-parallel (one all-reduce), the LM head's logits gathered along the
+vocabulary, so every rank holds all of them (and ``Engine`` picks the same
+token on each); norms and the router are whole on every rank, the MoE
+layers run per ``models/moe.py``.  A rank's KV cache holds its KV heads
+(``models/attention.py`` on heads that do not split).  Each rank's batch
+is its data shard's rows where the rules split "batch" over "data", the
+whole batch otherwise.  ``init_params`` draws every full tensor in the
+unsharded order and keeps the rank's block, one tensor at a time, and
+``from_arrays`` cuts the reference's arrays the same way, so the ranks
+together hold the unsharded model's numbers.  Not sharded (they raise):
+the ssm, audio, vlm and hybrid families over more than one rank, and
+weights whose d_model dim the rules put on a data axis of more than one
+rank (``two_d_weights``; ``ROADMAP.md Queue 1 item 15 (b)``).
+
 The cache keeps the reference's layout: ``{"attn": {"k", "v"}}`` with
 shape (n_layers, B, max_seq, Hkv, D) in the compute dtype for the
 attention families, ``{"b<i>": {"c", "n", "m"} | {"c", "n", "h", "m"}}``
@@ -59,7 +78,9 @@ Prefill and decode write it in place.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Tuple
+import re
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,20 +88,22 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..device import DeviceLike, resolve
+from ..launch import sharding
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
-from .layers import (MLP, Embed, Norm, dtype_of, embed_apply, mlp_apply,
-                     norm_apply, unembed_apply)
+from .layers import (MLP, Embed, Norm, dtype_of, embed_apply, full_shape,
+                     mlp_apply, norm_apply, unembed_apply)
 
-__all__ = ["Transformer", "n_scan_steps", "REMAT"]
+__all__ = ["Transformer", "n_scan_steps", "REMAT", "param_blocks"]
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 _FAMILIES = ("dense", "moe", "ssm", "audio", "vlm", "hybrid")
+SHARDED_FAMILIES = ("dense", "moe")
 _STACKED = ("layers.", "enc.layers.")   # stacked on a leading axis
 _INNER = ("mamba.", "moe.", "mlp.")     # a hybrid period's inner stacks
-_ITEM = "ROADMAP.md Queue 1 item 15"
+ITEM = "ROADMAP.md Queue 1 item 15"
 REMAT = ("full", "dots", "none")
 
 
@@ -202,10 +225,67 @@ def n_scan_steps(cfg) -> int:
     return cfg.n_layers
 
 
-def _check_supported(cfg) -> None:
+def _check_supported(cfg, grid) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
-                                  f"{_ITEM}")
+                                  f"{ITEM}")
+    if grid is not None and grid.size > 1 and \
+            cfg.family not in SHARDED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} has no sharded forward yet "
+            f"({grid.data.d} x {grid.model.d} ranks): {ITEM} (b)")
+
+
+@dataclass(frozen=True)
+class _Widths:
+    """The widths a rank holds (all of them unsharded), and the group its
+    tensor-parallel layers sum over (None: no collective)."""
+    heads: int
+    kv_heads: int
+    ff: int
+    vocab: int
+    vocab_lo: int = 0
+    group: Any = None
+    experts: Optional[moe_mod.ExpertShard] = None
+
+
+def _widths(cfg, grid, rules) -> _Widths:
+    if grid is None:
+        return _Widths(cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size)
+    m, r = grid.model.d, grid.model.rank
+    lo, hi = attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads, m, r)
+    for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+        if n % m:
+            raise ValueError(f"{cfg.name}: {what} {n} does not split over "
+                             f"{m} ranks")
+    experts = None
+    if cfg.n_experts:
+        on_model = rules.mapping.get("experts") == "model"
+        if on_model and cfg.n_experts % m:
+            raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not "
+                             f"split over {m} ranks")
+        n = cfg.n_experts // m if on_model else cfg.n_experts
+        experts = moe_mod.ExpertShard(
+            grid, r * n if on_model else 0, n, on_model,
+            rules.mapping.get("batch") is not None)
+    v = cfg.vocab_size // m
+    return _Widths(cfg.n_heads // m, hi - lo, cfg.d_ff // m, v, r * v,
+                   grid.model if m > 1 else None, experts)
+
+
+def _moe(cfg, w: _Widths, kw) -> moe_mod.MoE:
+    sh = w.experts
+    if sh is None:
+        return moe_mod.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.act,
+                           **kw)
+    ff = cfg.d_ff if sh.experts_on_model else w.ff
+    return moe_mod.MoE(cfg.d_model, ff, sh.n, cfg.act, shard=sh, **kw)
+
+
+def _attention(cfg, w: _Widths, kw) -> attn.Attention:
+    return attn.Attention(cfg.d_model, w.heads, w.kv_heads,
+                          cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
+                          group=w.group, **kw)
 
 
 class Block(nn.Module):
@@ -214,26 +294,20 @@ class Block(nn.Module):
     layer, also ``ln_x`` and ``xattn``.  An encoder layer is a Block with
     neither."""
 
-    def __init__(self, cfg, *, cross: bool = False, device, dtype):
+    def __init__(self, cfg, w: _Widths, *, cross: bool = False, device,
+                 dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-
-        def attention():
-            return attn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                  cfg.resolved_head_dim,
-                                  qkv_bias=cfg.qkv_bias, **kw)
-
         self.ln1 = Norm(cfg.d_model, cfg.norm, **kw)
-        self.attn = attention()
+        self.attn = _attention(cfg, w, kw)
         self.ln_x = Norm(cfg.d_model, cfg.norm, **kw) if cross else None
-        self.xattn = attention() if cross else None
+        self.xattn = _attention(cfg, w, kw) if cross else None
         self.ln2 = Norm(cfg.d_model, cfg.norm, **kw)
         if cfg.n_experts > 0:
             self.mlp = None
-            self.moe = moe_mod.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts,
-                                   cfg.act, **kw)
+            self.moe = _moe(cfg, w, kw)
         else:
-            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
+            self.mlp = MLP(cfg.d_model, w.ff, cfg.act, group=w.group, **kw)
             self.moe = None
 
     @property
@@ -282,7 +356,7 @@ class HybridPeriod(nn.Module):
     of the sub-layers with ``i % cfg.moe_every == 1``, and ``mlp``, the
     others' (``_hybrid_period_init``'s stacks, in sub-layer order)."""
 
-    def __init__(self, cfg, *, device, dtype):
+    def __init__(self, cfg, w: _Widths, *, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         n = cfg.attn_every
@@ -291,12 +365,9 @@ class HybridPeriod(nn.Module):
         self.ffn_ln = Norm(cfg.d_model, cfg.norm, stack=n, **kw)
         self.mamba = nn.ModuleList(ssm_mod.Mamba(cfg.d_model, cfg, **kw)
                                    for _ in range(n - 1))
-        self.attn = attn.Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                   cfg.resolved_head_dim,
-                                   qkv_bias=cfg.qkv_bias, **kw)
-        self.moe = nn.ModuleList(
-            moe_mod.MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.act, **kw)
-            for _ in range(sum(self.moe_at)))
+        self.attn = _attention(cfg, w, kw)
+        self.moe = nn.ModuleList(_moe(cfg, w, kw)
+                                 for _ in range(sum(self.moe_at)))
         self.mlp = nn.ModuleList(MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
                                  for _ in range(n - sum(self.moe_at)))
 
@@ -337,35 +408,66 @@ class Transformer(nn.Module):
     ``layers.<i>.b0_mlstm.wq.w``, ``enc.layers.<i>.attn.wq.w``, ...), in
     ``dtype`` (default ``cfg.param_dtype``; an MoE router stays float32,
     as the reference's).  The constructor leaves them uninitialised: use
-    :meth:`init_params` or :meth:`from_arrays`."""
+    :meth:`init_params` or :meth:`from_arrays`.
 
-    def __init__(self, cfg, *, device: DeviceLike = None, dtype=None):
+    With ``group`` (a ``launch.mesh.ModelGrid``) the model holds this
+    rank's blocks under ``rules`` (default:
+    ``launch.specs.rules_for(cfg, group, "prefill")``); each
+    parameter carries ``full_shape`` and ``keep`` (``models/layers.py``)."""
+
+    def __init__(self, cfg, *, device: DeviceLike = None, dtype=None,
+                 group=None, rules: Optional[sharding.LogicalRules] = None):
         super().__init__()
-        _check_supported(cfg)
+        _check_supported(cfg, group)
         dev = resolve(device)
         dt = dtype or dtype_of(cfg.param_dtype)
         kw = dict(device=dev, dtype=dt)
         self.cfg = cfg
-        self.embed = nn.ModuleDict(
-            {"tok": Embed(cfg.vocab_size, cfg.d_model, **kw)})
+        self.grid, self.rules = group, None
+        if group is not None:
+            from ..launch.specs import rules_for
+            self.rules = rules or rules_for(cfg, group, "prefill")
+            if self.rules.mapping.get("w_embed") is not None and \
+                    group.data.d > 1:
+                raise NotImplementedError(
+                    f"{cfg.name}: weights split over the data axis "
+                    f"(two_d_weights) at data = {group.data.d}: {ITEM} (b)")
+        w = _widths(cfg, group, self.rules)
+        self.kv_heads = w.kv_heads
+        self.embed = nn.ModuleDict({"tok": Embed(
+            w.vocab, cfg.d_model, group=w.group, lo=w.vocab_lo, **kw)})
         self.norm_f = Norm(cfg.d_model, cfg.norm, **kw)
         self.lm_head = None if cfg.tie_embeddings else \
-            Embed(cfg.vocab_size, cfg.d_model, **kw)
+            Embed(w.vocab, cfg.d_model, group=w.group, lo=w.vocab_lo, **kw)
         if cfg.family == "ssm":
             layers = (XlstmPeriod(cfg, **kw) for _ in range(n_scan_steps(cfg)))
         elif cfg.family == "hybrid":
-            layers = (HybridPeriod(cfg, **kw)
+            layers = (HybridPeriod(cfg, w, **kw)
                       for _ in range(n_scan_steps(cfg)))
         else:
-            layers = (Block(cfg, cross=cfg.is_encoder_decoder, **kw)
+            layers = (Block(cfg, w, cross=cfg.is_encoder_decoder, **kw)
                       for _ in range(n_scan_steps(cfg)))
         self.layers = nn.ModuleList(layers)
         self.enc = None
         if cfg.is_encoder_decoder:
             self.enc = nn.ModuleDict({
-                "layers": nn.ModuleList(Block(cfg, **kw)
+                "layers": nn.ModuleList(Block(cfg, w, **kw)
                                         for _ in range(cfg.n_enc_layers)),
                 "norm_f": Norm(cfg.d_model, cfg.norm, **kw)})
+        if group is not None:
+            self._hold_blocks(param_blocks(cfg, group.coords, self.rules))
+
+    def _hold_blocks(self, blocks) -> None:
+        """Give each parameter its ``full_shape`` and ``keep``
+        (``param_blocks``), checking that its shape is the block's."""
+        for name, p in self.named_parameters():
+            full, _, keep = blocks[name]
+            want = tuple(keep(full).shape)
+            if tuple(p.shape) != want:
+                raise ValueError(f"{name}: this rank holds {tuple(p.shape)}, "
+                                 f"its block is {want} of "
+                                 f"{tuple(full.shape)}")
+            p.full_shape, p.keep = tuple(full.shape), keep
 
     # -- parameters ---------------------------------------------------------
 
@@ -381,13 +483,17 @@ class Transformer(nn.Module):
     @classmethod
     @torch.no_grad()
     def init_params(cls, cfg, generator: Optional[torch.Generator] = None,
-                    device: DeviceLike = None) -> "Transformer":
+                    device: DeviceLike = None, group=None,
+                    rules: Optional[sharding.LogicalRules] = None
+                    ) -> "Transformer":
         """Random weights with the reference's distributions (dense and
         experts: normal scaled by 1/√d_in; embeddings: normal·0.02; biases
         0; norm scales 1) drawn from ``generator`` (default: seed 0 on the
         model's device).
-        The same seed gives other numbers than the reference's ``PRNGKey``."""
-        model = cls(cfg, device=device)
+        The same seed gives other numbers than the reference's ``PRNGKey``.
+        Sharded, every full tensor is drawn as the unsharded model draws it
+        and the rank keeps its block: the same numbers."""
+        model = cls(cfg, device=device, group=group, rules=rules)
         gen = generator if generator is not None else \
             torch.Generator(device=model.device).manual_seed(0)
         model.embed["tok"].reset(gen)
@@ -405,11 +511,14 @@ class Transformer(nn.Module):
     @classmethod
     @torch.no_grad()
     def from_arrays(cls, cfg, arrays: Dict[str, Any],
-                    device: DeviceLike = None) -> "Transformer":
+                    device: DeviceLike = None, group=None,
+                    rules: Optional[sharding.LogicalRules] = None
+                    ) -> "Transformer":
         """Load the reference's ``init_params`` pytree: nested dicts of
         arrays, ``params["layers"]`` leaves with a leading layer axis (and
-        a hybrid period's ``mamba`` / ``moe`` / ``mlp`` a second one)."""
-        model = cls(cfg, device=device)
+        a hybrid period's ``mamba`` / ``moe`` / ``mlp`` a second one).
+        Sharded, each rank keeps its block of each full array."""
+        model = cls(cfg, device=device, group=group, rules=rules)
         inner = _INNER if cfg.family == "hybrid" else ()
         flat = {}
         for key, a in _flatten(arrays):
@@ -434,14 +543,16 @@ class Transformer(nn.Module):
                 f"{sorted(set(params) - set(flat))}, unexpected "
                 f"{sorted(set(flat) - set(params))}")
         for key, p in params.items():
-            if tuple(flat[key].shape) != tuple(p.shape):
+            if tuple(flat[key].shape) != full_shape(p):
                 raise ValueError(f"{key}: shape {flat[key].shape} != "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.ascontiguousarray(flat[key])))
+                                 f"{full_shape(p)}")
+            a = torch.from_numpy(np.ascontiguousarray(flat[key]))
+            p.copy_(a if model.grid is None else p.keep(a))
         return model
 
     def to_arrays(self) -> Dict[str, Any]:
-        """The inverse of :meth:`from_arrays`: numpy arrays, layers stacked."""
+        """The inverse of :meth:`from_arrays`: numpy arrays, layers stacked
+        (a sharded model's: this rank's blocks)."""
         inner = _INNER if self.cfg.family == "hybrid" else ()
         out: Dict[str, Any] = {}
         stacked: Dict[str, Dict[int, Any]] = {}
@@ -469,7 +580,8 @@ class Transformer(nn.Module):
         even): the numbers each apply's own cast would give.  What an
         apply reads in float32 keeps its dtype: an MoE router (always
         float32), norms and sLSTM's ``r_h``."""
-        new = Transformer(self.cfg, device=self.device, dtype=dtype)
+        new = Transformer(self.cfg, device=self.device, dtype=dtype,
+                          group=self.grid, rules=self.rules)
         new.load_state_dict(self.state_dict())
         for p_new, p_own in zip(_float32_reads(new), _float32_reads(self)):
             p_new.data = p_own.detach().clone()
@@ -554,7 +666,11 @@ class Transformer(nn.Module):
                       skip_upper_triangle: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """:meth:`forward` with autograd on and each block rematerialised
-        per ``cfg.remat``; the same numbers."""
+        per ``cfg.remat``; the same numbers.  Not over more than one rank:
+        the collectives carry no gradient."""
+        if self.grid is not None and self.grid.size > 1:
+            raise NotImplementedError(f"the sharded train step is not ported "
+                                      f"yet: {ITEM} (b)")
         if self.cfg.remat not in REMAT:
             raise ValueError(f"unknown remat {self.cfg.remat!r}; want one of "
                              f"{REMAT}")
@@ -584,7 +700,8 @@ class Transformer(nn.Module):
     # -- serving ------------------------------------------------------------
 
     def init_cache(self, batch_size: int, max_seq: int) -> Cache:
-        """Zeroed K/V, (n_layers, B, max_seq, Hkv, D) in the compute dtype;
+        """Zeroed K/V, (n_layers, B, max_seq, Hkv, D) in the compute dtype
+        (sharded: the rank's KV heads);
         for xLSTM each block's zero state (m = -1e30), float32, with a
         leading period axis; for the hybrid the period's K/V and its
         Mambas' zero states, (periods, attn_every - 1, ...)."""
@@ -601,7 +718,7 @@ class Transformer(nn.Module):
                                   for k, t in per.items()}
             return cache
         compute = dtype_of(cfg.compute_dtype)
-        per = attn.init_kv_cache(n * batch_size, max_seq, cfg.n_kv_heads,
+        per = attn.init_kv_cache(n * batch_size, max_seq, self.kv_heads,
                                  cfg.resolved_head_dim, compute, self.device)
         cache = {"attn": {k: t.view(n, batch_size, *t.shape[1:])
                           for k, t in per.items()}}
@@ -726,6 +843,43 @@ class Transformer(nn.Module):
             x = x + _ffn(ffn, norm_apply(blk.ffn_ln.row(j), x, cfg.norm),
                          cfg)[0]
         return x
+
+
+def _keep(t: torch.Tensor, spec: tuple, coords, kv) -> torch.Tensor:
+    """A rank's block of a full parameter: by ``spec``, but for a ``wk`` /
+    ``wv`` leaf (``kv``: its columns [lo, hi)) the columns of the KV heads
+    the rank's query heads read."""
+    if kv is not None:
+        t = t.narrow(-1, kv[0], kv[1] - kv[0])
+        spec = spec[:-1] + (None,)
+    return sharding.local_block(t, spec, coords)
+
+
+def param_blocks(cfg, coords, rules: sharding.LogicalRules
+                 ) -> Dict[str, Tuple[torch.Tensor, tuple, Callable]]:
+    """``{name: (the full parameter on the meta device, spec, keep)}`` of
+    each parameter of ``cfg``'s model on the rank at ``coords`` (``{axis:
+    (index, size)}``) under ``rules``: ``keep`` cuts a full tensor to the
+    rank's block.  The block
+    is ``local_block`` by the spec (``launch.sharding.param_specs``, the
+    reference's), but for ``wk`` / ``wv`` on KV heads that do not split
+    over "model" (``models/attention.kv_head_range``)."""
+    full = {k: p.detach() for k, p in
+            Transformer(cfg, device="meta").named_parameters()}
+    specs = sharding.param_specs(full, rules)
+    r, m = coords.get("model", (0, 1))
+    hd = cfg.resolved_head_dim
+    try:
+        kv_cols = tuple(i * hd for i in attn.kv_head_range(
+            cfg.n_heads, cfg.n_kv_heads, m, r)) if m > 1 else None
+    except ValueError:      # no whole heads: no model of the port runs so
+        kv_cols = None
+    out = {}
+    for name, p in full.items():
+        kv = kv_cols if re.search(r"attn\.w[kv]\.[wb]$", name) else None
+        out[name] = (p, specs[name], functools.partial(
+            _keep, spec=specs[name], coords=coords, kv=kv))
+    return out
 
 
 def _stack_of(key: str) -> str:

@@ -11,13 +11,15 @@ reference's, float32 scalars included, not ``torch.optim``'s variants.
 Adafactor (factored second moments, Shazeer & Stern 2018) keeps a row and
 a column factor per matrix instead of Adam's two full moments.
 
-The reference's ``zero1_extend_spec`` / ``opt_state_specs`` are mesh
-partition specs; the port has no mesh sharding of the model yet
-(``ROADMAP.md`` Queue 1 item 15, ``launch/sharding``).
+``zero1_extend_spec`` / ``opt_state_specs`` are the reference's ZeRO-1
+specs of the optimizer state (``launch/sharding.py``'s spec tuples over
+``{name: ...}`` trees), read by ``launch/specs.py``; no train step of the
+port shards its state by them yet (``ROADMAP.md`` Queue 1 item 15 (b)).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Tuple
 
@@ -25,7 +27,7 @@ import torch
 
 __all__ = ["OptHyper", "global_norm", "clip_by_global_norm", "adamw_init",
            "adamw_update", "adafactor_init", "adafactor_update", "Optimizer",
-           "get_optimizer"]
+           "get_optimizer", "zero1_extend_spec", "opt_state_specs"]
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -171,3 +173,54 @@ def get_optimizer(name: str) -> Optimizer:
     if name == "adafactor":
         return Optimizer(adafactor_init, adafactor_update)
     raise ValueError(f"unknown optimizer {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 style optimizer-state specs
+# ---------------------------------------------------------------------------
+
+
+def _names(axis) -> Tuple[str, ...]:
+    return axis if isinstance(axis, tuple) else (axis,)
+
+
+def zero1_extend_spec(spec, shape, mesh, data_axis="data") -> tuple:
+    """Extend one spec by splitting the first large unsplit dim over the
+    data axis (ZeRO-1: the optimizer state lives split across the
+    data-parallel replicas).  ``mesh``: anything with ``shape``."""
+    dsize = math.prod(mesh.shape[ax] for ax in _names(data_axis))
+    axes = list(spec) if spec is not None else []
+    axes = (axes + [None] * (len(shape) - len(axes)))[:len(shape)]
+    # the data axis can appear at most once across the whole spec
+    used = {x for a in axes if a is not None for x in _names(a)}
+    if used & set(_names(data_axis)):
+        return tuple(axes)
+    for i in range(len(shape)):
+        if axes[i] is None and shape[i] % dsize == 0 and shape[i] >= dsize:
+            axes[i] = data_axis
+            break
+    return tuple(axes)
+
+
+def opt_state_specs(opt_name: str, param_specs, state, mesh,
+                    data_axis="data", zero1: bool = True):
+    """Spec tree of the optimizer ``state`` (the tree ``init`` gives).
+
+    adamw: m / v take the parameters' specs (ZeRO-extended); adafactor:
+    each factor's largest unsplit dim goes over data.
+    """
+    if opt_name == "adamw":
+        def one(k, t):
+            if zero1:
+                return zero1_extend_spec(param_specs[k], t.shape, mesh,
+                                         data_axis)
+            return tuple(param_specs[k])
+        return {part: {k: one(k, t) for k, t in state[part].items()}
+                for part in ("m", "v")}
+
+    def fac(t):
+        if zero1:
+            return zero1_extend_spec((), t.shape, mesh, data_axis)
+        return (None,) * t.dim()
+    return {"f": {k: {n: fac(t) for n, t in leaves.items()}
+                  for k, leaves in state["f"].items()}}

@@ -526,6 +526,74 @@ def ddp_job(arrays, batch) -> dict:
     return out
 
 
+def sharded_lm_job(data: int, model: int, cases, layers, prompts,
+                   new_tokens: int) -> dict:
+    """Each of ``cases`` ((tag, config overrides, arrays, tokens)) served
+    sharded over a (``data``, ``model``) grid: ``forward`` of this data
+    shard's rows, ``prefill`` of their first S - 4 tokens and 4 teacher-
+    forced ``decode_step``s; the meta shapes ``launch.specs.input_specs``
+    gives this grid beside the tensors the rank holds; ``Engine.generate``
+    of this data shard's ``prompts``.  ``layers``: (tag, overrides,
+    layer arrays, x) through ``moe_apply`` of an MoE layer sharded as the
+    model's.  Returns numpy."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeSpec, get_config, reduced
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import model_grid
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine, ServeConfig
+    grid = model_grid(data, model)
+    di = grid.data.rank
+
+    def rows(a):
+        n = a.shape[0] // data
+        return a[di * n:(di + 1) * n]
+
+    out = {"coords": grid.coords, "lm": {}, "layers": {}}
+    for tag, over, arrays, tokens in cases:
+        cfg = reduced(get_config(over["arch"]),
+                      **{k: v for k, v in over.items() if k != "arch"})
+        m = Transformer.from_arrays(cfg, arrays, device="cpu", group=grid)
+        toks = torch.from_numpy(rows(tokens))
+        b, s = toks.shape
+        logits, aux = m({"tokens": toks})
+        pre, cache = m.prefill({"tokens": toks[:, :s - 4]}, s + 4)
+        steps = []
+        for i in range(s - 4, s):
+            dec, cache = m.decode_step(cache, toks[:, i:i + 1], i)
+            steps.append(dec.numpy())
+        shape = ShapeSpec("t", s + 4, b * data, "decode")
+        _, structs, _ = specs.input_specs(cfg, shape, grid)
+        held = dict(m.named_parameters())
+        p_meta = structs[0]
+        eng = Engine(cfg, m, ServeConfig(batch=len(prompts) // data,
+                                         max_seq=64), device="cpu")
+        out["lm"][tag] = {
+            "forward": logits.numpy(), "aux": float(aux),
+            "prefill": pre.numpy(), "decode": np.stack(steps, 1)[:, :, 0],
+            "params_match_meta": sorted(held) == sorted(p_meta) and all(
+                tuple(held[k].shape) == tuple(p_meta[k].shape) and
+                held[k].dtype == p_meta[k].dtype for k in held),
+            "cache_shapes": {k: tuple(t.shape)
+                             for k, t in cache["attn"].items()},
+            "cache_meta": {k: tuple(t.shape)
+                           for k, t in structs[1]["attn"].items()},
+            "kv_heads": m.kv_heads,
+            "tokens_meta": tuple(structs[2].shape),
+            "generate": eng.generate(rows(np.asarray(prompts, dtype=object))
+                                     .tolist(), new_tokens)}
+    for tag, over, arrays, x in layers:
+        cfg = reduced(get_config(over["arch"]),
+                      **{k: v for k, v in over.items() if k != "arch"})
+        m = Transformer.from_arrays(cfg, arrays, device="cpu", group=grid)
+        y, aux = moe.moe_apply(m.layers[0].moe, torch.from_numpy(rows(x)),
+                               cfg)
+        out["layers"][tag] = {"out": y.numpy(), "aux": float(aux)}
+    return out
+
+
 def distributed_graph(graph_cls, **kw):
     """The graph of the reference's ``tests/test_distributed.py``."""
     import numpy as np
