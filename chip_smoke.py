@@ -260,6 +260,28 @@ Phases (each prints one JSON line with its seconds):
    window, K4 runs on the attention layer's own q, k, v ((4, 2048, 64,
    128) bf16 causal), held by ``attention_error_ratios`` and timed, in
    the phase line and in K4's row (``hybrid_path_inputs``).
+4g. the dry run (``launch/dryrun.py``, after 4e, before 4b), in a launch
+   window of its own.  (a) ``--list``, then every cell of the single-pod
+   and two-pod sweeps counted on the meta device over counting groups (no
+   card): the counts of cells ``ok``, ``skipped`` and ``error`` must be
+   ``DRYRUN_STATUS``'s; qwen2.5-3b x prefill_32k x single's flops, bytes,
+   collective and wire bytes and argument bytes, and each ringo cell's
+   shard sizes and gather bytes, print.  (b) Rank 0 of that cell for real
+   at full width and depth: 256 ranks (16 x 16 counting groups), a local
+   batch of 2 x 32,768 tokens (numpy seed 0), 1 of 16 query heads with
+   its KV head, 688 of 11,008 MLP columns, 9,496 of 151,936 vocabulary
+   rows, all 36 layers, weights from ``init_params`` (seed 0) on the
+   card.  Its counted flops must equal the meta count exactly and its
+   argument bytes the real tensors'; K4 must launch 36 times, all
+   ``"sm90_wgmma"``, at (2, 32768, 1, 128) causal bf16; the prefill's
+   seconds, TFLOP/s and ``max_memory_allocated`` (beside the dry run's
+   peak estimate) print.  Then K4 on layer 0's own q, k, v, held to its
+   plain version by ``attention_error_ratios`` and timed beside SDPA and
+   its bound.  (c) Rank 0 of ``pagerank_twitter`` (d = 256: ns 162,891,
+   es 5,742,188) and of ``pagerank_twitter_2d`` (side 16: nb 2,606,250),
+   one step each on the card over random edges of the shard's shape
+   (seed 0), within 1e-6 of the largest value of the same step on the
+   CPU; ms a step and counted bytes / ms print.
 4b. training, kernel K4 under autograd: ``qwen2.5-3b`` at full width and
    depth (f32 parameters, bf16 compute, ``remat="full"``, AdamW), seeded
    random weights, on batches of 2 x 1024 random walks
@@ -301,11 +323,12 @@ Phases (each prints one JSON line with its seconds):
    ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
-path's, and phases 3b's to 3g's, 4c's, 4f's, 4d's, 4e's and 4b's are
-their own (3d's to 3g's, 4c's, 4f's, 4d's, 4e's and 4b's print in each
+path's, and phases 3b's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's and 4b's
+are their own (3d's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's and 4b's print in each
 kernel row as ``launches_phase_3d`` ... ``_3g``, ``launches_phase_moe``,
 ``launches_phase_sharded_lm``, ``launches_phase_families``,
-``launches_phase_hybrid`` and ``launches_phase_train``): each window's
+``launches_phase_hybrid``, ``launches_phase_dryrun`` and
+``launches_phase_train``): each window's
 counts are zeroed just before it and read just after it.  Any failed
 check raises, and the script exits non-zero without its last line, which
 on success is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -3775,6 +3798,206 @@ def phase_hybrid(dev, kernels, profile):
     return launches, [k4_row]
 
 
+# phase 4g: the dry run, and rank 0 of one production-mesh cell on the card
+DRYRUN_CELL = ("qwen2.5-3b", "prefill_32k")
+DRYRUN_K4_SHAPE = (2, 32768, 1, 128)   # rank 0's heads after the GQA repeat
+# (ok, skipped, error) of the single- and two-pod sweeps: the dense archs
+# but qwen1.5-4b serve prefill and decode; the error cells are ROADMAP.md
+# Queue 1 item 15 (b)'s (tests/test_torch_dryrun.py lists them)
+DRYRUN_STATUS = (12, 16, 52)
+RINGO_CELLS = ("pagerank_twitter", "pagerank_twitter_2d")
+RINGO_TOL = 1e-6   # card vs CPU, relative to the largest value
+
+
+def dryrun_sweep() -> dict:
+    """Phase 4g (a): ``--list`` and the two sweeps in-process."""
+    import tempfile
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.ringo_cells import GRAPHS, run_ringo_cell
+    listing = io.StringIO()
+    with contextlib.redirect_stdout(listing):
+        check(dryrun.main(["--list"]) == 0, "dryrun --list failed")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out, \
+            contextlib.redirect_stdout(io.StringIO()):
+        rc = dryrun.main(["--all", "--mesh", "both", "--out", out])
+        cells = [json.loads(f.read_text()) for f in sorted(Path(out).iterdir())]
+    t_sweep = time.perf_counter() - t0
+    status = {k: sum(c["status"] == k for c in cells)
+              for k in ("ok", "skipped", "error")}
+    check(rc == (1 if status["error"] else 0) and
+          tuple(status.values()) == DRYRUN_STATUS,
+          f"dry run: {status} cells ok / skipped / error, want "
+          f"{DRYRUN_STATUS}")
+    check(all("item 15 (b)" in c["error"] for c in cells
+              if c["status"] == "error"),
+          "a dry-run cell failed for another reason than item 15 (b)")
+    cell = next(c for c in cells if (c["arch"], c["shape"]) == DRYRUN_CELL
+                and not c["multi_pod"])
+    ringo = []
+    for name in GRAPHS:
+        for mp in (False, True):
+            r = run_ringo_cell(name, mp)
+            ringo.append({k: r.get(k) for k in (
+                "shape", "multi_pod", "status", "n_chips", "shard",
+                "collective_bytes_per_device", "wire_bytes_per_device",
+                "bytes_per_device", "memory")})
+    return {"list": listing.getvalue().splitlines(), "status": status,
+            "seconds_sweep": t_sweep, "cell": {k: cell[k] for k in (
+                "flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device", "wire_bytes_per_device",
+                "memory", "n_chips", "params", "compile_s")},
+            "ringo": ringo}
+
+
+def dryrun_cell_on_card(dev, meta_cell: dict):
+    """Phase 4g (b): rank 0 of ``DRYRUN_CELL`` x single on the card, counted
+    as the meta dry run counts it, then timed.  Returns its line and
+    layer 0's q, k, v."""
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_cost import CostCounter
+    from repro_torch.launch.mesh import (CollectiveLedger, counting_grid,
+                                         make_production_mesh)
+    from repro_torch.launch.specs import rules_for
+    from repro_torch.models.transformer import Transformer
+    arch, shape_name = DRYRUN_CELL
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    mesh = make_production_mesh()
+    ledger = CollectiveLedger()
+    grid = counting_grid(mesh, ledger)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.empty_cache()
+    mem_before = torch.cuda.memory_allocated()
+    model, t_init = timed(lambda: Transformer.init_params(
+        cfg, gen, device=dev, group=grid,
+        rules=rules_for(cfg, mesh, "prefill", shape)))
+    meta_model, inputs, meta_arg_bytes = dryrun.build_cell(
+        cfg, shape, mesh, "prefill")
+    held = {k: (tuple(p.shape), p.dtype) for k, p in model.named_parameters()}
+    check(held == {k: (tuple(p.shape), p.dtype)
+                   for k, p in meta_model.named_parameters()},
+          "phase 4g: the card's parameters are not the meta cell's")
+    del meta_model
+    (b, s), = {tuple(inputs[0]["tokens"].shape)}
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s), dtype=np.int32)).to(dev)
+    batch = {"tokens": tokens}
+    arg_bytes = nbytes(*model.parameters(), tokens)
+    check(arg_bytes == meta_arg_bytes == meta_cell["memory"]["argument_bytes"],
+          f"phase 4g: argument bytes {arg_bytes} on the card, "
+          f"{meta_arg_bytes} / {meta_cell['memory']['argument_bytes']} meta")
+    step = dryrun.step_fn_for(cfg, "prefill")
+    by_variant = flash_attention_fwd.launches_by_variant
+    before = flash_attention_fwd.launches, dict(by_variant)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    with CostCounter(ledger) as c:
+        logits, cache = step(model, batch)
+        sync()
+    k4_n = flash_attention_fwd.launches - before[0]
+    wgmma = by_variant["sm90_wgmma"] - before[1]["sm90_wgmma"]
+    check(c.cost.flops == meta_cell["flops_per_device"],
+          f"phase 4g: {c.cost.flops} flops counted on the card, "
+          f"{meta_cell['flops_per_device']} on meta")
+    check(c.cost.collective_bytes == meta_cell["collective_bytes_per_device"]
+          and c.wire_bytes == meta_cell["wire_bytes_per_device"],
+          "phase 4g: the card's collectives are not the meta count's")
+    check(bool(torch.isfinite(logits).all()) and
+          tuple(logits.shape) == (b, 1, cfg.vocab_size),
+          f"phase 4g: logits {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    del logits, cache
+    with k4_calls() as (seen, first):
+        out, t_prefill = timed(lambda: step(model, batch))
+    del out
+    peak = torch.cuda.max_memory_allocated() - mem_before
+    key = (DRYRUN_K4_SHAPE, DRYRUN_K4_SHAPE, str(torch.bfloat16), True)
+    check(k4_n == cfg.n_layers == wgmma and len(seen) == cfg.n_layers and
+          set(seen) == {key},
+          f"phase 4g: K4 {k4_n} launches ({wgmma} sm90_wgmma) at "
+          f"{set(seen)}, want {cfg.n_layers} at {DRYRUN_K4_SHAPE}")
+    qkv = first[key]
+    del first, model
+    return {"cell": f"{arch} x {shape_name} x single, rank 0 of "
+                    f"{mesh.size}",
+            "flops_counted": c.cost.flops,
+            "flops_meta": meta_cell["flops_per_device"],
+            "bytes_counted": c.cost.bytes,
+            "bytes_meta": meta_cell["bytes_per_device"],
+            "collective_bytes": c.cost.collective_bytes,
+            "wire_bytes": c.wire_bytes,
+            "collective_calls": c.collective_calls,
+            "argument_bytes": arg_bytes,
+            "seconds_init": t_init, "prefill_seconds": t_prefill,
+            "prefill_tflops": c.cost.flops / t_prefill / 1e12,
+            "max_memory_allocated": peak,
+            "peak_bytes_meta_estimate": meta_cell["memory"]["peak_bytes"],
+            "k4_launches": k4_n, "k4_launches_sm90_wgmma": wgmma,
+            "k4_shape": list(DRYRUN_K4_SHAPE)}, qkv
+
+
+def ringo_step_on_card(dev, name: str) -> dict:
+    """Phase 4g (c): one PageRank step of rank 0 of ``name`` on the card
+    and on the CPU, the same random shard (seed 0)."""
+    from repro_torch.launch.hlo_cost import CostCounter
+    from repro_torch.launch.mesh import CollectiveLedger
+    from repro_torch.launch.ringo_cells import ringo_shard
+    ledger = CollectiveLedger()
+    step, args, sizes, d = ringo_shard(name, device=dev, seed=0,
+                                       ledger=ledger)
+    with CostCounter(ledger) as c:
+        got = step(*args)
+        sync()
+    cpu_step, cpu_args, _, _ = ringo_shard(name, device="cpu", seed=0)
+    want = cpu_step(*cpu_args)
+    scale = float(want.abs().max())
+    err = max_abs(got.cpu(), want)
+    check(bool(torch.isfinite(got).all()) and got.shape == want.shape and
+          err <= RINGO_TOL * scale,
+          f"phase 4g {name}: card vs CPU max|d| {err} of {scale}")
+    ms = cuda_ms(lambda: step(*args), 5)
+    del args, got, cpu_args, want
+    return {"shape": name, "n_ranks": d, "shard": sizes,
+            "max_abs_diff_vs_cpu": err, "max_abs_cpu": scale,
+            "tolerance": f"{RINGO_TOL} x max|cpu|", "ms": ms,
+            "bytes_counted": c.cost.bytes,
+            "bytes_per_ms": c.cost.bytes / ms,
+            "collective_bytes": c.cost.collective_bytes,
+            "wire_bytes": c.wire_bytes}
+
+
+def phase_dryrun(dev, kernels):
+    """Phase 4g: the dry run's sweeps, rank 0 of qwen2.5-3b x prefill_32k
+    on the card (counted, then timed), and rank 0's PageRank step of two
+    ringo cells, in a launch window of its own; then, outside it, K4 on
+    the cell's layer-0 q, k, v.  Returns the window's launches and K4's
+    row at that shape."""
+    t0 = time.perf_counter()
+    for k in kernels:
+        k.launches = 0
+    sweep = dryrun_sweep()
+    t_a = time.perf_counter() - t0
+    cell, (q, k, v) = dryrun_cell_on_card(dev, sweep["cell"])
+    torch.cuda.empty_cache()
+    ringo = [ringo_step_on_card(dev, name) for name in RINGO_CELLS]
+    torch.cuda.empty_cache()
+    launches = {kern.__name__: kern.launches for kern in kernels}
+    check(launches["flash_attention_fwd"] == 2 * cell["k4_launches"] and
+          not any(n for name, n in launches.items()
+                  if name != "flash_attention_fwd"),
+          f"phase 4g launched {launches}: K4 twice a prefill, nothing else")
+    k4_row = k4_on_path_inputs(q, k, v)
+    del q, k, v
+    k4_row["arch"] = f"{DRYRUN_CELL[0]} x {DRYRUN_CELL[1]} rank 0"
+    emit({"phase": "dryrun", **sweep, "seconds_a": t_a, "card": cell,
+          "ringo_steps": ringo, "launches": launches,
+          "k4_on_path_inputs": k4_row,
+          "seconds": time.perf_counter() - t0})
+    return launches, [k4_row]
+
+
 TRAIN_BATCH, TRAIN_SEQ = 2, 1024   # phase 4b: sequences of the random-walk corpus
 TRAIN_STEPS = 5
 TRAIN_RMAT = (17, 16)   # phase 4b: R-MAT scale and edge factor of the corpus graph
@@ -3931,12 +4154,17 @@ def attention_pairs(sq: int, sk: int, causal: bool) -> int:
 def k4_times(q, k, v, out, want, reps, causal=True):
     """K4's, its plain version's and SDPA's CUDA-event times on q, k, v
     (causal or not, Sq and Sk as given), and the bound for the work:
-    q·kᵀ and p·v over the scored pairs, 4·D flops a pair."""
+    q·kᵀ and p·v over the scored pairs, 4·D flops a pair.  The port's
+    ``attention_flops`` (the formula the dry run counts) must equal that
+    closed form, counted here from ``attention_pairs``."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        flash_attention_fwd, flash_attention_fwd_plain)
+        attention_flops, flash_attention_fwd, flash_attention_fwd_plain)
     b, sq, h, d = q.shape
-    flops = 4 * d * attention_pairs(sq, k.shape[1], causal) * b * h
+    flops = 4 * d * b * h * attention_pairs(sq, k.shape[1], causal)
+    counted = attention_flops(q.shape, k.shape, causal)
+    check(counted == flops, f"attention_flops {counted} at {tuple(q.shape)} x "
+          f"{tuple(k.shape)} causal={causal} != 4·D·B·H·pairs = {flops}")
     bnd, by = bound_ms(nbytes(q, k, v, out), flops, q.dtype)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
@@ -3977,7 +4205,7 @@ def k4_on_path_inputs(q, k, v, causal=True) -> dict:
 
 
 def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
-              hybrid_rows=(), sharded_rows=()):
+              hybrid_rows=(), sharded_rows=(), dryrun_rows=()):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
         attention_error_ratios, flash_attention_fwd, flash_attention_fwd_plain)
@@ -4040,6 +4268,7 @@ def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
     row["families_path_inputs"] = list(family_rows)   # phase 4d's
     row["hybrid_path_inputs"] = list(hybrid_rows)     # phase 4e's
     row["sharded_lm_path_inputs"] = list(sharded_rows)   # phase 4f's rank 0
+    row["dryrun_path_inputs"] = list(dryrun_rows)   # phase 4g's rank 0
     return row
 
 
@@ -4398,6 +4627,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid, k4_hybrid = phase_hybrid(dev, kernels, args.profile)
     torch.cuda.empty_cache()
+    dry, k4_dry = phase_dryrun(dev, kernels)
+    torch.cuda.empty_cache()
     train = phase_train(dev, kernels, args.profile)
     torch.cuda.empty_cache()
 
@@ -4407,7 +4638,7 @@ def main() -> int:
             kernel_k3(u14, path["bsr_tricount"], k3_variants,
                       ptxas_report("bsr_tricount.cu")),
             kernel_k4(path["flash_attention_fwd"], k4_variants, k4_moe,
-                      k4_families, k4_hybrid, k4_sharded)]
+                      k4_families, k4_hybrid, k4_sharded, k4_dry)]
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
@@ -4419,6 +4650,7 @@ def main() -> int:
                  launches_phase_sharded_lm=sharded_lm.get(r["name"], 0),
                  launches_phase_families=families.get(r["name"], 0),
                  launches_phase_hybrid=hybrid.get(r["name"], 0),
+                 launches_phase_dryrun=dry.get(r["name"], 0),
                  launches_phase_train=train.get(r["name"], 0))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

@@ -3,12 +3,11 @@
 A copy of ``repro/configs/base.py``: the same frozen :class:`ArchConfig`,
 ``SHAPES``, ``runnable_shapes`` and ``reduced``, so a config of the port
 equals its reference counterpart field by field.  The registry holds the
-configs ported so far: the four ``family="dense"`` ones, the two
+reference's eleven configs: the four ``family="dense"`` ones, the two
 ``family="moe"`` ones, xlstm-350m (``"ssm"``), whisper-small
-(``"audio"``), internvl2-26b (``"vlm"``) and jamba-1.5-large-398b
-(``"hybrid"``); ``get_config`` of the reference's ``family="graph"``
-ringo-graph raises ``KeyError`` naming the ``ROADMAP.md`` item that
-decides on it with the ``launch/`` modules.
+(``"audio"``), internvl2-26b (``"vlm"``), jamba-1.5-large-398b
+(``"hybrid"``), and ringo-graph (``"graph"``), which is no model but the
+cost cells of ``launch/ringo_cells.py``.
 """
 
 from __future__ import annotations
@@ -156,10 +155,7 @@ def register(cfg: ArchConfig) -> ArchConfig:
 def get_config(name: str) -> ArchConfig:
     _ensure_loaded()
     if name not in _REGISTRY:
-        raise KeyError(f"arch {name!r} is not in the port, which serves "
-                       f"{sorted(_REGISTRY)}; ringo-graph (family "
-                       f"'graph', a cost cell of launch/ringo_cells.py) "
-                       f"is not ported yet: see ROADMAP.md Queue 1 item 15")
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
@@ -179,11 +175,11 @@ def runnable_shapes(cfg: ArchConfig) -> Dict[str, ShapeSpec]:
 
 
 def _ensure_loaded() -> None:
-    """Import the ported config modules once so registration side-effects run."""
+    """Import all config modules once so registration side-effects run."""
     from . import (whisper_small, qwen1_5_4b, qwen2_5_3b,       # noqa: F401
                    starcoder2_15b, mistral_nemo_12b, grok_1_314b,
                    qwen3_moe_235b_a22b, jamba_1_5_large_398b, xlstm_350m,
-                   internvl2_26b)
+                   internvl2_26b, ringo_graph)
 
 
 def reduced(cfg: ArchConfig, **overrides) -> ArchConfig:

@@ -154,6 +154,25 @@ def _inv(deg: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(deg))
 
 
+def _pagerank_round(group: ShardGroup, src: torch.Tensor,
+                    evalid: torch.Tensor, seg_len: torch.Tensor,
+                    inv_src: torch.Tensor, pr: torch.Tensor,
+                    dangling: torch.Tensor, n: int, ns: int, damping: float,
+                    compress_bf16: bool) -> torch.Tensor:
+    """One PageRank round on this rank's shard: gather the ranks (as
+    bfloat16 with ``compress_bf16``), sum each valid edge's ``pr[src] /
+    deg[src]`` into its destination in slot order, add the dangling mass
+    summed over the group in rank order.  ``inv_src`` is 1/deg of each
+    edge slot's source; returns the ``ns`` new ranks."""
+    msg = pr.to(torch.bfloat16) if compress_bf16 else pr
+    pr_full = group.all_gather_cat(msg).to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=src.device)
+    contrib = torch.where(evalid, pr_full[src] * inv_src, zero)
+    local = _sorted_sum(contrib, seg_len)[:ns]
+    dang = _ordered_sum(group, torch.where(dangling, pr, zero).sum())
+    return (1.0 - damping) / n + damping * (local + dang / n)
+
+
 def pagerank_distributed(dg: DistGraph, n_iter: int = 10,
                          damping: float = 0.85,
                          compress_bf16: bool = False) -> torch.Tensor:
@@ -171,14 +190,8 @@ def pagerank_distributed(dg: DistGraph, n_iter: int = 10,
     zero = torch.zeros_like(dg.out_deg)
     pr = torch.where(dg.nvalid, torch.full_like(zero, 1.0 / n), zero)
     for _ in range(int(n_iter)):
-        msg = pr.to(torch.bfloat16) if compress_bf16 else pr
-        pr_full = group.all_gather_cat(msg).to(torch.float32)
-        contrib = torch.where(dg.evalid, pr_full[src] * inv_src,
-                              torch.zeros((), dtype=torch.float32,
-                                          device=src.device))
-        local = _sorted_sum(contrib, dg.seg_len)[: dg.ns]
-        dang = _ordered_sum(group, torch.where(dangling, pr, zero).sum())
-        new = (1.0 - damping) / n + damping * (local + dang / n)
+        new = _pagerank_round(group, src, dg.evalid, dg.seg_len, inv_src, pr,
+                              dangling, n, dg.ns, damping, compress_bf16)
         pr = torch.where(dg.nvalid, new, zero)
     return group.all_gather_cat(pr)[:n]
 

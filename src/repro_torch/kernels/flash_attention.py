@@ -24,11 +24,20 @@ does; no Pallas kernel covers the reference's backward either.
 The chunk arguments keep the reference's signature.  The kernel's tiles are
 fixed; ``q_chunk`` only sets how many query rows the plain version scores at
 once, and ``k_chunk`` is unused (the plain version takes whole key rows).
+
+A CUDA or meta call goes through the custom op
+``torch.ops.repro_torch.flash_attention_fwd``: on the card it launches
+the kernel, on the meta device it returns an empty tensor of the output's
+shape and launches nothing (the dry run of ``launch/dryrun.py``).  The op
+carries K4's flop formula, :func:`attention_flops` (4·D·B·H × the scored
+(query, key) pairs), so ``torch.utils.flop_counter.FlopCounterMode``
+counts a launch on the card and a meta call alike.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -36,7 +45,7 @@ __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "plain_grads", "HEAD_DIMS", "SM90_HEAD_DIMS", "VARIANTS",
            "variant", "launch", "attention_error_ratios",
-           "grad_error_ratios"]
+           "grad_error_ratios", "attention_flops"]
 
 HEAD_DIMS = (8, 16, 32, 64, 128)   # head dims the kernels are built for
 SM90_HEAD_DIMS = (64, 128)         # head dims of the wgmma kernel (bf16)
@@ -97,19 +106,56 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     denominator in float32, p·v accumulated in float32 from p rounded to
     bf16 on the ``"sm90_wgmma"`` variant and from float32 p otherwise.  The
     causal mask is ``qpos >= kpos`` by absolute index.  A CUDA tensor
-    launches the kernel of ``variant(dtype, D)`` (or raises); a CPU tensor
-    takes the plain version.
+    launches the kernel of ``variant(dtype, D)`` (or raises); a meta
+    tensor gives an empty meta tensor of the output's shape and launches
+    nothing; a CPU tensor takes the plain version.  Any other device
+    raises.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, q_chunk, k_chunk)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"no kernel for device {q.device}")
-    return _launch(variant(q.dtype, q.shape[3]), q, k, v, causal)
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, bool(causal))
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+
+
+# The op through the dispatcher's own registration (``torch.library.
+# Library``): ``torch.library.custom_op``'s first call on the card imports
+# torch._dynamo and DTensor, seconds added to the first prefill.
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal)"
+            " -> Tensor")
+_LIB.impl("flash_attention_fwd",
+          lambda q, k, v, causal: _launch(variant(q.dtype, q.shape[3]), q, k,
+                                          v, causal), "CUDA")
+_LIB.impl("flash_attention_fwd",
+          lambda q, k, v, causal: torch.empty_like(
+              q, memory_format=torch.contiguous_format), "Meta")
+
+
+def attention_flops(q_shape, k_shape, causal: bool) -> int:
+    """K4's flops: 4·D·B·H × the (query, key) pairs it scores (q·kᵀ and
+    p·v, two flops a multiply-add), the formula of its bound in
+    ``PERF.md``.  The pairs are Sq·Sk, or under the causal mask ``qpos >=
+    kpos`` those on or below the diagonal: Sq(Sq+1)/2 when Sq = Sk."""
+    b, sq, h, d = q_shape
+    sk = k_shape[1]
+    if causal:
+        diag = min(sq, sk)          # row i < Sk scores i + 1 keys
+        pairs = diag * (diag + 1) // 2 + (sq - diag) * sk
+    else:
+        pairs = sq * sk
+    return 4 * d * b * h * pairs
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _k4_flop_formula(q_shape, k_shape, v_shape, causal, *args,
+                     out_shape=None, **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, causal)
 
 
 def launch(which: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

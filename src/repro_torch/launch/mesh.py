@@ -39,6 +39,17 @@ tensor parallelism needs (:meth:`ModelGroup.psum`, :meth:`ModelGroup.pmean`,
 ``ShardGroup.all_reduce_sum`` refuses on purpose.
 ``make_production_mesh`` is a :class:`MeshShape`: axis names and sizes with
 no ranks behind them, which ``launch/specs.py`` reads.
+
+Counting groups (``counting_group``, ``counting_graph_grid``,
+``counting_grid``) describe ``d`` ranks and move nothing: rank 0's place
+in the layout, no process group.  Each collective returns what keeps one
+rank's shapes and sequence of ops and its values finite (a sum returns its
+input, a gather ``d`` copies of it, an exchange its input) and notes the
+call in a :class:`CollectiveLedger`: its kind (the reference's HLO names),
+its output bytes (what ``hlo_cost`` sums for a collective) and the bytes
+the port's implementation makes the rank receive (``wire_bytes``).
+``launch/dryrun.py`` and ``launch/ringo_cells.py`` run a production-mesh
+cell over them, on the meta device or on one card.
 """
 
 from __future__ import annotations
@@ -55,7 +66,8 @@ import torch.distributed as dist
 
 __all__ = ["GRAPH_AXIS", "ShardGroup", "GridGroups", "graph_group",
            "graph_grid", "MeshShape", "make_production_mesh", "ModelGroup",
-           "ModelGrid", "model_grid"]
+           "ModelGrid", "model_grid", "CollectiveLedger", "counting_group",
+           "counting_graph_grid", "counting_grid"]
 
 #: the reference's name for the graph engine's 1-D partition axis
 GRAPH_AXIS = "gp"
@@ -330,7 +342,8 @@ class ModelGroup(ShardGroup):
     queued before it, and that wait is counted too).  At ``d == 1`` every
     collective returns its input and counts nothing.  A group built
     without a process group at ``d > 1`` (a description, as
-    ``launch/specs.py`` uses) raises on any collective.
+    ``launch/specs.py`` uses) raises on any collective; the groups of
+    ``counting_grid`` count them instead.
     """
 
     stats: Dict[str, float] = field(
@@ -462,3 +475,201 @@ def model_grid(data: int = 1, model: int = 1) -> ModelGrid:
     grid = ModelGrid(data=data_g, model=model_g)
     _MODEL_GRIDS[(data, model)] = (weakref.ref(world), grid)
     return grid
+
+
+# ---------------------------------------------------------------------------
+# counting groups: d ranks described, nothing moved
+# ---------------------------------------------------------------------------
+
+
+class CollectiveLedger:
+    """What the counting groups of one layout noted, by collective kind
+    ("all-gather", "all-reduce", "all-to-all", "collective-permute"):
+
+    * ``calls``;
+    * ``bytes``: the collective's output bytes, the reference's accounting
+      (``repro/launch/hlo_cost.py`` sums the output shape of each
+      collective op);
+    * ``wire_bytes``: what the port's implementation makes this rank
+      receive: ``ModelGroup.psum`` and every gather take the other
+      ``d - 1`` parts, ``dist.all_reduce`` (the graph engine's integer
+      sums) a ring's ``2 (d - 1) / d`` of the tensor, ``all_to_all`` the
+      ``d - 1`` blocks of the others, the grid transpose the peer's tensor
+      (nothing on the diagonal).
+
+    ``listeners`` are called as ``listener(kind, out, in_bytes)`` with each
+    collective's output tensor (``launch/hlo_cost.py`` charges its bytes
+    and tracks it as live memory).
+    """
+
+    def __init__(self) -> None:
+        self.calls: Dict[str, int] = {}
+        self.bytes: Dict[str, float] = {}
+        self.wire_bytes: Dict[str, float] = {}
+        self.listeners: List[Any] = []
+
+    def note(self, kind: str, out: torch.Tensor, in_bytes: float,
+             wire_bytes: float) -> torch.Tensor:
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+        self.bytes[kind] = self.bytes.get(kind, 0.0) + _nbytes(out)
+        self.wire_bytes[kind] = self.wire_bytes.get(kind, 0.0) + wire_bytes
+        for listener in self.listeners:
+            listener(kind, out, in_bytes)
+        return out
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        return {"calls": dict(self.calls), "bytes": dict(self.bytes),
+                "wire_bytes": dict(self.wire_bytes)}
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _quiet():
+    """The stand-in ops of a counted collective, hidden from the counting
+    modes of ``launch/hlo_cost.py`` (the ledger's listener charges the
+    collective instead)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    return _disable_current_modes()
+
+
+def _copies(t: torch.Tensor, d: int, dim: int = 0) -> torch.Tensor:
+    with _quiet():
+        return torch.cat([t] * d, dim=dim)
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    with _quiet():
+        return t.clone()
+
+
+@dataclass(frozen=True, eq=False)
+class _CountingShardGroup(ShardGroup):
+    """A :class:`ShardGroup` of ``d`` ranks with no process group: each
+    collective notes itself in ``ledger`` and moves nothing."""
+
+    ledger: CollectiveLedger = field(default_factory=CollectiveLedger,
+                                     compare=False)
+
+    def all_gather_cat(self, t: torch.Tensor) -> torch.Tensor:
+        if self.d == 1:
+            return t
+        b = _nbytes(t)
+        return self.ledger.note("all-gather", _copies(t, self.d), b,
+                                (self.d - 1) * b)
+
+    def _ring_sum(self, t: torch.Tensor) -> torch.Tensor:
+        if self.d == 1:
+            return t
+        b = _nbytes(t)
+        return self.ledger.note("all-reduce", _same(t), b,
+                                2.0 * (self.d - 1) / self.d * b)
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """:meth:`ShardGroup.all_reduce_sum`'s input (integers only)."""
+        if t.is_floating_point() or t.is_complex():
+            return super().all_reduce_sum(t)     # raises as there
+        return self._ring_sum(t)
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        return self._ring_sum(t)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        if self.d == 1:
+            return t
+        b = _nbytes(t)
+        return self.ledger.note("all-to-all", _same(t), b,
+                                (self.d - 1) / self.d * b)
+
+    def broadcast(self, header: Any = None,
+                  tensors: Sequence[torch.Tensor] = (), src: int = 0,
+                  device=None) -> Tuple[Any, List[torch.Tensor]]:
+        raise NotImplementedError("a counting group carries no broadcast: "
+                                  "no cell of the dry run sends one")
+
+
+@dataclass(frozen=True, eq=False)
+class _CountingGridGroups(GridGroups):
+    """A :class:`GridGroups` of counting groups; the transpose notes a
+    collective-permute."""
+
+    ledger: CollectiveLedger = field(default_factory=CollectiveLedger,
+                                     compare=False)
+
+    def transpose(self, t: torch.Tensor) -> torch.Tensor:
+        b = _nbytes(t)
+        out = t if self.r == self.c else _same(t)
+        return self.ledger.note("collective-permute", out, b,
+                                0.0 if self.r == self.c else b)
+
+
+@dataclass(frozen=True, eq=False)
+class _CountingModelGroup(ModelGroup):
+    """A :class:`ModelGroup` of ``d`` ranks with no process group:
+    ``psum`` returns its input, ``all_gather_dim`` ``d`` copies, each
+    noted in ``ledger``."""
+
+    ledger: CollectiveLedger = field(default_factory=CollectiveLedger,
+                                     compare=False)
+
+    def psum(self, t: torch.Tensor) -> torch.Tensor:
+        if self.d == 1:
+            return t
+        b = _nbytes(t)
+        return self.ledger.note("all-reduce", _same(t), b, (self.d - 1) * b)
+
+    def all_gather_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        if self.d == 1:
+            return t
+        b = _nbytes(t)
+        return self.ledger.note("all-gather", _copies(t, self.d, dim), b,
+                                (self.d - 1) * b)
+
+
+@dataclass(frozen=True, eq=False)
+class _CountingModelGrid(ModelGrid):
+    """Rank 0 of a production mesh as a (data, model) grid: ``data`` spans
+    every batch axis ("pod" x "data"), and ``coords`` names each mesh axis,
+    so the specs that split over ("pod", "data") find their axes."""
+
+    mesh_shape: Dict[str, int] = field(default_factory=dict)
+
+    @property
+    def coords(self) -> Dict[str, Tuple[int, int]]:
+        return {ax: (0, n) for ax, n in self.mesh_shape.items()}
+
+
+def counting_group(d: int, rank: int = 0,
+                   ledger: Optional[CollectiveLedger] = None) -> ShardGroup:
+    """Member ``rank`` of ``d`` graph shards, collectives counted in
+    ``ledger`` (a new one by default)."""
+    return _CountingShardGroup(int(d), int(rank),
+                               ledger=ledger or CollectiveLedger())
+
+
+def counting_graph_grid(side: int,
+                        ledger: Optional[CollectiveLedger] = None
+                        ) -> GridGroups:
+    """Cell (0, 0) of a ``side x side`` grid of counting groups, all noting
+    in one ``ledger``."""
+    ledger = ledger or CollectiveLedger()
+    row = _CountingShardGroup(side, 0, ledger=ledger)
+    col = _CountingShardGroup(side, 0, ledger=ledger)
+    world = _CountingShardGroup(side * side, 0, ledger=ledger)
+    return _CountingGridGroups(side, 0, 0, row, col, world, ledger=ledger)
+
+
+def counting_grid(mesh, ledger: Optional[CollectiveLedger] = None
+                  ) -> ModelGrid:
+    """Rank 0 of ``mesh`` (a :class:`MeshShape`, or anything with
+    ``shape``) as a :class:`ModelGrid` of counting groups noting in one
+    ``ledger``: the model axis as it is, "pod" x "data" folded into the
+    data axis."""
+    ledger = ledger or CollectiveLedger()
+    shape = dict(mesh.shape)
+    data = shape.get("pod", 1) * shape.get("data", 1)
+    return _CountingModelGrid(
+        data=_CountingModelGroup(data, 0, ledger=ledger),
+        model=_CountingModelGroup(shape.get("model", 1), 0, ledger=ledger),
+        mesh_shape=shape)

@@ -61,9 +61,11 @@ whole batch otherwise.  ``init_params`` draws every full tensor in the
 unsharded order and keeps the rank's block, one tensor at a time, and
 ``from_arrays`` cuts the reference's arrays the same way, so the ranks
 together hold the unsharded model's numbers.  Not sharded (they raise):
-the ssm, audio, vlm and hybrid families over more than one rank, and
-weights whose d_model dim the rules put on a data axis of more than one
-rank (``two_d_weights``; ``ROADMAP.md Queue 1 item 15 (b)``).
+the ssm, audio, vlm and hybrid families over more than one rank, weights
+whose d_model dim the rules put on a data axis of more than one rank
+(``two_d_weights``), and heads that do not split into whole heads over the
+model ranks (qwen1.5-4b's 20 over 16); ``ROADMAP.md Queue 1 item 15
+(b)``.
 
 The cache keeps the reference's layout: ``{"attn": {"k", "v"}}`` with
 shape (n_layers, B, max_seq, Hkv, D) in the compute dtype for the
@@ -226,6 +228,11 @@ def n_scan_steps(cfg) -> int:
 
 
 def _check_supported(cfg, grid) -> None:
+    if cfg.family == "graph":
+        raise NotImplementedError(
+            f"{cfg.name}: family 'graph' is not a model but a cost cell of "
+            f"launch/ringo_cells.py (run it with launch/dryrun.py --arch "
+            f"ringo-graph)")
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
                                   f"{ITEM}")
@@ -253,7 +260,11 @@ def _widths(cfg, grid, rules) -> _Widths:
     if grid is None:
         return _Widths(cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size)
     m, r = grid.model.d, grid.model.rank
-    lo, hi = attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads, m, r)
+    try:
+        lo, hi = attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads, m, r)
+    except ValueError as e:     # the reference's GSPMD pads a split head
+        raise NotImplementedError(f"{cfg.name}: {e} (a head split across "
+                                  f"ranks): {ITEM} (b)") from e
     for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
         if n % m:
             raise ValueError(f"{cfg.name}: {what} {n} does not split over "

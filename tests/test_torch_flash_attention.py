@@ -216,3 +216,53 @@ def test_variant_is_chosen_by_dtype_and_head_dim():
     before = dict(flash_attention_fwd.launches_by_variant)
     flash_attention_fwd(q, q, q)                 # CPU: the plain version
     assert flash_attention_fwd.launches_by_variant == before
+
+
+@pytest.mark.parametrize("shape,k_len,causal,pairs", [
+    ((2, 32768, 1, 128), 32768, True, 32768 * 32769 // 2),
+    ((4, 416, 12, 64), 1536, False, 416 * 1536),
+    ((1, 100, 2, 32), 60, True, 60 * 61 // 2 + 40 * 60)])
+def test_meta_call_gives_the_shape_counts_flops_and_no_launch(
+        shape, k_len, causal, pairs):
+    """On the meta device K4 returns an empty tensor of the output's shape
+    through its custom op, launches nothing, and ``FlopCounterMode``
+    counts its formula, 4·D·B·H × the scored pairs (causal: qpos >= kpos)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels import flash_attention as fa
+    b, sq, h, d = shape
+    q = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    k = torch.empty((b, k_len, h, d), dtype=torch.bfloat16, device="meta")
+    before = (fa.flash_attention_fwd.launches,
+              dict(fa.flash_attention_fwd.launches_by_variant))
+    with FlopCounterMode(display=False) as fc:
+        out = fa.flash_attention_fwd(q, k, k, causal=causal)
+    assert out.device.type == "meta" and out.shape == shape
+    assert out.dtype == torch.bfloat16
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_fwd.launches_by_variant) == before
+    assert fc.get_total_flops() == fa.attention_flops(shape, k.shape,
+                                                      causal) \
+        == 4 * d * b * h * pairs
+    assert torch.ops.repro_torch.flash_attention_fwd(q, k, k, causal).shape \
+        == shape
+
+
+class _Elsewhere:
+    """A (B, S, H, D) stand-in on a device with no K4 kernel."""
+    dtype, shape, device = torch.bfloat16, (1, 8, 1, 64), torch.device("xpu")
+
+    def dim(self):
+        return 4
+
+
+def test_other_devices_raise_and_the_op_has_no_cpu_kernel():
+    from repro_torch.kernels import flash_attention as fa
+    x = _Elsewhere()
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        fa.flash_attention_fwd(x, x, x)
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        fa.launch("sm90_wgmma", x, x, x)
+    # the CPU takes the plain version in the wrapper, never the op
+    q = torch.zeros((1, 8, 1, 64), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        torch.ops.repro_torch.flash_attention_fwd(q, q, q, True)

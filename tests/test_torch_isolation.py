@@ -61,7 +61,10 @@ def test_port_modules_import_no_jax_and_no_reference():
                  "repro_torch.serve.graph_service", "repro_torch.serve.wire",
                  "repro_torch.serve.server", "repro_torch.serve.client",
                  "repro_torch.examples.stackoverflow_experts",
-                 "repro_torch.examples.remote_analytics"):
+                 "repro_torch.examples.remote_analytics",
+                 "repro_torch.configs.ringo_graph",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.hlo_cost",
+                 "repro_torch.launch.ringo_cells"):
         assert name in PORT_MODULES, name
 
 

@@ -371,6 +371,28 @@ def test_flash_attention_kernel_matches_plain(dev, b, sq, sk, h, d, causal,
         assert r["ok"], r
 
 
+def test_flash_attention_at_the_dry_run_cell_shape(dev):
+    # rank 0 of qwen2.5-3b x prefill_32k on the 16 x 16 mesh: one head of
+    # 32,768 positions, 16x longer in S than the other shapes here
+    shape = (2, 32768, 1, 128)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    assert fa.variant(q.dtype, 128) == "sm90_wgmma"
+    before = flash_attention_fwd.launches_by_variant["sm90_wgmma"]
+    got = flash_attention_fwd(q, k, v, causal=True)
+    again = flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches_by_variant["sm90_wgmma"] == before + 2
+    assert torch.equal(got, again) and bool(torch.isfinite(got).all())
+    ref = flash_attention_fwd_plain(q.float(), k.float(), v.float())
+    base = flash_attention_fwd_plain(q, k, v, round_p=True)
+    r = attention_error_ratios(got, ref, base)
+    assert r["ok"], r
+    assert fa.attention_flops(shape, shape, True) == \
+        4 * 128 * 2 * 32768 * 32769 // 2
+
+
 @pytest.mark.parametrize("b,sq,sk,h,d", [(1, 77, 130, 2, 64),
                                          (2, 200, 200, 2, 128)])
 def test_flash_attention_cuda_core_variant_bf16_one_ulp(dev, b, sq, sk, h, d):
