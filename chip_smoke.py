@@ -296,7 +296,34 @@ Phases (each prints one JSON line with its seconds):
    recompute) plus 36 for the serving forward.  Its line prints the step
    seconds, tokens/s and ``max_memory_allocated``; with ``--profile`` one
    more step runs under ``torch.profiler``: its device-busy share and
-   K4's part of it.
+   K4's part of it.  (K1-K3's rows of phase 5 are measured before 4b, and
+   the plans of phases 2-3's graphs evicted, so that 4b and 4h have the
+   card.)
+4h. the sharded train step (``train/zero.py``), gloo ranks sharing the
+   card (``launch/mesh.model_grid``), on phase 4b's first batches, weights
+   from seed 0 as there.  Before each run the parent prints the
+   reckoning of a rank's bytes (parameter blocks, gradients, float32
+   reduced gradients, ZeRO state, logits), which must stay under 72 GB
+   over the ranks.  (a) qwen2.5-3b at full width and depth over (1, 2),
+   3 steps: each step's loss within 1e-2 and gradient norm within 5% of
+   phase 4b's, step 2's loss below step 0's, and on each rank K4 72
+   times a step (36 forward, 36 recompute), all ``"sm90_wgmma"``, at
+   (2, 1024, 8, 128).  (b) The same cut to 12 layers over (2, 2), ZeRO-1
+   over two data ranks, 3 steps, within 1e-2 of a one-rank run of the cut
+   model in the parent first: each rank's optimizer state holds half of
+   each block it splits (only the qkv biases, split over "model" on their
+   one dim, stay whole), and the gradients' reduction over "data"
+   receives exactly the bytes its layout predicts, (d - 1)/d of each
+   split float32 gradient.  (c) qwen3-moe at full width cut to 2 layers,
+   ``moe_impl="expert_tp"``, capacity factor 1.25, Adafactor, bf16
+   parameters, over (1, 2), 2 steps, within 2e-2 of a one-rank run first.
+   Every value finite; the ranks that hold the same block report the same
+   bits for it (checksums: the norms, the routers, a shared KV head's
+   columns, every block across data replicas).  Its line prints, for each
+   run, step seconds, tokens/s, each rank's peak memory beside the
+   reckoning, and each step's collectives by phase (forward, backward,
+   recompute, gradients, optimizer: calls, bytes sent and received, host
+   seconds).
 5. every kernel against its plain PyTorch version at the shapes phases 2-4
    gave it, with its time, the plain version's, a library call's where one
    computes the same function, and the card's lower bound.  Printed as one
@@ -307,7 +334,9 @@ Phases (each prints one JSON line with its seconds):
    phase 4b's shape (2, 1024, 16, 128), K4's forward and the PyTorch
    backward must give dq, dk, dv within the same rule against autograd
    through the plain version (its row's ``backward``, timed beside SDPA's
-   backward as a yardstick only); the CUDA-core variant at
+   backward as a yardstick only), and the same at a rank's heads of phase
+   4h (a), (2, 1024, 8, 128) (``backward_rank_heads``); the CUDA-core
+   variant at
    the same shape (the "before" time) must match its plain version within
    one bf16 ulp per element (``|got - want| <= 2^-7·|want| + 1e-6``), and
    in float32 within 2e-5.  K2 must give the same bits twice; its row
@@ -323,12 +352,13 @@ Phases (each prints one JSON line with its seconds):
    ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
-path's, and phases 3b's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's and 4b's
-are their own (3d's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's and 4b's print in each
-kernel row as ``launches_phase_3d`` ... ``_3g``, ``launches_phase_moe``,
-``launches_phase_sharded_lm``, ``launches_phase_families``,
-``launches_phase_hybrid``, ``launches_phase_dryrun`` and
-``launches_phase_train``): each window's
+path's, and phases 3b's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's, 4b's and
+4h's are their own (3d's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's, 4b's and
+4h's print in each kernel row as ``launches_phase_3d`` ... ``_3g``,
+``launches_phase_moe``, ``launches_phase_sharded_lm``,
+``launches_phase_families``, ``launches_phase_hybrid``,
+``launches_phase_dryrun``, ``launches_phase_train`` and
+``launches_phase_sharded_train``; 4h's ranks count their own): each window's
 counts are zeroed just before it and read just after it.  Any failed
 check raises, and the script exits non-zero without its last line, which
 on success is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -3802,9 +3832,10 @@ def phase_hybrid(dev, kernels, profile):
 DRYRUN_CELL = ("qwen2.5-3b", "prefill_32k")
 DRYRUN_K4_SHAPE = (2, 32768, 1, 128)   # rank 0's heads after the GQA repeat
 # (ok, skipped, error) of the single- and two-pod sweeps: the dense archs
-# but qwen1.5-4b serve prefill and decode; the error cells are ROADMAP.md
-# Queue 1 item 15 (b)'s (tests/test_torch_dryrun.py lists them)
-DRYRUN_STATUS = (12, 16, 52)
+# but qwen1.5-4b serve prefill and decode and train (the sharded train
+# step); the error cells are ROADMAP.md Queue 1 item 15 (b)'s
+# (tests/test_torch_dryrun.py lists them)
+DRYRUN_STATUS = (18, 16, 46)
 RINGO_CELLS = ("pagerank_twitter", "pagerank_twitter_2d")
 RINGO_TOL = 1e-6   # card vs CPU, relative to the largest value
 
@@ -4131,8 +4162,324 @@ def phase_train(dev, kernels, profile):
           "max_memory_allocated": peak, "k4_launches": k4,
           "k4_launches_predicted": want_k4, **rec,
           "seconds": time.perf_counter() - t0})
+    baseline = {"steps": steps, "batches": [{k: v.cpu() for k, v in b.items()}
+                                            for b in batches]}
     del model, opt_state, batches
-    return launches
+    return launches, baseline
+
+
+# phase 4h: the sharded train step, gloo ranks sharing the card
+SHARDED_TRAIN_JOIN_SECONDS = 600.0
+SHARDED_TRAIN_RUNS = (
+    # (run, arch, layers kept (None: all), (data, model), steps, overrides)
+    ("a", "qwen2.5-3b", None, (1, 2), 3, {}),
+    ("b", "qwen2.5-3b", 12, (2, 2), 3, {}),
+    ("c", "qwen3-moe-235b-a22b", 2, (1, 2), 2,
+     {"moe_impl": "expert_tp", "capacity_factor": 1.25}),
+)
+SHARDED_TRAIN_LOSS_TOL = {"a": 1e-2, "b": 1e-2, "c": 2e-2}   # vs d = 1
+SHARDED_TRAIN_NORM_TOL = 5e-2   # (a): the gradient norm vs phase 4b's
+SHARDED_TRAIN_MEMORY = 72e9     # the reckoning's ceiling over all ranks
+
+
+def sharded_train_config(arch, n_layers, over):
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if n_layers:
+        over = dict(over, n_layers=n_layers)
+    return dataclasses.replace(cfg, **over)
+
+
+def sharded_train_reckoning(cfg, data: int, model: int) -> dict:
+    """The bytes one rank of a (data, model) grid should hold at its peak:
+    its parameter blocks; their gradients in the parameters' dtype and
+    reduced to float32 ZeRO blocks; its ZeRO optimizer state; the logits
+    of its rows (the gathered compute-dtype logits, then float32 twice in
+    the loss and its gradient).  Counted on the meta device."""
+    from repro_torch.launch.mesh import ModelGrid, ModelGroup
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import zero
+    grid = ModelGrid(ModelGroup(data, 0), ModelGroup(model, 0))
+    m = Transformer(cfg, device="meta", group=grid)
+    lay = zero.layout(m)
+    params = nbytes(*m.parameters())
+    reduced = sum(4 * lay[k].zblock(p).numel()      # new float32 tensors
+                  for k, p in m.named_parameters()
+                  if data > 1 or p.dtype != torch.float32 or
+                  len(lay[k].members) > 1)
+    state = nbytes(*(t for *_, t in zero._state_leaves(
+        zero.init_state(cfg.optimizer, m))))
+    rows = TRAIN_BATCH // data * TRAIN_SEQ * cfg.vocab_size
+    logits = rows * (dtype_of(cfg.compute_dtype).itemsize + 4 + 4)
+    rank = 2 * params + reduced + state + logits
+    return {"params": params, "grads": params, "grads_reduced_f32": reduced,
+            "state": state, "logits": logits, "rank": rank,
+            "all_ranks": rank * data * model}
+
+
+def train_one_rank(dev, cfg, batches, steps: int) -> list:
+    """The d = 1 yardstick: ``steps`` steps of ``cfg`` from seed 0 on the
+    whole batches, in this process, freed after."""
+    from repro_torch.train.optimizer import OptHyper
+    from repro_torch.train.step import init_train_state, make_train_step
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, state = init_train_state(cfg, gen, device=dev)
+    step_fn = make_train_step(cfg, OptHyper(), attn_chunk=TRAIN_SEQ)
+    out = []
+    for i in range(steps):
+        b = {k: v.to(dev) for k, v in batches[i].items()}
+        _, _, m = step_fn(model, state, b, i)
+        out.append({k: float(v) for k, v in m.items()})
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def checksum(t: torch.Tensor) -> list:
+    """Two int64 sums of a tensor's 32- or 16-bit words (on its device):
+    equal bits give equal sums."""
+    w = t.detach().contiguous()
+    w = w.view(torch.int16 if w.element_size() == 2 else torch.int32).long()
+    return [int(w.sum()), int((w * w).sum())]
+
+
+def sharded_train_rank(rank: int, d: int, workdir: str, run: str, cfg,
+                       shape, steps: int, batches, device: str):
+    """Phase 4h, one rank: join a gloo world of ``d`` ranks on ``device``
+    (card 0), lay it out as the (data, model) grid ``shape``, draw the
+    one-rank model's weights from seed 0 keeping this rank's blocks, and
+    take ``steps`` sharded train steps on this data shard's rows of
+    ``batches``.  Writes a JSON record: each step's metrics, seconds, K4
+    launches (by variant and shape) and collectives by phase; peak memory;
+    the checksums of what ranks share; the ZeRO state's elements beside
+    the blocks'; the bytes the gradients' reduction over "data"
+    received."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch.mesh import model_grid
+    from repro_torch.train import zero
+    from repro_torch.train.optimizer import OptHyper
+    from repro_torch.train.step import init_train_state, make_train_step
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.reset_peak_memory_stats()
+    work = Path(workdir)
+    by_variant = flash_attention_fwd.launches_by_variant
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=d,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        data, model = shape
+        grid = model_grid(data, model)
+        gen = torch.Generator(device=device).manual_seed(0)
+        (m, state), t_init = timed(lambda: init_train_state(
+            cfg, gen, device=device, grid=grid))
+        step_fn = make_train_step(cfg, OptHyper(), attn_chunk=TRAIN_SEQ)
+        lay = zero.layout(m)
+        di = grid.data.rank
+        rows = []
+        for i in range(steps):
+            n = batches[i]["tokens"].shape[0] // data
+            mine = {k: v[di * n:(di + 1) * n].to(device)
+                    for k, v in batches[i].items()}
+            flash_attention_fwd.launches = 0
+            for v in by_variant:
+                by_variant[v] = 0
+            before = {ax: copy.deepcopy(g.phase_stats)
+                      for ax, g in (("model", grid.model),
+                                    ("data", grid.data))}
+            sync()
+            t = time.perf_counter()
+            with k4_calls() as (seen, _):
+                _, _, met = step_fn(m, state, mine, i)
+                row = {k: float(v) for k, v in met.items()}
+            sync()
+            row["seconds"] = time.perf_counter() - t
+            row["k4_launches"] = flash_attention_fwd.launches
+            row["k4_by_variant"] = dict(by_variant)
+            row["k4_shapes"] = sorted({str(list(k[0])) for k in seen})
+            row["collectives"] = {
+                ax: {ph: {k: v - before[ax].get(ph, {}).get(k, 0)
+                          for k, v in st.items()}
+                     for ph, st in g.phase_stats.items()}
+                for ax, g in (("model", grid.model), ("data", grid.data))}
+            rows.append(row)
+        params = dict(m.named_parameters())
+        shared = [k for k in params
+                  if re.search(r"(norm|ln)[^.]*\.scale$|router\.w$|"
+                               r"attn\.w[kv]\.[wb]$", k)]
+        sums = {k: checksum(params[k]) for k in
+                (params if data > 1 else shared)}
+        state_elems = sum(t.numel() for *_, t in zero._state_leaves(state))
+        whole = [k for k, leaf in lay.items()
+                 if leaf.zdim is None] if data > 1 else []
+        grad_bytes = sum(4 * p.numel() for p in params.values())
+        want_rs = sum(4 * p.numel() * ((data - 1) / data
+                                       if lay[k].zdim is not None
+                                       else data - 1)
+                      for k, p in params.items())
+        info = {"rank": rank, "coords": grid.coords, "steps": rows,
+                "seconds_init": t_init,
+                "params_held": sum(p.numel() for p in params.values()),
+                "param_bytes_held": nbytes(*params.values()),
+                "state_elements": state_elems,
+                "state_bytes": nbytes(*(t for *_, t in
+                                        zero._state_leaves(state))),
+                "zero_split_leaves": len(lay) - len(whole) if data > 1
+                else 0,
+                "zero_whole_leaves": whole,
+                "zero_half": all(
+                    2 * lay[k].zblock(p).numel() == p.numel()
+                    for k, p in params.items() if lay[k].zdim is not None),
+                "grad_bytes_f32": grad_bytes,
+                "grad_reduce_received_predicted": want_rs,
+                "holders": {k: lay[k].holders for k in shared},
+                "checksums": sums}
+        if on_card:
+            info["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        (work / f"rank{rank}.json").write_text(json.dumps(info))
+        del m, state, params
+    finally:
+        dist.destroy_process_group()
+
+
+def _same_checksums(ranks, leaf_filter) -> bool:
+    """The ranks that hold the same block of a leaf (same model index, or
+    the same holders) report the same checksums for it."""
+    for k in ranks[0]["checksums"]:
+        if not leaf_filter(k):
+            continue
+        for a in ranks:
+            for b in ranks:
+                ma, mb = a["coords"]["model"][0], b["coords"]["model"][0]
+                held = a.get("holders", {}).get(k)
+                if (ma == mb or held is not None and
+                        held == b["holders"][k]) and \
+                        a["checksums"][k] != b["checksums"][k]:
+                    return False
+    return True
+
+
+def phase_sharded_train(dev, kernels, baseline):
+    """Phase 4h: the sharded train step (``train/zero.py``) over gloo ranks
+    sharing the card, each run held to its one-rank yardstick: (a)
+    qwen2.5-3b at full width and depth over (1, 2) against phase 4b's
+    steps (``baseline``: its metrics and batches); (b) the same cut to 12
+    layers over (2, 2), ZeRO-1 over two data ranks, against a one-rank run
+    in this process first; (c) qwen3-moe at full width cut to 2 layers,
+    ``expert_tp``, Adafactor, bf16 parameters, over (1, 2), against a
+    one-rank run.  Returns K4's launches in the phase."""
+    import shutil
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "phase4h"
+    shutil.rmtree(work, ignore_errors=True)
+    batches = baseline["batches"]
+    lines, k4_total = [], 0
+    try:
+        for run, arch, n_layers, (data, model), steps, over in \
+                SHARDED_TRAIN_RUNS:
+            t_run = time.perf_counter()
+            cfg = sharded_train_config(arch, n_layers, over)
+            for k in kernels:
+                k.launches = 0
+            if run == "a":
+                want, t_d1 = baseline["steps"][:steps], 0.0
+            else:
+                want, t_d1 = timed(lambda: train_one_rank(dev, cfg, batches,
+                                                          steps))
+            k4_total += flash_attention_fwd.launches
+            torch.cuda.empty_cache()
+            reck = sharded_train_reckoning(cfg, data, model)
+            held = torch.cuda.memory_allocated()
+            print(json.dumps({"phase4h_reckoning": run, "grid": [data, model],
+                              "parent_memory_allocated": held, **reck}),
+                  flush=True)
+            check(reck["all_ranks"] + held <= SHARDED_TRAIN_MEMORY,
+                  f"phase 4h ({run}): {reck['all_ranks'] + held} bytes "
+                  f"reckoned over the ranks")
+            (work / run).mkdir(parents=True)
+            run_ranks(sharded_train_rank, data * model,
+                      SHARDED_TRAIN_JOIN_SECONDS, f"phase 4h ({run})",
+                      str(work / run), run, cfg, (data, model), steps,
+                      batches[:steps], dev.type)
+            ranks = [json.loads((work / run / f"rank{r}.json").read_text())
+                     for r in range(data * model)]
+            tol = SHARDED_TRAIN_LOSS_TOL[run]
+            for r in ranks:
+                got = r["steps"]
+                check(all(np.isfinite(g["loss"]) and
+                          np.isfinite(g["grad_norm"]) for g in got),
+                      f"phase 4h ({run}) rank {r['rank']}: not finite")
+                check(all(abs(g["loss"] - w["loss"]) <= tol * abs(w["loss"])
+                          for g, w in zip(got, want)),
+                      f"phase 4h ({run}) rank {r['rank']}: losses "
+                      f"{[g['loss'] for g in got]} vs one rank's "
+                      f"{[w['loss'] for w in want]}")
+                k4_total += sum(g["k4_launches"] for g in got)
+            first = ranks[0]["steps"]
+            if run == "a":
+                check(all(abs(g["grad_norm"] - w["grad_norm"]) <=
+                          SHARDED_TRAIN_NORM_TOL * w["grad_norm"]
+                          for g, w in zip(first, want)),
+                      f"phase 4h (a): gradient norms "
+                      f"{[g['grad_norm'] for g in first]} vs phase 4b's "
+                      f"{[w['grad_norm'] for w in want]}")
+                check(first[-1]["loss"] < first[0]["loss"],
+                      f"phase 4h (a): step {steps - 1}'s loss is not below "
+                      f"step 0's")
+                heads = cfg.n_heads // model
+                key = str([TRAIN_BATCH, TRAIN_SEQ, heads,
+                           cfg.resolved_head_dim])
+                for r in ranks:
+                    for g in r["steps"]:
+                        check(g["k4_launches"] == 2 * cfg.n_layers and
+                              g["k4_by_variant"].get("sm90_wgmma") ==
+                              2 * cfg.n_layers and g["k4_shapes"] == [key],
+                              f"phase 4h (a) rank {r['rank']}: K4 "
+                              f"{g['k4_launches']} {g['k4_by_variant']} "
+                              f"{g['k4_shapes']}, want {2 * cfg.n_layers} "
+                              f"sm90_wgmma at {key} a step")
+            if run == "b":
+                for r in ranks:
+                    check(r["zero_half"] and all(
+                        re.search(r"attn\.w[qkv]\.b$", k)
+                        for k in r["zero_whole_leaves"]),
+                          f"phase 4h (b) rank {r['rank']}: ZeRO blocks "
+                          f"{r['zero_whole_leaves']} not split in half")
+                    got_rs = r["steps"][-1]["collectives"]["data"][
+                        "gradients"]["received"]
+                    check(got_rs == r["grad_reduce_received_predicted"],
+                          f"phase 4h (b) rank {r['rank']}: the gradients' "
+                          f"reduction received {got_rs} bytes, predicted "
+                          f"{r['grad_reduce_received_predicted']}")
+            check(_same_checksums(ranks, lambda k: True),
+                  f"phase 4h ({run}): ranks differ in the bits they share")
+            lines.append({
+                "run": run, "arch": cfg.name, "n_layers": cfg.n_layers,
+                "grid": [data, model], "optimizer": cfg.optimizer,
+                "param_dtype": cfg.param_dtype, "remat": cfg.remat,
+                "moe_impl": cfg.moe_impl if cfg.n_experts else None,
+                "capacity_factor": cfg.capacity_factor if cfg.n_experts
+                else None,
+                "one_rank_steps": want, "one_rank_seconds": t_d1,
+                "reckoning": reck, "parent_memory_allocated": held,
+                "step_seconds": [g["seconds"] for g in first],
+                "tokens_per_second": TRAIN_BATCH * TRAIN_SEQ /
+                statistics.median(g["seconds"] for g in first[1:] or first),
+                "per_rank": [{k: v for k, v in r.items()
+                              if k not in ("checksums", "holders")}
+                             for r in ranks],
+                "seconds": time.perf_counter() - t_run})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "sharded_train", "backend": "gloo", "runs": lines,
+          "k4_launches": k4_total, "seconds": time.perf_counter() - t0})
+    return {"flash_attention_fwd": k4_total}
 
 
 def one_ulp_ratio(got, want) -> float:
@@ -4264,6 +4611,7 @@ def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
                tolerance=2e-5)
     row["f32"] = f32
     row["backward"] = kernel_k4_backward(qkv)
+    row["backward_rank_heads"] = kernel_k4_backward(qkv, heads=8)
     row["moe_path_inputs"] = list(moe_rows)   # phase 4c's layer-0 inputs
     row["families_path_inputs"] = list(family_rows)   # phase 4d's
     row["hybrid_path_inputs"] = list(hybrid_rows)     # phase 4e's
@@ -4272,13 +4620,14 @@ def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
     return row
 
 
-def kernel_k4_backward(qkv):
-    """K4 under autograd at phase 4b's shape: the autograd function's dq,
-    dk, dv (K4 forward, the PyTorch backward) against autograd through the
-    plain version, and the backward's time beside SDPA's backward."""
+def kernel_k4_backward(qkv, heads: int = 16):
+    """K4 under autograd at phase 4b's shape (``heads`` 16; 8: a rank's of
+    phase 4h (a)): the autograd function's dq, dk, dv (K4 forward, the
+    PyTorch backward) against autograd through the plain version, and the
+    backward's time beside SDPA's backward."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    shape = (TRAIN_BATCH, TRAIN_SEQ, 16, 128)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, heads, 128)
     q, k, v = qkv(shape, torch.bfloat16)
     dout = qkv(shape, torch.bfloat16)[0]
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -4629,16 +4978,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     dry, k4_dry = phase_dryrun(dev, kernels)
     torch.cuda.empty_cache()
-    train = phase_train(dev, kernels, args.profile)
-    torch.cuda.empty_cache()
-
+    # the graph kernels' rows now; then the graphs' derived arrays go (their
+    # plans outlive these names: 12.6 GB evicted on the card), so that
+    # phases 4b and 4h have the card
     t0 = time.perf_counter()
     rows = [kernel_k1(g14, path["bsr_spmv"], ptxas_report("bsr_spmv.cu")),
             kernel_k2(g22, path["segment_sum_chunked"]),
             kernel_k3(u14, path["bsr_tricount"], k3_variants,
-                      ptxas_report("bsr_tricount.cu")),
-            kernel_k4(path["flash_attention_fwd"], k4_variants, k4_moe,
-                      k4_families, k4_hybrid, k4_sharded, k4_dry)]
+                      ptxas_report("bsr_tricount.cu"))]
+    t_graph_rows = time.perf_counter() - t0
+    for g in (g22, g14, u14):
+        g.plan().evict_all()
+    del g22, g14, u14
+    torch.cuda.empty_cache()
+    train, baseline = phase_train(dev, kernels, args.profile)
+    torch.cuda.empty_cache()
+    sharded_train = phase_sharded_train(dev, kernels, baseline)
+    del baseline
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter() - t_graph_rows
+    rows.append(kernel_k4(path["flash_attention_fwd"], k4_variants, k4_moe,
+                          k4_families, k4_hybrid, k4_sharded, k4_dry))
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
@@ -4651,7 +5012,9 @@ def main() -> int:
                  launches_phase_families=families.get(r["name"], 0),
                  launches_phase_hybrid=hybrid.get(r["name"], 0),
                  launches_phase_dryrun=dry.get(r["name"], 0),
-                 launches_phase_train=train.get(r["name"], 0))
+                 launches_phase_train=train.get(r["name"], 0),
+                 launches_phase_sharded_train=sharded_train.get(r["name"],
+                                                                0))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(smi, flush=True)

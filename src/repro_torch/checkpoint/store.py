@@ -11,8 +11,14 @@ Fault-tolerance contract:
 * each process writes ``shard_<process_index>.npz``.
 
 A tree is nested dicts of tensors (or numpy arrays); a leaf's key is its
-path joined by ``/``.  Leaves are written and read one at a time, so the
-host holds one leaf at once, not the whole state.  A bfloat16 leaf is
+path joined by ``/``.  A saved leaf may also be a function that returns
+the tensor, called when the leaf is written: a sharded run gathers each
+leaf whole as rank 0 writes it, while the other ranks run the same
+gathers (:func:`gather_leaves`), so a checkpoint holds a one-rank run's
+tree whatever the grid.  A loaded leaf may be an object with ``shape``
+(the whole leaf's) and ``copy_``, which keeps a rank's piece.  Leaves
+are written and read one at a time, so the host holds one leaf at once,
+not the whole state.  A bfloat16 leaf is
 stored as its 16-bit pattern (numpy has no bfloat16) and the manifest
 names its dtype.
 """
@@ -30,8 +36,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["save_checkpoint", "latest_step", "read_manifest",
-           "load_checkpoint", "config_hash"]
+__all__ = ["save_checkpoint", "gather_leaves", "latest_step",
+           "read_manifest", "load_checkpoint", "config_hash"]
 
 _MANIFEST = "manifest.json"
 
@@ -81,7 +87,7 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, meta: Optional[Dict] = None,
     with zipfile.ZipFile(shard_path, "w", zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
         for key, leaf in _leaves(tree):
-            arr, dtype = _to_numpy(leaf)
+            arr, dtype = _to_numpy(leaf() if callable(leaf) else leaf)
             with zf.open(key + ".npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, arr, allow_pickle=False)
             leaves[key] = {"shape": list(arr.shape), "dtype": dtype,
@@ -95,6 +101,16 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, meta: Optional[Dict] = None,
         shutil.rmtree(final)
     os.rename(tmp, final)   # atomic on POSIX
     return final
+
+
+def gather_leaves(tree) -> None:
+    """Call each function leaf of ``tree`` in the order
+    :func:`save_checkpoint` writes the leaves, and drop what it returns:
+    what a rank of a sharded run that writes no checkpoint runs while
+    rank 0 saves (each call a collective that gathers one leaf)."""
+    for _, leaf in _leaves(tree):
+        if callable(leaf):
+            leaf()
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -122,8 +138,9 @@ def read_manifest(ckpt_dir: str, step: Optional[int] = None
 
 def _restore(arr: np.ndarray, dtype: str, like, inplace: bool):
     """``arr`` as a leaf like ``like`` (its dtype and device), or copied
-    into ``like`` when ``inplace``."""
-    if torch.is_tensor(like):
+    into ``like`` when ``inplace`` (a tensor, or any object with ``shape``
+    and ``copy_``: a sharded run's piece of the leaf)."""
+    if torch.is_tensor(like) or (inplace and hasattr(like, "copy_")):
         t = torch.from_numpy(arr)
         if dtype == "bfloat16":
             t = t.view(torch.bfloat16)

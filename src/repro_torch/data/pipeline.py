@@ -57,11 +57,14 @@ class Prefetcher:
     a non-blocking copy on a stream of the thread's own; :meth:`next` makes
     the caller's stream wait for that copy.  ``next()`` returns
     ``(step, {name: tensor})`` in step order from ``start_step``.
+    ``rows=(i, n)`` keeps shard ``i`` of ``n`` of each batch's rows, a
+    data-parallel rank's (the reference's ``P(("data",))``).
     """
 
     def __init__(self, source, depth: int = 2, device: DeviceLike = None,
-                 start_step: int = 0):
+                 start_step: int = 0, rows: tuple = (0, 1)):
         self.source = source
+        self.rows = rows
         self.device = resolve(device)
         self.q: "queue.Queue" = queue.Queue(maxsize=depth)
         self.step = start_step
@@ -73,8 +76,10 @@ class Prefetcher:
         self.thread.start()
 
     def _to_device(self, host: Dict[str, np.ndarray]):
-        cpu = {k: torch.from_numpy(np.ascontiguousarray(v))
-               for k, v in host.items()}
+        i, n = self.rows
+        cpu = {k: torch.from_numpy(np.ascontiguousarray(
+            v[i * (len(v) // n):(i + 1) * (len(v) // n)]))
+            for k, v in host.items()}
         if self._stream is None:
             return cpu, None
         with torch.cuda.stream(self._stream):

@@ -14,8 +14,12 @@ counting groups that describe the mesh and move nothing
 as it goes (``launch/hlo_cost.py``).  Meshes: single-pod 16×16
 ("data", "model") and two-pod 2×16×16 ("pod", "data", "model"), pod ×
 data folded into the grid's data axis.  Kinds per shape: train_4k ->
-train_step, prefill_32k -> prefill, decode_32k / long_500k -> serve
-(decode) step.
+train_step (the sharded step of ``train/zero.py``: forward, backward with
+the recompute of ``remat="full"``, the gradients' reduce-scatter over
+"data", ZeRO-1 AdamW or Adafactor, the all-gather of the updated blocks;
+its arguments the parameters' blocks, their ZeRO state blocks and the
+batch), prefill_32k -> prefill, decode_32k / long_500k -> serve (decode)
+step.
 
 A cell's result keeps the reference's keys, with these changes: no
 ``xla_flops_per_device`` / ``xla_bytes_per_device`` (there is no
@@ -36,10 +40,11 @@ reference's ``kv_seq`` split.
 
 Cells the port cannot run yet raise and are recorded as the reference
 records a failing cell (``status: "error"`` with the message), each
-naming ``ROADMAP.md`` Queue 1 item 15 (b): the sharded train step, weights
-split over the data axis (``two_d_weights``, the giant models), heads that
-do not split into whole heads over 16 model ranks (qwen1.5-4b's 20) and
-the ssm / audio / vlm / hybrid families over model ranks.
+naming ``ROADMAP.md`` Queue 1 item 15 (b): weights split over the data
+axis (``two_d_weights``, the giant models), heads that do not split into
+whole heads over 16 model ranks (qwen1.5-4b's 20) and the ssm / audio /
+vlm / hybrid families over model ranks, in every kind of cell, train_4k
+included.
 
 Results are cached as JSON under ``--out`` (default
 ``build/dryrun_results``), so a sweep resumes; ``--all`` iterates the

@@ -36,7 +36,10 @@ that share its ``data_i`` (tensor and expert parallelism) and those that
 share its ``model_i``.  A :class:`ModelGroup` adds the float collectives
 tensor parallelism needs (:meth:`ModelGroup.psum`, :meth:`ModelGroup.pmean`,
 :meth:`ModelGroup.all_gather_dim`), which the graph engine's
-``ShardGroup.all_reduce_sum`` refuses on purpose.
+``ShardGroup.all_reduce_sum`` refuses on purpose, with the gradients a
+sharded train step needs (Megatron's exit sum and entry copy, and a
+gather's backward by whether the members compute one loss or their own;
+:class:`ModelGroup`).
 ``make_production_mesh`` is a :class:`MeshShape`: axis names and sizes with
 no ranks behind them, which ``launch/specs.py`` reads.
 
@@ -44,7 +47,8 @@ Counting groups (``counting_group``, ``counting_graph_grid``,
 ``counting_grid``) describe ``d`` ranks and move nothing: rank 0's place
 in the layout, no process group.  Each collective returns what keeps one
 rank's shapes and sequence of ops and its values finite (a sum returns its
-input, a gather ``d`` copies of it, an exchange its input) and notes the
+input, a gather ``d`` copies of it, an exchange its input, a
+reduce-scatter its first block) and notes the
 call in a :class:`CollectiveLedger`: its kind (the reference's HLO names),
 its output bytes (what ``hlo_cost`` sums for a collective) and the bytes
 the port's implementation makes the rank receive (``wire_bytes``).
@@ -56,8 +60,10 @@ from __future__ import annotations
 
 import math
 import pickle
+import threading
 import time
 import weakref
+from contextlib import contextmanager
 from dataclasses import InitVar, dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -66,6 +72,7 @@ import torch.distributed as dist
 
 __all__ = ["GRAPH_AXIS", "ShardGroup", "GridGroups", "graph_group",
            "graph_grid", "MeshShape", "make_production_mesh", "ModelGroup",
+           "PHASES", "collective_phase",
            "ModelGrid", "model_grid", "CollectiveLedger", "counting_group",
            "counting_graph_grid", "counting_grid"]
 
@@ -332,37 +339,236 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape(("data", "model"), (16, 16))
 
 
+_PHASE = threading.local()
+PHASES = ("forward", "backward", "recompute", "gradients", "optimizer")
+
+
+def _phase() -> str:
+    """The step phase a collective is counted under: "backward" inside an
+    autograd Function's backward, "recompute" for a forward the backward
+    runs again (``torch.utils.checkpoint``), else the innermost
+    :func:`collective_phase` ("forward" by default)."""
+    return getattr(_PHASE, "name", None) or (
+        "recompute" if torch._C._current_graph_task_id() != -1
+        else "forward")
+
+
+@contextmanager
+def collective_phase(name: str):
+    """Count the collectives called inside under ``name`` (one of
+    ``PHASES``) in ``ModelGroup.phase_stats``."""
+    prev = getattr(_PHASE, "name", None)
+    _PHASE.name = name
+    try:
+        yield
+    finally:
+        _PHASE.name = prev
+
+
+def _fresh_stats() -> Dict[str, float]:
+    return {"calls": 0, "bytes": 0, "received": 0, "seconds": 0.0}
+
+
+class _Exit(torch.autograd.Function):
+    """A tensor-parallel region's exit: the members' sum; the members then
+    compute one loss from it, so each one's input gradient is the output
+    gradient itself."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        return group._sum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """A tensor-parallel region's entry: the identity; each member's part
+    of the input gradient is summed over the members."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        with collective_phase("backward"):
+            return ctx.group._sum(g.contiguous()), None
+
+
+class _Gather(torch.autograd.Function):
+    """The members' blocks along ``dim``.  Backward: this member's slice
+    of the output gradient where the members compute one loss from the
+    gathered tensor (``own_loss`` false), else the members' gradients
+    summed and this member's slice kept (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim, own_loss):
+        ctx.group, ctx.dim, ctx.own_loss = group, dim, own_loss
+        ctx.size = t.shape[dim]
+        return group._gather(t, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.group, ctx.dim
+        if ctx.own_loss:
+            with collective_phase("backward"):
+                return group._reduce_scatter(g, dim), None, None, None
+        return g.narrow(dim, group.rank * ctx.size, ctx.size), None, None, \
+            None
+
+
+class _Mean(torch.autograd.Function):
+    """The members' mean.  Backward: a ``d``-th of the output gradient
+    where the members compute one loss from it, else the mean of the
+    members' output gradients."""
+
+    @staticmethod
+    def forward(ctx, t, group, own_loss):
+        ctx.group, ctx.own_loss = group, own_loss
+        return group._sum(t) / group.d
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.own_loss:
+            with collective_phase("backward"):
+                return ctx.group._sum(g.contiguous()) / ctx.group.d, None, \
+                    None
+        return g / ctx.group.d, None, None
+
+
+class _Same(torch.autograd.Function):
+    """The identity on a tensor every member computes alike; a ``d``-th of
+    its gradient goes back, so the members' summed gradients count it
+    once."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.d = group.d
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.d, None
+
+
+def _tracked(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
 @dataclass(frozen=True, eq=False)
 class ModelGroup(ShardGroup):
     """One axis of a :class:`ModelGrid`: a :class:`ShardGroup` with the float
     collectives of tensor parallelism.
 
-    ``stats`` counts this member's calls, the bytes it sends and the host
-    seconds spent in them (a collective on card tensors waits for the work
-    queued before it, and that wait is counted too).  At ``d == 1`` every
-    collective returns its input and counts nothing.  A group built
-    without a process group at ``d > 1`` (a description, as
+    ``stats`` counts this member's calls, the bytes it sends and receives
+    and the host seconds spent in them (a collective on card tensors waits
+    for the work queued before it, and that wait is counted too);
+    ``phase_stats`` splits the same counts by :func:`_phase`.  At ``d ==
+    1`` every collective returns its input and counts nothing.  A group
+    built without a process group at ``d > 1`` (a description, as
     ``launch/specs.py`` uses) raises on any collective; the groups of
     ``counting_grid`` count them instead.
+
+    Gradients (Megatron's pair of operators, and the gather's two
+    backwards).  On the model axis the members compute one loss; on the
+    data axis each member computes its own, and the train step sums them
+    (``train/zero.py``):
+
+    * :meth:`psum`, a region's exit: the sum; backward the identity;
+    * :meth:`enter`, a region's entry: the identity; backward :meth:`psum`
+      of the input gradient;
+    * :meth:`all_gather_dim`: backward this member's slice (one loss), or
+      with ``own_loss`` a reduce-scatter in member order;
+    * :meth:`pmean`: backward ``g / d`` (one loss), or with ``own_loss``
+      the mean of the members' ``g``;
+    * :meth:`same`: the identity on a value every member computes alike;
+      backward ``g / d``.
+
+    Every backward sum adds the parts in member order, as :meth:`psum`
+    does, so the members hold the same bits.  The raw collectives
+    (``_sum``, ``_gather``, ``_reduce_scatter``, ``_sum_over``,
+    ``_all_to_all``) carry no gradient; the counting groups override them,
+    so a backward's collectives, and a recompute's forward ones, are
+    counted as they run.
     """
 
-    stats: Dict[str, float] = field(
-        default_factory=lambda: {"calls": 0, "bytes": 0, "seconds": 0.0},
-        compare=False)
+    stats: Dict[str, float] = field(default_factory=_fresh_stats,
+                                    compare=False)
+    phase_stats: Dict[str, Dict[str, float]] = field(default_factory=dict,
+                                                      compare=False)
 
-    def _parts(self, t: torch.Tensor) -> List[torch.Tensor]:
-        """Every member's ``t`` (equal shapes), in member order."""
+    def _count(self, sent: float, received: float, t0: float) -> None:
+        dt = time.perf_counter() - t0
+        for st in (self.stats, self.phase_stats.setdefault(
+                _phase(), _fresh_stats())):
+            st["calls"] += 1
+            st["bytes"] += sent
+            st["received"] += received
+            st["seconds"] += dt
+
+    def _check_group(self) -> None:
         if self._ref is None:
             raise RuntimeError(f"this {self.d}-rank ModelGroup has no "
                                f"process group; it only describes a layout")
+
+    def _parts(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every member's ``t`` (equal shapes), in member order."""
+        self._check_group()
         t0 = time.perf_counter()
         w = _wire(t)
         parts = [torch.empty_like(w) for _ in range(self.d)]
         dist.all_gather(parts, w, group=self.group)
-        self.stats["calls"] += 1
-        self.stats["bytes"] += w.numel() * w.element_size()
-        self.stats["seconds"] += time.perf_counter() - t0
+        b = w.numel() * w.element_size()
+        self._count(b, (self.d - 1) * b, t0)
         return [p.view(t.dtype) for p in parts]
+
+    def _all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """Block ``j`` of dim 0 to member ``j``; the blocks received, in
+        member order (no gradient)."""
+        self._check_group()
+        t0 = time.perf_counter()
+        out = ShardGroup.all_to_all(self, t.contiguous())
+        b = _nbytes(t)
+        self._count(b, (self.d - 1) / self.d * b, t0)
+        return out
+
+    # -- raw collectives (no gradient) ------------------------------------
+
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The members' ``t`` added in float32 in member order, cast back
+        to ``t``'s dtype."""
+        return self._sum_over(t, range(self.d))
+
+    def _sum_over(self, t: torch.Tensor, members) -> torch.Tensor:
+        """:meth:`_sum` of ``members``' parts only (every member calls
+        it)."""
+        parts = self._parts(t.contiguous())
+        members = list(members)
+        out = parts[members[0]].float()
+        for i in members[1:]:
+            out = out + parts[i].float()
+        return out.to(t.dtype)
+
+    def _gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return torch.cat(self._parts(t.contiguous()), dim=dim)
+
+    def _reduce_scatter(self, t: torch.Tensor, dim: int,
+                        dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Split ``t`` into ``d`` blocks along ``dim``; member ``j``
+        receives every member's block ``j`` and adds them in float32 in
+        member order -> its block, in ``dtype`` (default ``t``'s)."""
+        moved = t.movedim(dim, 0)
+        n = moved.shape[0] // self.d
+        got = self._all_to_all(moved.reshape(self.d, n, *moved.shape[1:]))
+        out = got[0].float()
+        for i in range(1, self.d):
+            out = out + got[i].float()
+        return out.to(dtype or t.dtype).movedim(0, dim)
+
+    # -- collectives with gradients ---------------------------------------
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of the members' ``t``, in ``t``'s dtype on every member.
@@ -374,28 +580,46 @@ class ModelGroup(ShardGroup):
         no bfloat16 sum.  At ``d == 2`` the float32 sum of two bfloat16
         values rounded to bfloat16 is their bfloat16 sum itself; at
         ``d > 2`` it rounds once where a bfloat16 sum rounds ``d - 1``
-        times, so the two agree within tolerance only.
+        times, so the two agree within tolerance only.  Backward: the
+        identity (a region's exit).
         """
         if self.d == 1:
             return t
-        parts = self._parts(t.contiguous())
-        out = parts[0].float()
-        for p in parts[1:]:
-            out = out + p.float()
-        return out.to(t.dtype)
+        if _tracked(t):
+            return _Exit.apply(t, self)
+        return self._sum(t)
 
-    def pmean(self, t: torch.Tensor) -> torch.Tensor:
+    def enter(self, t: torch.Tensor) -> torch.Tensor:
+        """A region's entry: ``t`` itself; backward, the members' input
+        gradients summed (:meth:`psum`)."""
+        if self.d == 1 or not _tracked(t):
+            return t
+        return _Enter.apply(t, self)
+
+    def pmean(self, t: torch.Tensor, own_loss: bool = False
+              ) -> torch.Tensor:
         """:meth:`psum` / ``d`` (the reference's ``pmean``)."""
         if self.d == 1:
             return t
-        return self.psum(t) / self.d
+        if _tracked(t):
+            return _Mean.apply(t, self, own_loss)
+        return self._sum(t) / self.d
 
-    def all_gather_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+    def same(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, computed alike on every member (class docstring)."""
+        if self.d == 1 or not _tracked(t):
+            return t
+        return _Same.apply(t, self)
+
+    def all_gather_dim(self, t: torch.Tensor, dim: int,
+                       own_loss: bool = False) -> torch.Tensor:
         """The members' equal-shaped blocks concatenated along ``dim`` in
         member order (exact: nothing is added)."""
         if self.d == 1:
             return t
-        return torch.cat(self._parts(t.contiguous()), dim=dim)
+        if _tracked(t):
+            return _Gather.apply(t, self, dim % t.dim(), own_loss)
+        return self._gather(t, dim)
 
 
 @dataclass(frozen=True, eq=False)
@@ -484,7 +708,8 @@ def model_grid(data: int = 1, model: int = 1) -> ModelGrid:
 
 class CollectiveLedger:
     """What the counting groups of one layout noted, by collective kind
-    ("all-gather", "all-reduce", "all-to-all", "collective-permute"):
+    ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+    "collective-permute"):
 
     * ``calls``;
     * ``bytes``: the collective's output bytes, the reference's accounting
@@ -493,9 +718,10 @@ class CollectiveLedger:
     * ``wire_bytes``: what the port's implementation makes this rank
       receive: ``ModelGroup.psum`` and every gather take the other
       ``d - 1`` parts, ``dist.all_reduce`` (the graph engine's integer
-      sums) a ring's ``2 (d - 1) / d`` of the tensor, ``all_to_all`` the
-      ``d - 1`` blocks of the others, the grid transpose the peer's tensor
-      (nothing on the diagonal).
+      sums) a ring's ``2 (d - 1) / d`` of the tensor, ``all_to_all`` and
+      a reduce-scatter (``all_to_all`` then an ordered sum) the ``d - 1``
+      blocks of the others, the grid transpose the peer's tensor (nothing
+      on the diagonal).
 
     ``listeners`` are called as ``listener(kind, out, in_bytes)`` with each
     collective's output tensor (``launch/hlo_cost.py`` charges its bytes
@@ -606,25 +832,37 @@ class _CountingGridGroups(GridGroups):
 
 @dataclass(frozen=True, eq=False)
 class _CountingModelGroup(ModelGroup):
-    """A :class:`ModelGroup` of ``d`` ranks with no process group:
-    ``psum`` returns its input, ``all_gather_dim`` ``d`` copies, each
-    noted in ``ledger``."""
+    """A :class:`ModelGroup` of ``d`` ranks with no process group: each raw
+    collective notes itself in ``ledger`` and returns what keeps one
+    rank's shapes (a sum its input, a gather ``d`` copies, a
+    reduce-scatter its first block), so the collectives with gradients
+    count their backwards too."""
 
     ledger: CollectiveLedger = field(default_factory=CollectiveLedger,
                                      compare=False)
 
-    def psum(self, t: torch.Tensor) -> torch.Tensor:
-        if self.d == 1:
-            return t
+    def _sum_over(self, t: torch.Tensor, members) -> torch.Tensor:
         b = _nbytes(t)
         return self.ledger.note("all-reduce", _same(t), b, (self.d - 1) * b)
 
-    def all_gather_dim(self, t: torch.Tensor, dim: int) -> torch.Tensor:
-        if self.d == 1:
-            return t
+    def _gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         b = _nbytes(t)
         return self.ledger.note("all-gather", _copies(t, self.d, dim), b,
                                 (self.d - 1) * b)
+
+    def _reduce_scatter(self, t: torch.Tensor, dim: int,
+                        dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        b = _nbytes(t)
+        with _quiet():
+            out = t.narrow(dim, 0, t.shape[dim] // self.d).to(
+                dtype or t.dtype, copy=True)
+        return self.ledger.note("reduce-scatter", out, b,
+                                (self.d - 1) / self.d * b)
+
+    def _all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        b = _nbytes(t)
+        return self.ledger.note("all-to-all", _same(t), b,
+                                (self.d - 1) / self.d * b)
 
 
 @dataclass(frozen=True, eq=False)

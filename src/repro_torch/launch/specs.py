@@ -27,10 +27,18 @@ Where the port's layout differs from the reference's:
   (None, batch, None, kv_heads, None).  Recurrent states (xLSTM, Mamba)
   are split on their batch dim only; their families have no sharded
   forward at model > 1, and their cache raises there as their model does.
-* ``opt_state``: the reference's ZeRO-1 specs (``train/optimizer.
-  opt_state_specs``) over the state of the full parameters, and each
-  leaf's block by them; no rank holds it yet (the sharded train step is
-  ``ROADMAP.md`` Queue 1 item 15 (b)).
+* ``opt_state``: the specs are the reference's ZeRO-1 specs
+  (``train/optimizer.opt_state_specs``) over the state of the full
+  parameters.  The structs are what a rank of the sharded train step
+  holds (``train/zero.py``): the state of its ZeRO block of its
+  parameter's block, the block as ``params`` above gives it (a ``wk`` /
+  ``wv`` leaf's whole KV heads included), split over the data axis on the
+  first dim the spec leaves unsplit that divides by the data size
+  (``zero1_extend_spec``'s rule).  The data axis is every batch axis
+  folded, as ``launch/mesh.counting_grid`` folds it (pod × data on two
+  pods, where the reference's specs split over "data" alone).  AdamW's m
+  and v have the ZeRO block's shape; Adafactor's factors are those of
+  the ZeRO block, of the whole parameter's factoring.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from ..launch import sharding as shlib
 from ..models import attention as attn
 from ..models import transformer as model
 from ..models.layers import dtype_of
+from ..train import zero
 from ..train.optimizer import get_optimizer, opt_state_specs
 
 __all__ = ["GIANT_PARAM_BYTES", "is_giant", "rules_for", "param_structs",
@@ -170,21 +179,15 @@ def cache_structs(cfg: ArchConfig, shape: ShapeSpec, mesh, rules
 
 def opt_structs(cfg: ArchConfig, mesh, rules, param_specs: Dict
                 ) -> Tuple[Dict, Dict]:
-    """The optimizer state of the full parameters, each leaf's block by the
-    reference's ZeRO-1 specs (module docstring)."""
+    """(the state a rank holds, the reference's ZeRO-1 spec tree): the
+    structs are ``train/zero.init_state``'s blocks (module docstring)."""
     full = {k: p.detach() for k, p in
             model.Transformer(cfg, device=META).named_parameters()}
     state = get_optimizer(cfg.optimizer).init(full)
     specs = opt_state_specs(cfg.optimizer, param_specs, state, mesh,
                             data_axis="data")
-    coords = _coords(mesh)
-
-    def blocks(tree, spec_tree):
-        if isinstance(tree, dict):
-            return {k: blocks(v, spec_tree[k]) for k, v in tree.items()}
-        return shlib.local_block(tree, spec_tree, coords)
-
-    return blocks(state, specs), specs
+    data = math.prod(n for ax, n in mesh.shape.items() if ax != "model")
+    return zero.state_structs(cfg, _coords(mesh), rules, (0, data)), specs
 
 
 def input_specs(cfg: ArchConfig, shape: ShapeSpec, mesh,

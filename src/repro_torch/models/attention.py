@@ -32,6 +32,13 @@ query heads read (:func:`kv_head_range`), so a KV head is held by
 ``m / n_kv_heads`` ranks.  The reference's rule splits ``wk``'s flat
 output over "model" instead (``repro/launch/sharding.py:151``), splitting
 a head, and GSPMD reshards it.
+
+Trained over ranks, ``attention_train``'s input passes ``group.enter``
+(backward: the ranks' input gradients summed) and ``wo``'s output
+``group.psum`` (backward: the identity).  A KV head that several ranks
+hold gets a partial gradient on each, from that rank's query heads only;
+the train step sums it over exactly those ranks
+(``models/transformer.grad_members``).
 """
 
 from __future__ import annotations
@@ -196,6 +203,8 @@ def attention_train(p: Attention, x: torch.Tensor, cfg, *, causal: bool = True,
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
+    if p.group is not None:     # column-parallel entry: x's gradient summed
+        x = p.group.enter(x)
     q, k, v = _project_qkv(p, x, h, hkv, hd, compute)
     if kv_override is not None:   # cross-attention: K/V from encoder states
         k, v = _project_enc_kv(p, kv_override[0], hkv, hd, compute)

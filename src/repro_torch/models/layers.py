@@ -18,7 +18,11 @@ rank's block and carries ``full_shape`` (the unsharded shape) and
 full tensor, as an unsharded model draws it, and keeps the block, so the
 ranks together hold the unsharded model's numbers.  An :class:`Embed` or
 :class:`MLP` built with a ``group`` is vocab- or column/row-parallel over
-it (:func:`embed_apply`, :func:`unembed_apply`, :func:`mlp_apply`).
+it (:func:`embed_apply`, :func:`unembed_apply`, :func:`mlp_apply`):
+each column-parallel product's input passes ``group.enter`` (backward:
+the ranks' input gradients summed) and each row-parallel output
+``group.psum`` (backward: the identity), Megatron's pair, so the sharded
+forward trains (``launch/mesh.ModelGroup``).
 """
 
 from __future__ import annotations
@@ -174,7 +178,10 @@ def embed_apply(p: Embed, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
 def unembed_apply(p: Embed, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Logits = x @ tableᵀ (tied or with a separate lm_head table);
     vocab-parallel, the ranks' logits gathered along the vocabulary, so
-    every rank holds them all."""
+    every rank holds them all (backward: its slice of the logits'
+    gradient, and the group's sum of ``x``'s)."""
+    if p.group is not None:
+        x = p.group.enter(x)
     y = torch.matmul(x.to(compute_dtype), p.table.to(compute_dtype).t())
     return y if p.group is None else p.group.all_gather_dim(y, -1)
 
@@ -207,6 +214,8 @@ class MLP(nn.Module):
 
 
 def mlp_apply(p: MLP, x: torch.Tensor, act: str, compute_dtype) -> torch.Tensor:
+    if p.group is not None:     # column-parallel entry: x's gradient summed
+        x = p.group.enter(x)
     h = dense(p.wi, x, compute_dtype)
     if act == "swiglu":
         h = F.silu(dense(p.wg, x, compute_dtype)) * h

@@ -52,6 +52,18 @@ tokens every model rank holds alike:
   as GSPMD computes them; each rank runs its share of the experts and the
   model group sums.
 
+Trained over ranks (``launch/mesh.ModelGroup``'s gradients): the layer's
+input passes ``model.enter``, so each rank's part of its gradient (its
+experts', its gates') is summed over the model group; the output sum
+passes its gradient through; the sorted path's gather over "data" sends
+each data shard's rows their gradients from every shard's loss (a
+reduce-scatter), and its aux loss, which every model rank computes alike,
+passes ``model.same``; ``expert_tp``'s ``pmean`` over "model" sends back a
+``m``-th of the gradient and over "data" the mean of the shards'.  The
+router is whole on every rank but each rank's gradient of it is partial
+(its combine weighs only its own experts' gates), so the train step sums
+it over the model group (``models/transformer.grad_members``).
+
 The expert weights' d_model dim is never split here: a model whose rules
 put it on a data axis of more than one rank raises at construction
 (``models/transformer.py``).  The ``shard(...)`` annotations are dropped,
@@ -239,16 +251,20 @@ def moe_apply_sorted(p: MoE, x: torch.Tensor, cfg
     sh = p.shard
     split = sh is not None and sh.batch_split and sh.grid.data.d > 1
     if split:                       # route the whole batch
-        x = sh.grid.data.all_gather_dim(x, 0)
+        x = sh.grid.data.all_gather_dim(x, 0, own_loss=True)
+    if sh is not None:
+        x = sh.grid.model.enter(x)
     t, k = x.shape[0] * s, cfg.experts_per_token
     r = route(p, x, cfg)
     lo = sh.lo if sh is not None and sh.experts_on_model else 0
     out = _combine(_expert_outputs(p, x.reshape(t, d), r, lo), r, lo, t, k)
+    aux = r.aux
     if sh is not None:
         out = sh.grid.model.psum(out)
+        aux = sh.grid.model.same(aux)
     if split:                       # this data shard's rows
         out = out.view(sh.grid.data.d, b * s, d)[sh.grid.data.rank]
-    return out.reshape(b, s, d), r.aux
+    return out.reshape(b, s, d), aux
 
 
 def moe_apply_expert_tp(p: MoE, x: torch.Tensor, cfg
@@ -259,13 +275,14 @@ def moe_apply_expert_tp(p: MoE, x: torch.Tensor, cfg
     sh = p.shard
     b, s, d = x.shape
     t, k = b * s, cfg.experts_per_token
+    x = sh.grid.model.enter(x)
     r = route(p, x, cfg, tp_capacity(t, cfg))
     out = _combine(_expert_outputs(p, x.reshape(t, d), r, sh.lo), r, sh.lo,
                    t, k)
     out = sh.grid.model.psum(out)
     aux = sh.grid.model.pmean(r.aux)
     if sh.batch_split:
-        aux = sh.grid.data.pmean(aux)
+        aux = sh.grid.data.pmean(aux, own_loss=True)
     return out.reshape(b, s, d), aux
 
 

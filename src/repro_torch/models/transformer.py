@@ -60,7 +60,10 @@ is its data shard's rows where the rules split "batch" over "data", the
 whole batch otherwise.  ``init_params`` draws every full tensor in the
 unsharded order and keeps the rank's block, one tensor at a time, and
 ``from_arrays`` cuts the reference's arrays the same way, so the ranks
-together hold the unsharded model's numbers.  Not sharded (they raise):
+together hold the unsharded model's numbers.  ``forward_train`` runs over
+ranks: the collectives carry the gradients (``launch/mesh.ModelGroup``),
+and :func:`grad_members` names the blocks whose gradient the train step
+sums over model ranks (``train/zero.py``).  Not sharded (they raise):
 the ssm, audio, vlm and hybrid families over more than one rank, weights
 whose d_model dim the rules put on a data axis of more than one rank
 (``two_d_weights``), and heads that do not split into whole heads over the
@@ -98,7 +101,8 @@ from . import xlstm as xlstm_mod
 from .layers import (MLP, Embed, Norm, dtype_of, embed_apply, full_shape,
                      mlp_apply, norm_apply, unembed_apply)
 
-__all__ = ["Transformer", "n_scan_steps", "REMAT", "param_blocks"]
+__all__ = ["Transformer", "n_scan_steps", "REMAT", "param_blocks",
+           "model_holders", "grad_members"]
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 _FAMILIES = ("dense", "moe", "ssm", "audio", "vlm", "hybrid")
@@ -677,11 +681,10 @@ class Transformer(nn.Module):
                       skip_upper_triangle: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """:meth:`forward` with autograd on and each block rematerialised
-        per ``cfg.remat``; the same numbers.  Not over more than one rank:
-        the collectives carry no gradient."""
-        if self.grid is not None and self.grid.size > 1:
-            raise NotImplementedError(f"the sharded train step is not ported "
-                                      f"yet: {ITEM} (b)")
+        per ``cfg.remat``; the same numbers.  Over ranks the collectives
+        carry the gradients (``launch/mesh.ModelGroup``), and a
+        recompute calls its forward collectives again, in the same order
+        on every rank."""
         if self.cfg.remat not in REMAT:
             raise ValueError(f"unknown remat {self.cfg.remat!r}; want one of "
                              f"{REMAT}")
@@ -887,10 +890,52 @@ def param_blocks(cfg, coords, rules: sharding.LogicalRules
         kv_cols = None
     out = {}
     for name, p in full.items():
-        kv = kv_cols if re.search(r"attn\.w[kv]\.[wb]$", name) else None
+        kv = kv_cols if _kv_leaf(name) else None
         out[name] = (p, specs[name], functools.partial(
             _keep, spec=specs[name], coords=coords, kv=kv))
     return out
+
+
+def _kv_leaf(name: str) -> bool:
+    return re.search(r"attn\.w[kv]\.[wb]$", name) is not None
+
+
+def model_holders(cfg, name: str, spec: tuple, m: int, r: int
+                  ) -> Tuple[int, ...]:
+    """The model ranks (of ``m``) that hold the same block of parameter
+    ``name`` as rank ``r``, in order: all of them for a parameter whole on
+    every rank (``spec`` names no "model"), the ranks that read the same
+    KV heads for a ``wk`` / ``wv`` leaf whose heads do not split
+    (:func:`param_blocks`), else ``r`` alone."""
+    if not any("model" in sharding._axes(e) for e in spec):
+        return tuple(range(m))
+    if m > 1 and _kv_leaf(name) and cfg.n_kv_heads % m:
+        try:
+            heads = [attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads, m, q)
+                     for q in range(m)]
+        except ValueError:  # no whole heads: the spec's block (no model)
+            return (r,)
+        return tuple(q for q in range(m) if heads[q] == heads[r])
+    return (r,)
+
+
+def grad_members(cfg, name: str, spec: tuple, m: int, r: int
+                 ) -> Tuple[int, ...]:
+    """The model ranks whose gradients of parameter ``name`` add up to its
+    gradient, in order (``r`` alone: its own is the whole).
+
+    A block several ranks hold needs the sum where its ranks compute
+    different things from it: a KV head shared by the ranks whose query
+    heads read it (each rank's gradient comes from its own query heads),
+    and an MoE router under a sharded layer (each rank's combine weighs
+    only its own experts' gates, or its own columns of every expert).
+    The norms are whole on every rank too, but every rank computes the
+    same thing from them, so each already holds the whole gradient."""
+    if m > 1 and _kv_leaf(name):
+        return model_holders(cfg, name, spec, m, r)
+    if m > 1 and re.search(r"moe\.(\d+\.)?router\.w$", name):
+        return tuple(range(m))
+    return (r,)
 
 
 def _stack_of(key: str) -> str:

@@ -13,20 +13,23 @@ a column factor per matrix instead of Adam's two full moments.
 
 ``zero1_extend_spec`` / ``opt_state_specs`` are the reference's ZeRO-1
 specs of the optimizer state (``launch/sharding.py``'s spec tuples over
-``{name: ...}`` trees), read by ``launch/specs.py``; no train step of the
-port shards its state by them yet (``ROADMAP.md`` Queue 1 item 15 (b)).
+``{name: ...}`` trees), read by ``launch/specs.py``.  The sharded train
+step (``train/zero.py``) updates each rank's block of the parameters with
+these same formulas: AdamW is elementwise, and Adafactor takes its means
+over the whole parameter through a :class:`Means`.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 __all__ = ["OptHyper", "global_norm", "clip_by_global_norm", "adamw_init",
-           "adamw_update", "adafactor_init", "adafactor_update", "Optimizer",
+           "adamw_update", "adafactor_init", "adafactor_leaf",
+           "adafactor_update", "Means", "Optimizer",
            "get_optimizer", "zero1_extend_spec", "opt_state_specs"]
 
 Tensors = Dict[str, torch.Tensor]
@@ -50,6 +53,14 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
+def _step(step, like: torch.Tensor) -> torch.Tensor:
+    """The step as a float32 scalar on ``like``'s device (a Python int, or
+    a tensor: the dry run's meta step)."""
+    if torch.is_tensor(step):
+        return step.to(device=like.device, dtype=torch.float32)
+    return _f32(float(step), like)
+
+
 def global_norm(tensors: Tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in float32."""
     total = None
@@ -60,11 +71,15 @@ def global_norm(tensors: Tensors) -> torch.Tensor:
 
 
 def clip_by_global_norm(grads: Tensors, max_norm: float,
-                        inplace: bool = False) -> Tuple[Tensors, torch.Tensor]:
+                        inplace: bool = False,
+                        norm: Optional[torch.Tensor] = None
+                        ) -> Tuple[Tensors, torch.Tensor]:
     """Scale every gradient by min(1, max_norm / max(norm, 1e-9)) ->
     (grads, norm).  ``inplace`` scales the given tensors (the train step's
-    choice: no second copy of the gradients)."""
-    norm = global_norm(grads)
+    choice: no second copy of the gradients).  ``norm``: the global norm
+    when ``grads`` are blocks of it (default: :func:`global_norm`)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     out = {}
     with torch.no_grad():
@@ -91,7 +106,7 @@ def adamw_update(params: Tensors, grads: Tensors, state: Dict[str, Tensors],
                  step: int, h: OptHyper):
     """One AdamW step (bias-corrected moments, decoupled weight decay)."""
     any_p = next(iter(params.values()))
-    t = _f32(float(step), any_p) + 1.0
+    t = _step(step, any_p) + 1.0
     bc1 = 1.0 - _f32(h.beta1, any_p) ** t
     bc2 = 1.0 - _f32(h.beta2, any_p) ** t
     for k, p in params.items():
@@ -115,33 +130,66 @@ def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
 
 
-def adafactor_init(params: Tensors) -> Dict[str, Dict[str, Tensors]]:
-    def init(p):
-        z = dict(dtype=torch.float32, device=p.device)
-        if _factored(p.shape):
-            return {"vr": torch.zeros(p.shape[:-1], **z),
-                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
-        return {"v": torch.zeros(p.shape, **z)}
+def adafactor_leaf(p: torch.Tensor, factored: bool) -> Tensors:
+    """One parameter's zero Adafactor state: its row and column factors,
+    or a full second moment."""
+    z = dict(dtype=torch.float32, device=p.device)
+    if factored:
+        return {"vr": torch.zeros(p.shape[:-1], **z),
+                "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
+    return {"v": torch.zeros(p.shape, **z)}
 
-    return {"f": {k: init(p) for k, p in params.items()}}
+
+def adafactor_init(params: Tensors) -> Dict[str, Dict[str, Tensors]]:
+    return {"f": {k: adafactor_leaf(p, _factored(p.shape))
+                  for k, p in params.items()}}
+
+
+class Means:
+    """The means Adafactor takes over a whole parameter ``k``, given the
+    tensor it holds: here the parameter itself.  ``train/zero.py``'s
+    subclass holds a block and adds the other ranks' partial sums."""
+
+    def shape(self, k: str, p: torch.Tensor) -> tuple:
+        """The whole parameter's shape."""
+        return tuple(p.shape)
+
+    def rows(self, k: str, x: torch.Tensor) -> torch.Tensor:
+        """Mean over the parameter's last dim."""
+        return torch.mean(x, dim=-1)
+
+    def cols(self, k: str, x: torch.Tensor) -> torch.Tensor:
+        """Mean over its second-to-last dim."""
+        return torch.mean(x, dim=-2)
+
+    def rows_of_vr(self, k: str, vr: torch.Tensor) -> torch.Tensor:
+        """Mean of the row factor over its last dim (the parameter's
+        second-to-last), keeping it."""
+        return torch.mean(vr, dim=-1, keepdim=True)
+
+    def all(self, k: str, x: torch.Tensor) -> torch.Tensor:
+        """Mean over every element."""
+        return torch.mean(x)
 
 
 @torch.no_grad()
 def adafactor_update(params: Tensors, grads: Tensors, state, step: int,
-                     h: OptHyper):
-    """One Adafactor step with update clipping (RMS <= 1)."""
+                     h: OptHyper, means: Optional[Means] = None):
+    """One Adafactor step with update clipping (RMS <= 1); ``means`` (a
+    :class:`Means`) takes the row, column and RMS means over each whole
+    parameter."""
+    means = means or Means()
     any_p = next(iter(params.values()))
-    t = _f32(float(step), any_p) + 1.0
+    t = _step(step, any_p) + 1.0
     rho = 1.0 - t ** (-h.decay_rate)
     for k, p in params.items():
         g = grads[k].float()
         s = state["f"][k]
         g2 = g * g + h.epsilon1
-        if _factored(p.shape):
-            vr = rho * s["vr"] + (1 - rho) * torch.mean(g2, dim=-1)
-            vc = rho * s["vc"] + (1 - rho) * torch.mean(g2, dim=-2)
-            rfac = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
-                                    min=h.epsilon1)
+        if _factored(means.shape(k, p)):
+            vr = rho * s["vr"] + (1 - rho) * means.rows(k, g2)
+            vc = rho * s["vc"] + (1 - rho) * means.cols(k, g2)
+            rfac = vr / torch.clamp(means.rows_of_vr(k, vr), min=h.epsilon1)
             update = g / (torch.sqrt(rfac)[..., None]
                           * torch.sqrt(vc)[..., None, :] + h.epsilon2)
             s["vr"].copy_(vr)
@@ -150,7 +198,7 @@ def adafactor_update(params: Tensors, grads: Tensors, state, step: int,
             v = rho * s["v"] + (1 - rho) * g2
             update = g / (torch.sqrt(v) + h.epsilon2)
             s["v"].copy_(v)
-        rms = torch.sqrt(torch.mean(torch.square(update)) + h.epsilon1)
+        rms = torch.sqrt(means.all(k, torch.square(update)) + h.epsilon1)
         update = update / torch.clamp(rms, min=1.0)
         pf = p.float()
         p.copy_((pf - h.lr * update - h.lr * h.weight_decay * pf).to(p.dtype))

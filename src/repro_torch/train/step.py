@@ -7,7 +7,10 @@ the value and gradient of ``model.loss_fn`` (K4 forward, the PyTorch
 backward), clipping to ``hyper.clip_norm``, the optimizer's update of the
 parameters in place, and the metrics ``loss``, ``ce``, ``aux`` and
 ``grad_norm`` as device scalars.  The gradients are freed after the
-update.
+update.  A model built over a grid of more than one rank
+(``Transformer(group=...)``) takes the sharded step instead
+(``train/zero.train_step``: its rows of the batch, gradients reduced over
+the grid, ZeRO-1 state) with the same signature and metrics.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from ..device import DeviceLike
 from ..launch.mesh import ShardGroup
 from ..models.transformer import Transformer
 from . import compress as compress_mod
+from . import zero
 from .optimizer import OptHyper, clip_by_global_norm, get_optimizer
 
 __all__ = ["make_train_step", "init_train_state", "make_ddp_step"]
@@ -40,11 +44,19 @@ def _metrics(loss, aux, gnorm) -> Dict[str, torch.Tensor]:
             "loss": loss.detach(), "grad_norm": gnorm}
 
 
+def _sharded(model: Transformer) -> bool:
+    return model.grid is not None and model.grid.size > 1
+
+
 def make_train_step(cfg, hyper: OptHyper = OptHyper(), *,
                     attn_chunk: int = 1024, skip_upper_triangle: bool = True):
     opt = get_optimizer(cfg.optimizer)
 
     def train_step(model: Transformer, opt_state, batch, step: int):
+        if _sharded(model):
+            return zero.train_step(model, opt_state, batch, step, hyper,
+                                   attn_chunk=attn_chunk,
+                                   skip_upper_triangle=skip_upper_triangle)
         params, grads, loss, aux = _grads(model, batch, attn_chunk,
                                           skip_upper_triangle)
         grads, gnorm = clip_by_global_norm(grads, hyper.clip_norm,
@@ -57,9 +69,15 @@ def make_train_step(cfg, hyper: OptHyper = OptHyper(), *,
 
 
 def init_train_state(cfg, generator: Optional[torch.Generator] = None,
-                     device: DeviceLike = None):
-    """(model with random weights from ``generator``, optimizer state)."""
-    model = Transformer.init_params(cfg, generator, device=device)
+                     device: DeviceLike = None, grid=None):
+    """(model with random weights from ``generator``, optimizer state).
+    Over ``grid`` (a ``launch.mesh.ModelGrid``): the rank's blocks of the
+    one-rank model's weights, and the state of its ZeRO blocks
+    (``train/zero.init_state``)."""
+    model = Transformer.init_params(cfg, generator, device=device,
+                                    group=grid)
+    if _sharded(model):
+        return model, zero.init_state(cfg.optimizer, model)
     opt = get_optimizer(cfg.optimizer)
     return model, opt.init(dict(model.named_parameters()))
 

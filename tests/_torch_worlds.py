@@ -530,8 +530,9 @@ def sharded_lm_job(data: int, model: int, cases, layers, prompts,
                    new_tokens: int) -> dict:
     """Each of ``cases`` ((tag, config overrides, arrays, tokens)) served
     sharded over a (``data``, ``model``) grid: ``forward`` of this data
-    shard's rows, ``prefill`` of their first S - 4 tokens and 4 teacher-
-    forced ``decode_step``s; the meta shapes ``launch.specs.input_specs``
+    shard's rows, ``loss_fn`` of them (next-token targets) with the
+    gradient of the final norm's scale, ``prefill`` of their first S - 4
+    tokens and 4 teacher-forced ``decode_step``s; the meta shapes ``launch.specs.input_specs``
     gives this grid beside the tensors the rank holds; ``Engine.generate``
     of this data shard's ``prompts``.  ``layers``: (tag, overrides,
     layer arrays, x) through ``moe_apply`` of an MoE layer sharded as the
@@ -559,6 +560,12 @@ def sharded_lm_job(data: int, model: int, cases, layers, prompts,
         toks = torch.from_numpy(rows(tokens))
         b, s = toks.shape
         logits, aux = m({"tokens": toks})
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        loss, _ = m.loss_fn(batch)
+        loss.backward()
+        train = {"loss": float(loss),
+                 "norm_f_grad": m.norm_f.scale.grad.numpy().copy()}
+        m.zero_grad(set_to_none=True)
         pre, cache = m.prefill({"tokens": toks[:, :s - 4]}, s + 4)
         steps = []
         for i in range(s - 4, s):
@@ -571,7 +578,7 @@ def sharded_lm_job(data: int, model: int, cases, layers, prompts,
         eng = Engine(cfg, m, ServeConfig(batch=len(prompts) // data,
                                          max_seq=64), device="cpu")
         out["lm"][tag] = {
-            "forward": logits.numpy(), "aux": float(aux),
+            "forward": logits.numpy(), "aux": float(aux), "train": train,
             "prefill": pre.numpy(), "decode": np.stack(steps, 1)[:, :, 0],
             "params_match_meta": sorted(held) == sorted(p_meta) and all(
                 tuple(held[k].shape) == tuple(p_meta[k].shape) and
@@ -588,10 +595,120 @@ def sharded_lm_job(data: int, model: int, cases, layers, prompts,
         cfg = reduced(get_config(over["arch"]),
                       **{k: v for k, v in over.items() if k != "arch"})
         m = Transformer.from_arrays(cfg, arrays, device="cpu", group=grid)
-        y, aux = moe.moe_apply(m.layers[0].moe, torch.from_numpy(rows(x)),
-                               cfg)
+        with torch.no_grad():
+            y, aux = moe.moe_apply(m.layers[0].moe,
+                                   torch.from_numpy(rows(x)), cfg)
         out["layers"][tag] = {"out": y.numpy(), "aux": float(aux)}
     return out
+
+
+def _train_cfg(over):
+    from repro_torch.configs.base import get_config, reduced
+    return reduced(get_config(over["arch"]),
+                   **{k: v for k, v in over.items() if k != "arch"})
+
+
+def _shared_blocks(model) -> dict:
+    """This rank's blocks of what ranks share: the norms, the routers and
+    the ``wk`` / ``wv`` leaves (numpy)."""
+    import re
+    return {k: p.detach().numpy().copy() for k, p in model.named_parameters()
+            if re.search(r"(norm|ln)[^.]*\.(scale|bias)$|router\.w$|"
+                         r"attn\.w[kv]\.[wb]$", k)}
+
+
+def sharded_train_job(cases, ckpt=None) -> dict:
+    """Each of ``cases`` ((tag, data, model, config overrides, arrays,
+    batches, grads)) trained from ``arrays`` over a (data, model) grid of
+    this world, one ``make_train_step`` per batch on this data shard's
+    rows: per step its metrics, after the last this rank's blocks of what
+    ranks share, and its ZeRO state's shapes beside its blocks'.  Then,
+    from ``arrays`` and fresh state again, one ``zero.apply_gradients`` of
+    the whole gradients ``grads`` (each rank's block of them, a block that
+    ``members`` ranks sum divided among them) and the whole parameters
+    after it, gathered as a checkpoint gathers them.
+
+    ``ckpt``: (tag, directory, n): after ``n`` steps of that case the
+    checkpoint is saved (rank 0 writes), then a model loaded from it takes
+    step ``n`` again on the same grid.  Returns numpy."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import model_grid
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import zero
+    from repro_torch.train.optimizer import OptHyper
+    from repro_torch.train.step import make_train_step
+    out = {}
+    for tag, data, model, over, arrays, batches, grads in cases:
+        grid = model_grid(data, model)
+        di = grid.data.rank
+        cfg = _train_cfg(over)
+        m = Transformer.from_arrays(cfg, arrays, device="cpu", group=grid)
+        state = zero.init_state(cfg.optimizer, m)
+        step = make_train_step(cfg, OptHyper(), attn_chunk=16)
+
+        def rows(a):
+            n = a.shape[0] // data
+            return torch.from_numpy(np.ascontiguousarray(
+                a[di * n:(di + 1) * n]))
+
+        res = {"coords": grid.coords, "metrics": [],
+               "holders": {k: leaf.holders
+                           for k, leaf in zero.layout(m).items()},
+               "state_shapes": {}, "block_shapes": {}}
+        for i, b in enumerate(batches):
+            if ckpt is not None and ckpt[0] == tag and i == ckpt[2]:
+                tree = zero.full_tree(m, state)
+                if grid.data.rank == 0 and grid.model.rank == 0:
+                    store.save_checkpoint(ckpt[1], i, tree,
+                                          meta={"config":
+                                                store.config_hash(cfg)})
+                else:
+                    store.gather_leaves(tree)
+                torch.distributed.barrier()
+                again = Transformer.from_arrays(cfg, arrays, device="cpu",
+                                                group=grid)
+                again_state = zero.init_state(cfg.optimizer, again)
+                launch_train.load_train_state(ckpt[1], again, again_state,
+                                              cfg)
+                _, _, mr = step(again, again_state,
+                                {k: rows(v) for k, v in b.items()}, i)
+                res["resumed"] = {k: float(v) for k, v in mr.items()}
+            m, state, met = step(m, state, {k: rows(v) for k, v in b.items()},
+                                 i)
+            res["metrics"].append({k: float(v) for k, v in met.items()})
+        res["shared"] = _shared_blocks(m)
+        lay = zero.layout(m)
+        res["model_shapes"] = {}
+        for k, p in m.named_parameters():
+            res["block_shapes"][k] = tuple(lay[k].zblock(p).shape)
+            res["model_shapes"][k] = tuple(p.shape)
+        for path, name, sub, t in zero._state_leaves(state):
+            res["state_shapes"][path] = tuple(t.shape)
+        given = Transformer.from_arrays(cfg, arrays, device="cpu",
+                                        group=grid)
+        given_state = zero.init_state(cfg.optimizer, given)
+        for k, p in given.named_parameters():
+            g = p.keep(torch.from_numpy(grads[k]))
+            p.grad = g / len(lay[k].members)
+        zero.apply_gradients(given, given_state, 0, OptHyper())
+        whole = zero.full_tree(given, given_state)["params"]
+        res["params_1"] = {k: f().numpy() for k, f in whole.items()}
+        out[tag] = res
+    return out
+
+
+def launch_train_job(argv) -> str:
+    """``launch/train.py``'s ``main(argv)`` on this rank; its output."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as launch_train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        launch_train.main(list(argv))
+    return buf.getvalue()
 
 
 def distributed_graph(graph_cls, **kw):

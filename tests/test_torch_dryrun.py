@@ -63,20 +63,20 @@ LM_ARCHS = [a for a in list_archs() if a != "ringo-graph"]
 ITEM = "ROADMAP.md Queue 1 item 15 (b)"
 
 # the cells the port cannot run yet, each for item 15 (b): (arch, shape)
-# on both meshes.  Every train_4k cell (the sharded train step); the giant
-# models' other cells (weights split over "data"); the families without a
-# sharded forward; qwen1.5-4b's 20 heads over 16 model ranks.
+# on both meshes.  The giant models' cells (weights split over "data");
+# the families without a sharded forward; qwen1.5-4b's 20 heads over 16
+# model ranks.  The three dense archs train (the sharded train step).
 _FAMILIES = ["internvl2-26b", "jamba-1.5-large-398b", "whisper-small",
              "xlstm-350m"]
+_TRAINED = ["mistral-nemo-12b", "qwen2.5-3b", "starcoder2-15b"]
 ERROR_CELLS = sorted(
-    {(a, "train_4k") for a in LM_ARCHS} |
+    {(a, "train_4k") for a in LM_ARCHS if a not in _TRAINED} |
     {(a, s) for a in ["grok-1-314b", "qwen3-moe-235b-a22b", "qwen1.5-4b"]
      for s in ("prefill_32k", "decode_32k")} |
     {(a, s) for a in _FAMILIES for s in ("prefill_32k", "decode_32k")} |
     {(a, "long_500k") for a in ["jamba-1.5-large-398b", "xlstm-350m"]})
-OK_CELLS = sorted((a, s) for a in ["mistral-nemo-12b", "qwen2.5-3b",
-                                   "starcoder2-15b"]
-                  for s in ("prefill_32k", "decode_32k"))
+OK_CELLS = sorted((a, s) for a in _TRAINED
+                  for s in ("train_4k", "prefill_32k", "decode_32k"))
 
 
 def count_cost(fn, *args, ledger=None):
@@ -156,8 +156,9 @@ def test_params_equal_reference(sweep, arch):
 @pytest.mark.parametrize("multi_pod", [False, True], ids=["single", "multi"])
 @pytest.mark.parametrize("cell", OK_CELLS, ids=lambda c: f"{c[0]}-{c[1]}")
 def test_ok_cell_counts(sweep, cell, multi_pod):
-    """Argument bytes are ``input_specs``' meta tensors; the counts are
-    positive and rank 0's."""
+    """Argument bytes are ``input_specs``' meta tensors (a train cell's:
+    the parameters' blocks, their ZeRO state blocks and the batch); the
+    counts are positive and rank 0's."""
     _, cells, _ = sweep
     arch, shape = cell
     r = cells[(arch, shape, multi_pod)]
@@ -172,9 +173,23 @@ def test_ok_cell_counts(sweep, cell, multi_pod):
     assert r["flops_per_device"] > 0 and r["bytes_per_device"] > 0
     assert r["memory"]["peak_bytes"] == r["memory"]["argument_bytes"] + \
         r["memory"]["temp_bytes"]
-    # every tensor-parallel sum is a psum: 15 other parts on the wire
+    # every tensor-parallel sum is a psum: 15 other parts on the wire (a
+    # train cell adds the data axis's: 15, or 31 on two pods)
     ar = r["collective_bytes_per_device"]["all-reduce"]
-    assert r["wire_bytes_per_device"]["all-reduce"] == 15 * ar
+    wire = r["wire_bytes_per_device"]
+    if shape == "train_4k":
+        data = 32 if multi_pod else 16
+        assert 15 * ar <= wire["all-reduce"] <= (data - 1) * ar
+        params, state, batch, step = structs
+        assert step.dtype == torch.int64 and step.dim() == 0
+        assert r["memory"]["argument_bytes"] == 8 + sum(
+            t.numel() * t.element_size() for t in
+            torch.utils._pytree.tree_flatten((params, state, batch))[0])
+        # the gradients' reduce-scatter over "data": (d - 1) / d of each
+        rs = r["collective_bytes_per_device"]["reduce-scatter"]
+        assert wire["reduce-scatter"] == pytest.approx((data - 1) * rs)
+    else:
+        assert wire["all-reduce"] == 15 * ar
     assert "xla_flops_per_device" not in r
 
 

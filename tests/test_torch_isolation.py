@@ -64,7 +64,8 @@ def test_port_modules_import_no_jax_and_no_reference():
                  "repro_torch.examples.remote_analytics",
                  "repro_torch.configs.ringo_graph",
                  "repro_torch.launch.dryrun", "repro_torch.launch.hlo_cost",
-                 "repro_torch.launch.ringo_cells"):
+                 "repro_torch.launch.ringo_cells",
+                 "repro_torch.train.zero"):
         assert name in PORT_MODULES, name
 
 

@@ -417,13 +417,8 @@ def test_flash_attention_wgmma_is_deterministic_and_strided(dev):
     assert attention_error_ratios(a, ref, base)["ok"]
 
 
-def test_flash_attention_backward_under_autograd(dev):
-    # phase 4b's shape: K4's forward through the autograd function, the
-    # PyTorch backward differentiating p rounded to bf16, against autograd
-    # through the float32 plain version (attention_error_ratios' rule for
-    # each of dq, dk, dv)
-    rng = np.random.default_rng(11)
-    shape = (2, 1024, 16, 128)
+def _backward_under_autograd(dev, shape, seed):
+    rng = np.random.default_rng(seed)
     q, k, v, dout = (torch.from_numpy(rng.normal(size=shape).astype(
         np.float32)).to(dev, torch.bfloat16) for _ in range(4))
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -435,6 +430,20 @@ def test_flash_attention_backward_under_autograd(dev):
     base = fa.plain_grads(q, k, v, dout, round_p=True)
     r = fa.grad_error_ratios(got, ref, base)
     assert r["ok"], r
+
+
+def test_flash_attention_backward_under_autograd(dev):
+    # phase 4b's shape: K4's forward through the autograd function, the
+    # PyTorch backward differentiating p rounded to bf16, against autograd
+    # through the float32 plain version (attention_error_ratios' rule for
+    # each of dq, dk, dv)
+    _backward_under_autograd(dev, (2, 1024, 16, 128), 11)
+
+
+def test_flash_attention_backward_at_a_ranks_heads(dev):
+    # phase 4h's shape: a rank's 8 of qwen2.5-3b's 16 heads over two model
+    # ranks, the same rule
+    _backward_under_autograd(dev, (2, 1024, 8, 128), 12)
 
 
 # whisper's attention, scaled down in batch and heads: D = 64; the encoder

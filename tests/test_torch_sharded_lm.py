@@ -23,8 +23,12 @@ rank gets its data shard's rows of a batch of 4.  Held, on every rank:
   aux included (the reference in a subprocess that sets ``XLA_FLAGS``
   before jax loads, as ``tests/test_distributed.py`` does).
 
-The families with no sharded forward (ssm, audio, vlm, hybrid) raise over
-more than one rank, and so do weights split over a data axis of two.
+A sharded ``loss_fn`` of qwen2.5-3b and its gradient of the final norm
+agree with the unsharded port's on the rank's rows within 1e-5 (the
+collectives carry gradients; ``tests/test_torch_sharded_train.py`` holds
+the sharded train step).  The families with no sharded forward (ssm,
+audio, vlm, hybrid) raise over more than one rank, and so do weights
+split over a data axis of two.
 """
 
 import os
@@ -286,14 +290,28 @@ def test_unported_families_raise_over_model_ranks(arch):
     Transformer(cfg, device="cpu", group=_abstract(1, 1))
 
 
-def test_sharded_training_raises():
-    """The collectives carry no gradient: training over ranks is the
-    sharded train step's (ROADMAP item 15 (b))."""
+def test_sharded_training_raises(world, ref):
+    """The collectives carry gradients now (the sharded train step, ROADMAP
+    item 15 (b)): a sharded ``loss_fn`` of qwen2.5-3b runs and agrees with
+    the unsharded port's on the rank's rows, loss and the final norm's
+    gradient (whole on every rank) within 1e-5."""
+    data, _, res = world
+    tag = _tag("qwen2.5-3b", "sorted")
     cfg = reduced(get_config("qwen2.5-3b"))
-    m = Transformer(cfg, device="cpu", group=_abstract(1, 2))
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15 \\(b\\)"):
-        m.loss_fn({"tokens": tokens, "targets": tokens})
+    one = Transformer.from_arrays(cfg, ref[tag]["arrays"], device="cpu")
+    for rank, out in enumerate(res):
+        toks = torch.from_numpy(_rows(ref[tag]["tokens"], data,
+                                      out["coords"]["data"][0]))
+        loss, _ = one.loss_fn({"tokens": toks[:, :-1],
+                               "targets": toks[:, 1:]})
+        loss.backward()
+        got = out["lm"][tag]["train"]
+        assert abs(got["loss"] - float(loss)) <= TOL * abs(float(loss)), rank
+        want = one.norm_f.scale.grad.numpy()
+        np.testing.assert_allclose(got["norm_f_grad"], want, rtol=0,
+                                   atol=TOL * float(np.abs(want).max()),
+                                   err_msg=f"rank {rank}")
+        one.zero_grad(set_to_none=True)
 
 
 def test_weights_split_over_data_raise():

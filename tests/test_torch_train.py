@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from _torch_oracles import lm_arrays
-from _torch_worlds import ddp_job, run_world
+from _torch_worlds import ddp_job, launch_train_job, run_world
 from repro.checkpoint import store as r_store
 from repro.configs.base import get_config as r_get_config
 from repro.configs.base import reduced as r_reduced
@@ -639,6 +639,8 @@ def test_train_lm_example_runs_on_the_cpu(tmp_path):
 
 
 def test_launch_train_resumes_and_refuses_model_parallelism(tmp_path):
+    """Resume at one rank; ``--model 2`` trains over two ranks of a world
+    (it was refused before the sharded train step) and resumes there."""
     ck = str(tmp_path / "ck")
     common = ["repro_torch.launch.train", "--reduced", "--device", "cpu",
               "--batch", "2", "--seq", "16", "--ckpt-dir", ck]
@@ -649,8 +651,15 @@ def test_launch_train_resumes_and_refuses_model_parallelism(tmp_path):
     assert out.returncode == 0, out.stdout + out.stderr
     assert "resumed from step 4" in out.stdout
     assert store.latest_step(ck) == 6
-    with pytest.raises(ValueError, match="Queue 1 item 15"):
-        launch_train.main(["--reduced", "--device", "cpu", "--model", "2"])
+    ck2 = str(tmp_path / "ck2")
+    model2 = ["--reduced", "--device", "cpu", "--batch", "2", "--seq", "16",
+              "--model", "2", "--ckpt-dir", ck2]
+    outs = run_world(launch_train_job, 2, tmp_path / "w2",
+                     model2 + ["--steps", "2"])
+    assert "[train] step     2" in outs[0] and store.latest_step(ck2) == 2
+    outs = run_world(launch_train_job, 2, tmp_path / "w2b",
+                     model2 + ["--steps", "3", "--resume"])
+    assert "resumed from step 2" in outs[0] and store.latest_step(ck2) == 3
 
 
 def test_training_entry_points_without_device_need_the_card(monkeypatch):
