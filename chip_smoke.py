@@ -263,7 +263,8 @@ Phases (each prints one JSON line with its seconds):
 4g. the dry run (``launch/dryrun.py``, after 4e, before 4b), in a launch
    window of its own.  (a) ``--list``, then every cell of the single-pod
    and two-pod sweeps counted on the meta device over counting groups (no
-   card): the counts of cells ``ok``, ``skipped`` and ``error`` must be
+   card; one process a core): the counts of cells ``ok``,
+   ``skipped`` and ``error`` must be
    ``DRYRUN_STATUS``'s; qwen2.5-3b x prefill_32k x single's flops, bytes,
    collective and wire bytes and argument bytes, and each ringo cell's
    shard sizes and gather bytes, print.  (b) Rank 0 of that cell for real
@@ -324,6 +325,40 @@ Phases (each prints one JSON line with its seconds):
    reckoning, and each step's collectives by phase (forward, backward,
    recompute, gradients, optimizer: calls, bytes sent and received, host
    seconds).
+4i. weights split over "data" (``two_d_weights``): qwen3-moe and grok-1
+   at full width, each weight's d_model dim on "data" as ``rules_for``
+   decides for both models at their published depth, over four gloo
+   ranks sharing the card as the (2, 2) grid (experts on "model",
+   ``expert_tp``, capacity factor 1.25); every weight is gathered over
+   the two data ranks where it is used (``launch/mesh.ModelGrid.weight``).
+   Before each run the parent prints the reckoning of a rank's bytes
+   (2-D blocks, one layer's gathered weights, float32 reduced gradients,
+   Adafactor state, logits), which must stay under 72 GB over the ranks.
+   (a) qwen3-moe: cut to 1 layer, ``Engine.generate`` of phase 4's
+   prompts (left-padded to 2048, two a data rank) with 4 new tokens, then
+   the yardstick (the prefill and 4 teacher-forced decode steps), held to
+   a d = 1 run of the same cut model in the parent first, per data
+   shard's half (``expert_tp`` routes each shard alone): every (row,
+   position) within ``DECODE_TOL`` of the largest logit,
+   ``ROUTED_STEP_TOL`` where the row's token chose other experts, at
+   most ``ROUTE_FLIP_LIMIT`` of the routings flipped; then, cut to 2
+   layers, 2 Adafactor steps of the sharded train step on phase 4b's
+   batches, one row a data rank: step 0's loss within 2e-2 of phase 4h
+   (c)'s one-rank run, step 0's gradient norm within
+   ``TWO_D_NORM_TOL`` of its and step 1's loss within
+   ``TWO_D_STEP1_TOL``, every value finite, each leaf split over both
+   axes a quarter, the norms the same bits on every rank.  (b) grok-1 cut to
+   1 layer: the yardstick with 2 teacher steps, the same limits.  Every
+   call gathers the rank's blocks through the host, ~3 GB, so the
+   serving is cut to one layer to keep the phase near 150 s.  K4 runs on
+   each rank's heads, ``"sm90_wgmma"``: at (2, 2048, 32, 128) serving and
+   (1, 1024, 32, 128) training for (a), (2, 2048, 24, 128) for (b); rank
+   0's layer-0 q, k, v at each of these shapes go to K4's row
+   (``two_d_path_inputs``: held to the plain version by
+   ``attention_error_ratios`` and timed beside SDPA).  Its line prints
+   the prefill seconds, seconds a token and step seconds, each rank's
+   peak memory beside the reckoning, and the collectives by axis and
+   phase (the "data" axis carries the weight gathers).
 5. every kernel against its plain PyTorch version at the shapes phases 2-4
    gave it, with its time, the plain version's, a library call's where one
    computes the same function, and the card's lower bound.  Printed as one
@@ -373,6 +408,8 @@ import copy
 import dataclasses
 import io
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -3833,9 +3870,10 @@ DRYRUN_CELL = ("qwen2.5-3b", "prefill_32k")
 DRYRUN_K4_SHAPE = (2, 32768, 1, 128)   # rank 0's heads after the GQA repeat
 # (ok, skipped, error) of the single- and two-pod sweeps: the dense archs
 # but qwen1.5-4b serve prefill and decode and train (the sharded train
-# step); the error cells are ROADMAP.md Queue 1 item 15 (b)'s
-# (tests/test_torch_dryrun.py lists them)
-DRYRUN_STATUS = (18, 16, 46)
+# step), and so do the giant models with their weights 2-D; the error
+# cells are ROADMAP.md Queue 1 item 15 (b)'s (tests/test_torch_dryrun.py
+# lists them)
+DRYRUN_STATUS = (30, 16, 34)
 RINGO_CELLS = ("pagerank_twitter", "pagerank_twitter_2d")
 RINGO_TOL = 1e-6   # card vs CPU, relative to the largest value
 
@@ -4190,20 +4228,27 @@ def sharded_train_config(arch, n_layers, over):
     return dataclasses.replace(cfg, **over)
 
 
-def sharded_train_reckoning(cfg, data: int, model: int) -> dict:
+def sharded_train_reckoning(cfg, data: int, model: int,
+                            arch=None) -> dict:
     """The bytes one rank of a (data, model) grid should hold at its peak:
     its parameter blocks; their gradients in the parameters' dtype and
     reduced to float32 ZeRO blocks; its ZeRO optimizer state; the logits
     of its rows (the gathered compute-dtype logits, then float32 twice in
-    the loss and its gradient).  Counted on the meta device."""
+    the loss and its gradient).  Counted on the meta device.  With
+    ``arch``, phase 4i's 2-D rules (:func:`two_d_rules`): a 2-D block's
+    gradient is its float32 reduced block alone (the gather's backward
+    writes no ``grad``), and one layer's weights gathered whole over
+    "data" add to the peak."""
     from repro_torch.launch.mesh import ModelGrid, ModelGroup
     from repro_torch.models.layers import dtype_of
     from repro_torch.models.transformer import Transformer
     from repro_torch.train import zero
     grid = ModelGrid(ModelGroup(data, 0), ModelGroup(model, 0))
-    m = Transformer(cfg, device="meta", group=grid)
+    m = Transformer(cfg, device="meta", group=grid,
+                    rules=two_d_rules(arch, grid, "train") if arch else None)
     lay = zero.layout(m)
     params = nbytes(*m.parameters())
+    grads = nbytes(*(p for p in m.parameters() if not hasattr(p, "data_dim")))
     reduced = sum(4 * lay[k].zblock(p).numel()      # new float32 tensors
                   for k, p in m.named_parameters()
                   if data > 1 or p.dtype != torch.float32 or
@@ -4212,10 +4257,22 @@ def sharded_train_reckoning(cfg, data: int, model: int) -> dict:
         zero.init_state(cfg.optimizer, m))))
     rows = TRAIN_BATCH // data * TRAIN_SEQ * cfg.vocab_size
     logits = rows * (dtype_of(cfg.compute_dtype).itemsize + 4 + 4)
-    rank = 2 * params + reduced + state + logits
-    return {"params": params, "grads": params, "grads_reduced_f32": reduced,
-            "state": state, "logits": logits, "rank": rank,
-            "all_ranks": rank * data * model}
+    gathered = gathered_bytes(m, data)
+    rank = params + grads + reduced + state + logits + gathered
+    return {"params": params, "grads": grads, "grads_reduced_f32": reduced,
+            "state": state, "logits": logits, "gathered": gathered,
+            "rank": rank, "all_ranks": rank * data * model}
+
+
+def gathered_bytes(m, data: int) -> int:
+    """The most a rank of ``m`` holds gathered whole over "data" at once:
+    layer 0's 2-D blocks or the table's, ``data`` times; 0 with no 2-D
+    weight."""
+    layer = sum(data * nbytes(p) for k, p in m.named_parameters()
+                if k.startswith("layers.0.") and hasattr(p, "data_dim"))
+    table = m.embed["tok"].table
+    return max(layer, data * nbytes(table) if hasattr(table, "data_dim")
+               else 0)
 
 
 def train_one_rank(dev, cfg, batches, steps: int) -> list:
@@ -4479,7 +4536,446 @@ def phase_sharded_train(dev, kernels, baseline):
         shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "sharded_train", "backend": "gloo", "runs": lines,
           "k4_launches": k4_total, "seconds": time.perf_counter() - t0})
-    return {"flash_attention_fwd": k4_total}
+    return {"flash_attention_fwd": k4_total}, {
+        line["run"]: line["one_rank_steps"] for line in lines}
+
+
+# phase 4i: weights split over "data" (two_d_weights), gloo ranks sharing
+# the card
+TWO_D_GRID = (2, 2)
+TWO_D_JOIN_SECONDS = 900.0
+TWO_D_RUNS = (
+    # (run, arch, layers kept serving, new tokens, Engine.generate,
+    #  layers kept training, train steps): the serving cut to one layer
+    # keeps the phase near 150 s (every call gathers the rank's blocks
+    # through the host); training stays at phase 4h (c)'s 2 layers, whose
+    # one-rank losses it is held to
+    ("a", "qwen3-moe-235b-a22b", 1, 4, True, 2, 2),
+    ("b", "grok-1-314b", 1, 2, False, 0, 0),
+)
+TWO_D_OVER = {"moe_impl": "expert_tp", "capacity_factor": 1.25}
+# (a)'s training vs phase 4h (c)'s one-rank run (PERF.md section 6):
+# step 0's loss within SHARDED_TRAIN_LOSS_TOL["c"]; on an H100 its
+# gradient norm read 8.3% low, and +83% with the 2-D gradients not
+# divided by d, -35% with each block keeping only its own data rank's
+# part; step 1's loss read 0.16% low (those two faults 0.14% and 0.12%:
+# the norm catches them, this limit only a step that goes astray)
+TWO_D_NORM_TOL = 0.2      # step 0's gradient norm, relative
+TWO_D_STEP1_TOL = 5e-3    # step 1's loss, relative
+TWO_D_MEMORY = 72e9       # the reckoning's ceiling over the ranks
+
+
+def two_d_rules(arch, grid, kind):
+    """``rules_for``'s rules for the model at its published depth: the
+    cut in depth is no other deployment, and ``is_giant(cfg, 2)`` holds
+    for both models there, so every weight's d_model dim is on "data"."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.specs import rules_for
+    rules = rules_for(get_config(arch), grid, kind)
+    check(rules.mapping["w_embed"] == "data" and
+          rules.mapping["experts"] == "model",
+          f"phase 4i {arch}: rules_for gives {rules.mapping}, not 2-D "
+          f"weights with experts on \"model\"")
+    return rules
+
+
+def two_d_padded(prompts):
+    """Each prompt left-padded with token 0 to the longest: what the d = 1
+    engine feeds, so every data shard sees the same positions."""
+    n = max(len(p) for p in prompts)
+    return [[0] * (n - len(p)) + list(p) for p in prompts]
+
+
+def two_d_reckoning(cfg, arch, data: int, model: int) -> dict:
+    """Phase 4i's serving: a rank's bytes at its peak, counted on the meta
+    device: its 2-D blocks and one layer's weights gathered whole over
+    "data" (:func:`gathered_bytes`).  Its training is
+    :func:`sharded_train_reckoning` with the 2-D rules."""
+    from repro_torch.launch.mesh import ModelGrid, ModelGroup
+    from repro_torch.models.transformer import Transformer
+    grid = ModelGrid(ModelGroup(data, 0), ModelGroup(model, 0))
+    m = Transformer(cfg, device="meta", group=grid,
+                    rules=two_d_rules(arch, grid, "prefill"))
+    blocks, gathered = nbytes(*m.parameters()), gathered_bytes(m, data)
+    rank = blocks + gathered
+    return {"blocks": blocks, "gathered": gathered, "rank": rank,
+            "all_ranks": rank * data * model}
+
+
+@torch.no_grad()
+def two_d_yardstick(dev, cfg, halves, new: int) -> dict:
+    """The d = 1 yardstick of phase 4i in this process, freed after: the
+    cut model from seed 0 over the one-rank grid (``expert_tp`` routes
+    all its tokens, so each data shard's half runs alone, as the ranks
+    route theirs): per half, ``generate`` of ``new`` tokens, then the
+    prefill's last logits and ``new`` teacher-forced decode steps with
+    their routings."""
+    from repro_torch.launch.mesh import model_grid
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine, ServeConfig
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = Transformer.init_params(cfg, gen, device=dev,
+                                    group=model_grid(1, 1))
+    out = []
+    for prompts in halves:
+        plen = len(prompts[0])
+        eng = Engine(cfg, model, ServeConfig(batch=len(prompts),
+                                             max_seq=plen + new), device=dev)
+        tokens = eng.generate(prompts, new)
+        toks = torch.tensor(prompts, device=dev)
+        teacher = torch.tensor([t[plen:] for t in tokens], device=dev)
+        with moe_routes() as routes:
+            logits, rec = yardstick(model, toks, teacher, plen + new)
+        out.append({"tokens": tokens, "teacher": teacher.cpu(),
+                    "logits": logits, "routes": host_routes(routes),
+                    "yardstick_run": rec})
+    del model, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def two_d_rank(rank: int, d: int, workdir: str, all_jobs, device: str):
+    """Phase 4i, one rank: join a gloo world of ``d`` ranks on ``device``
+    (card 0) as the (2, 2) grid, and for each of its ``all_jobs[rank]``
+    ((run, arch, serving config, this data shard's padded prompts, its
+    teacher tokens, whether to ``generate``, training config, train steps,
+    its rows of the batches)): draw the cut model's weights from seed 0
+    keeping this rank's 2-D blocks, ``generate``, the yardstick; then,
+    with train steps, the sharded train step from seed 0 again.
+    Writes its logits and routings and a JSON record per run: seconds,
+    K4's launches and shapes, the collectives by axis and phase (the
+    "data" axis carries the weight gathers), peak memory; rank 0 also
+    K4's first q, k, v of the serving and of step 0 (layer 0's)."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch.mesh import model_grid
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.train.optimizer import OptHyper
+    from repro_torch.train.step import init_train_state, make_train_step
+    on_card = device == "cuda"
+    if on_card:     # four ranks' caches share the card: keep few slack
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    work = Path(workdir)
+    by_variant = flash_attention_fwd.launches_by_variant
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=d,
+                            timeout=datetime.timedelta(seconds=600))
+
+    def zero_counts():
+        flash_attention_fwd.launches = 0
+        for v in by_variant:
+            by_variant[v] = 0
+
+    def axes(grid):
+        return {"model": grid.model.phase_stats,
+                "data": grid.data.phase_stats}
+
+    try:
+        grid = model_grid(*TWO_D_GRID)
+        for (run, arch, cfg, prompts, teacher, serve_generate, train_cfg,
+             steps, rows) in all_jobs[rank]:
+            t0 = time.perf_counter()
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            rules = two_d_rules(arch, grid, "prefill")
+            gen = torch.Generator(device=device).manual_seed(0)
+            model, t_init = timed(lambda: Transformer.init_params(
+                cfg, gen, device=device, group=grid, rules=rules))
+            plen, new = len(prompts[0]), teacher.shape[1]
+            eng = Engine(cfg, model, ServeConfig(batch=len(prompts),
+                                                 max_seq=plen + new),
+                         device=device)
+            before = copy.deepcopy(axes(grid))
+            zero_counts()
+            out, t_gen, stats = None, None, {}
+            with k4_calls() as (seen, first):
+                if serve_generate:
+                    out, t_gen = timed(lambda: eng.generate(prompts, new))
+                    stats = dict(eng.stats)
+                k4_gen = flash_attention_fwd.launches
+                toks = torch.tensor(prompts, device=device)
+                with moe_routes() as routes:
+                    logits, rec = yardstick(model, toks, teacher.to(device),
+                                            plen + new, grid.data)
+            torch.save(logits, work / f"rank{rank}_{run}.pt")
+            torch.save([e for e, _ in host_routes(routes)],
+                       work / f"rank{rank}_{run}_routes.pt")
+            if rank == 0:
+                save_first_qkv(first, seen, work / f"qkv_{run}_serve.pt")
+            del first
+            info = {"rank": rank, "coords": grid.coords, "run": run,
+                    "arch": cfg.name, "n_layers": cfg.n_layers,
+                    "two_d_leaves": sum(hasattr(p, "data_dim")
+                                        for p in model.parameters()),
+                    "leaves": sum(1 for _ in model.parameters()),
+                    "param_bytes_held": nbytes(*model.parameters()),
+                    "seconds_init": t_init, "tokens": out,
+                    "seconds_generate": t_gen,
+                    "prefill_seconds": stats.get("prefill_seconds"),
+                    "decode_seconds_per_token": stats["decode_seconds"]
+                    / stats["decode_steps"] if stats else None,
+                    "yardstick_run": rec,
+                    "k4_launches": flash_attention_fwd.launches,
+                    "k4_launches_generate": k4_gen,
+                    "k4_by_variant": dict(by_variant),
+                    "k4_shapes": sorted({str(list(k[0])) for k in seen}),
+                    "collectives_serve": {
+                        ax: {ph: {k: v - before[ax].get(ph, {}).get(k, 0)
+                                  for k, v in st.items()}
+                             for ph, st in g.items()}
+                        for ax, g in axes(grid).items()}}
+            if on_card:
+                info["max_memory_allocated_serve"] = \
+                    torch.cuda.max_memory_allocated()
+            del model, eng, logits, routes
+            if steps:
+                if on_card:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                gen = torch.Generator(device=device).manual_seed(0)
+                (m, state), t_init = timed(lambda: init_train_state(
+                    train_cfg, gen, device=device, grid=grid,
+                    rules=two_d_rules(arch, grid, "train")))
+                step_fn = make_train_step(train_cfg, OptHyper(),
+                                          attn_chunk=TRAIN_SEQ)
+                info["train"] = []
+                for i in range(steps):
+                    mine = {k: v.to(device) for k, v in rows[i].items()}
+                    before = copy.deepcopy(axes(grid))
+                    zero_counts()
+                    sync()
+                    t = time.perf_counter()
+                    with k4_calls() as (seen, first):
+                        _, _, met = step_fn(m, state, mine, i)
+                        row = {k: float(v) for k, v in met.items()}
+                    if rank == 0 and i == 0:
+                        save_first_qkv(first, seen,
+                                       work / f"qkv_{run}_train.pt")
+                    del first
+                    sync()
+                    row["seconds"] = time.perf_counter() - t
+                    row["k4_launches"] = flash_attention_fwd.launches
+                    row["k4_by_variant"] = dict(by_variant)
+                    row["k4_shapes"] = sorted({str(list(k[0]))
+                                               for k in seen})
+                    row["collectives"] = {
+                        ax: {ph: {k: v - before[ax].get(ph, {}).get(k, 0)
+                                  for k, v in st.items()}
+                             for ph, st in g.items()}
+                        for ax, g in axes(grid).items()}
+                    info["train"].append(row)
+                info["train_seconds_init"] = t_init
+                info["train_quarters"] = all(
+                    4 * p.numel() == math.prod(p.full_shape)
+                    for p in m.parameters() if hasattr(p, "data_dim") and
+                    any(p.shape[i] != p.full_shape[i] and i != p.data_dim
+                        for i in range(p.dim())))
+                info["train_norms_checksum"] = {
+                    k: checksum(p) for k, p in m.named_parameters()
+                    if re.search(r"(norm|ln)[^.]*\.scale$", k)}
+                if on_card:
+                    info["max_memory_allocated_train"] = \
+                        torch.cuda.max_memory_allocated()
+                del m, state
+            info["seconds"] = time.perf_counter() - t0
+            (work / f"rank{rank}_{run}.json").write_text(json.dumps(info))
+            dist.barrier()      # one model on the card at a time
+    finally:
+        dist.destroy_process_group()
+
+
+def save_first_qkv(first, seen, path):
+    """K4's first q, k, v (``k4_calls``' ``first`` of its first key),
+    detached on the host, to ``path``."""
+    torch.save([t.detach().cpu() for t in first[seen[0]]], path)
+
+
+def phase_two_d(dev, kernels, train_d1, batches):
+    """Phase 4i: grok-1 and qwen3-moe with every weight's d_model dim on
+    "data" (``two_d_weights``, ``rules_for``'s decision for both) over
+    four gloo ranks sharing the card as the (2, 2) grid (``TWO_D_RUNS``).
+    (a) qwen3-moe at full width, cut to 1 layer, serves 4 new tokens
+    through ``Engine.generate`` and cut to 2 trains 2 Adafactor steps;
+    (b) grok-1 cut to 1 layer serves 2 (the yardstick alone).  Each is
+    held to a d = 1 run of the same cut model in this process first (per
+    data shard's half: ``expert_tp`` routes each shard alone), within
+    phase 4f's limits; (a)'s losses to phase 4h (c)'s one-rank run
+    (``train_d1``), on its batches (``batches``, one row a data rank).
+    Returns K4's launches in the phase and its rows on rank 0's layer-0
+    inputs (serving and step 0)."""
+    import shutil
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "phase4i"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data, model = TWO_D_GRID
+    lines, k4_total, jobs, yards, halves = [], 0, [], {}, {}
+    k4_rows = []
+    try:
+        for run, arch, n_layers, new, serve_generate, train_layers, steps \
+                in TWO_D_RUNS:
+            cfg = sharded_train_config(arch, n_layers, TWO_D_OVER)
+            rng = np.random.default_rng(0)      # phase 4's prompts
+            prompts = two_d_padded([rng.integers(0, cfg.vocab_size,
+                                                 n).tolist()
+                                    for n in SERVE_PROMPTS])
+            n = len(prompts) // data
+            halves[run] = [prompts[i * n:(i + 1) * n] for i in range(data)]
+            for k in kernels:
+                k.launches = 0
+            yards[run], t_d1 = timed(lambda: two_d_yardstick(
+                dev, cfg, halves[run], new))
+            k4_total += flash_attention_fwd.launches
+            yards[run + "_seconds"] = t_d1
+            jobs.append((run, arch, cfg, serve_generate,
+                         sharded_train_config(arch, train_layers, TWO_D_OVER)
+                         if steps else None, steps))
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved()
+        recks = {}
+        for run, arch, cfg, _, train_cfg, steps in jobs:
+            recks[run] = two_d_reckoning(cfg, arch, data, model)
+            if steps:
+                recks[run + "_train"] = sharded_train_reckoning(
+                    train_cfg, data, model, arch)
+            for key in (run, run + "_train"):
+                if key not in recks:
+                    continue
+                print(json.dumps({"phase4i_reckoning": key,
+                                  "grid": [data, model],
+                                  "parent_memory_reserved": held,
+                                  **recks[key]}), flush=True)
+                check(recks[key]["all_ranks"] + held <= TWO_D_MEMORY,
+                      f"phase 4i ({key}): {recks[key]['all_ranks'] + held} "
+                      f"bytes reckoned over the ranks")
+        per_rank_jobs = [
+            [(run, arch, cfg, halves[run][r // model], yards[run][r // model]
+              ["teacher"], serve_generate, train_cfg, steps,
+              [{k: v[r // model:r // model + 1] for k, v in b.items()}
+               for b in batches[:steps]])
+             for run, arch, cfg, serve_generate, train_cfg, steps in jobs]
+            for r in range(data * model)]
+        run_ranks(two_d_rank, data * model, TWO_D_JOIN_SECONDS,
+                  "phase 4i", str(work), per_rank_jobs, dev.type)
+        for run, arch, cfg, serve_generate, train_cfg, steps in jobs:
+            ranks = [json.loads((work / f"rank{r}_{run}.json").read_text())
+                     for r in range(data * model)]
+            heads = cfg.n_heads // model
+            n_new = yards[run][0]["teacher"].shape[1]
+            serve_key = str([len(halves[run][0]), len(halves[run][0][0]),
+                             heads, cfg.resolved_head_dim])
+            errs, flips_all = [], []
+            for r, info in enumerate(ranks):
+                di = r // model
+                want = yards[run][di]["logits"]
+                got = torch.load(work / f"rank{r}_{run}.pt")
+                check(bool(torch.isfinite(got).all()) and
+                      got.shape == want.shape,
+                      f"phase 4i ({run}) rank {r}: logits "
+                      f"{tuple(got.shape)}")
+                check(info["two_d_leaves"] > 0 and
+                      info["tokens"] == ranks[di * model]["tokens"],
+                      f"phase 4i ({run}) rank {r}: {info['two_d_leaves']} "
+                      f"2-D leaves, or tokens unlike its data shard's")
+                prefills = 2 if serve_generate else 1
+                check(info["k4_launches"] == prefills * cfg.n_layers and
+                      info["k4_by_variant"].get("sm90_wgmma") ==
+                      prefills * cfg.n_layers and
+                      info["k4_shapes"] == [serve_key],
+                      f"phase 4i ({run}) rank {r}: K4 {info['k4_launches']} "
+                      f"{info['k4_by_variant']} {info['k4_shapes']}, want "
+                      f"{prefills * cfg.n_layers} sm90_wgmma at {serve_key}")
+                k4_total += info["k4_launches"]
+                routes = torch.load(work / f"rank{r}_{run}_routes.pt")
+                flips = route_flips(yards[run][di]["routes"],
+                                    [(e, None) for e in routes],
+                                    cfg.n_layers)
+                check(flips["flip_share"] <= ROUTE_FLIP_LIMIT,
+                      f"phase 4i ({run}) rank {r}: routings unlike d=1's "
+                      f"{flips}")
+                per_row = (got.double() - want.double()).abs().amax(-1)
+                limit = torch.full_like(per_row, DECODE_TOL)
+                flipped = torch.tensor(flips["step_rows_flipped"]).T
+                limit[:, 1:][flipped] = ROUTED_STEP_TOL
+                scale = float(want.abs().max())
+                check(bool((per_row <= limit * scale).all()),
+                      f"phase 4i ({run}) rank {r}: logits vs d=1 by row "
+                      f"{per_row.tolist()} over {limit.tolist()} x {scale}")
+                errs.append(per_row.tolist())
+                flips_all.append(flips["flip_share"])
+                for g in info.get("train", []):
+                    check(g["k4_by_variant"].get("sm90_wgmma") ==
+                          g["k4_launches"] == 2 * train_cfg.n_layers and
+                          g["k4_shapes"] == [str([1, TRAIN_SEQ, heads,
+                                                  cfg.resolved_head_dim])],
+                          f"phase 4i ({run}) rank {r}: train K4 "
+                          f"{g['k4_launches']} {g['k4_shapes']}")
+                    k4_total += g["k4_launches"]
+            if steps:
+                for r in ranks:
+                    got = r["train"]
+                    check(all(np.isfinite(g["loss"]) and
+                              np.isfinite(g["grad_norm"]) for g in got),
+                          f"phase 4i ({run}) rank {r['rank']}: not finite")
+                    for i, key, tol in (
+                            (0, "loss", SHARDED_TRAIN_LOSS_TOL["c"]),
+                            (0, "grad_norm", TWO_D_NORM_TOL),
+                            (1, "loss", TWO_D_STEP1_TOL)):
+                        check(abs(got[i][key] - train_d1[i][key]) <=
+                              tol * abs(train_d1[i][key]),
+                              f"phase 4i ({run}) rank {r['rank']}: step "
+                              f"{i}'s {key} {got[i][key]} vs one rank's "
+                              f"{train_d1[i][key]}, over {tol} relative")
+                    check(r["train_quarters"],
+                          f"phase 4i ({run}) rank {r['rank']}: a leaf split "
+                          f"over both axes is not a quarter")
+                check(all(r["train_norms_checksum"] ==
+                          ranks[0]["train_norms_checksum"] for r in ranks),
+                      f"phase 4i ({run}): the ranks' norms differ")
+            lines.append({
+                "run": run, "arch": cfg.name, "n_layers": cfg.n_layers,
+                "train_n_layers": train_cfg.n_layers if steps else None,
+                "generate": serve_generate,
+                "new_tokens_equal_to_d1": sum(
+                    a == b for r in range(0, data * model, model)
+                    for o, w in zip(ranks[r]["tokens"],
+                                    yards[run][r // model]["tokens"])
+                    for a, b in zip(o[-n_new:], w[-n_new:]))
+                if serve_generate else None,
+                "grid": [data, model], "new_tokens": n_new,
+                "moe_impl": cfg.moe_impl,
+                "capacity_factor": cfg.capacity_factor,
+                "reckoning": recks[run],
+                "reckoning_train": recks.get(run + "_train"),
+                "parent_memory_reserved": held,
+                "one_rank_seconds": yards[run + "_seconds"],
+                "one_rank_yardstick": [y["yardstick_run"]
+                                       for y in yards[run]],
+                "yardstick_per_row": errs, "flip_share": flips_all,
+                "train_one_rank": train_d1[:steps] if steps else None,
+                "per_rank": [{k: v for k, v in r.items()
+                              if k not in ("tokens",
+                                           "train_norms_checksum")}
+                             for r in ranks]})
+            for use in ("serve", "train"):
+                f = work / f"qkv_{run}_{use}.pt"
+                if f.exists():
+                    q, k, v = (t.to(dev) for t in torch.load(f))
+                    k4_rows.append({"arch": cfg.name, "use": use,
+                                    **k4_on_path_inputs(q, k, v)})
+                    del q, k, v
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "two_d", "backend": "gloo", "grid": list(TWO_D_GRID),
+          "runs": lines, "k4_launches": k4_total,
+          "k4_on_path_inputs": k4_rows, "seconds": time.perf_counter() - t0})
+    return {"flash_attention_fwd": k4_total}, k4_rows
 
 
 def one_ulp_ratio(got, want) -> float:
@@ -4552,7 +5048,7 @@ def k4_on_path_inputs(q, k, v, causal=True) -> dict:
 
 
 def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
-              hybrid_rows=(), sharded_rows=(), dryrun_rows=()):
+              hybrid_rows=(), sharded_rows=(), dryrun_rows=(), two_d_rows=()):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
         attention_error_ratios, flash_attention_fwd, flash_attention_fwd_plain)
@@ -4617,6 +5113,7 @@ def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
     row["hybrid_path_inputs"] = list(hybrid_rows)     # phase 4e's
     row["sharded_lm_path_inputs"] = list(sharded_rows)   # phase 4f's rank 0
     row["dryrun_path_inputs"] = list(dryrun_rows)   # phase 4g's rank 0
+    row["two_d_path_inputs"] = list(two_d_rows)     # phase 4i's rank 0
     return row
 
 
@@ -4993,13 +5490,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     train, baseline = phase_train(dev, kernels, args.profile)
     torch.cuda.empty_cache()
-    sharded_train = phase_sharded_train(dev, kernels, baseline)
+    sharded_train, one_rank = phase_sharded_train(dev, kernels, baseline)
+    batches = baseline["batches"]
     del baseline
+    torch.cuda.empty_cache()
+    two_d, k4_two_d = phase_two_d(dev, kernels, one_rank["c"], batches)
+    del batches
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter() - t_graph_rows
     rows.append(kernel_k4(path["flash_attention_fwd"], k4_variants, k4_moe,
-                          k4_families, k4_hybrid, k4_sharded, k4_dry))
+                          k4_families, k4_hybrid, k4_sharded, k4_dry,
+                          k4_two_d))
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
@@ -5014,7 +5516,8 @@ def main() -> int:
                  launches_phase_dryrun=dry.get(r["name"], 0),
                  launches_phase_train=train.get(r["name"], 0),
                  launches_phase_sharded_train=sharded_train.get(r["name"],
-                                                                0))
+                                                                0),
+                 launches_phase_two_d=two_d.get(r["name"], 0))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(smi, flush=True)

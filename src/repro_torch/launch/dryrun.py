@@ -38,17 +38,27 @@ wall time of the count.  The decode cells' cache is the port's
 (``launch/specs.py``: a rank's KV heads and the whole sequence), not the
 reference's ``kv_seq`` split.
 
+The giant models (grok-1-314b, qwen3-moe-235b-a22b) hold their weights
+2-D, each weight's d_model dim split over "data" as the reference's
+``rules_for`` decides (``two_d_weights``): rank 0 holds its block of both
+axes (``argument_bytes``), gathers each layer's weights over the 16 data
+ranks of its pod where they are used, in the forward, the recompute and
+the backward (the ``all-gather`` bytes), and reduce-scatters their
+gradients back (``reduce-scatter``), on two pods then sums them over
+"pod" (``launch/mesh.ModelGrid``).
+
 Cells the port cannot run yet raise and are recorded as the reference
 records a failing cell (``status: "error"`` with the message), each
-naming ``ROADMAP.md`` Queue 1 item 15 (b): weights split over the data
-axis (``two_d_weights``, the giant models), heads that do not split into
+naming ``ROADMAP.md`` Queue 1 item 15 (b): heads that do not split into
 whole heads over 16 model ranks (qwen1.5-4b's 20) and the ssm / audio /
 vlm / hybrid families over model ranks, in every kind of cell, train_4k
 included.
 
 Results are cached as JSON under ``--out`` (default
-``build/dryrun_results``), so a sweep resumes; ``--all`` iterates the
-cells in-process.  On the CPU, no card needed:
+``build/dryrun_results``), so a sweep resumes; the cells are counted in
+as many spawned processes as the machine has cores (at most one a cell;
+each cell counted alone in one of them, the results in the same order).
+On the CPU, no card needed:
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --list
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
@@ -61,6 +71,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import multiprocessing
 import os
 import sys
 import time
@@ -213,7 +224,7 @@ def main(argv=None) -> int:
         return 0
 
     os.makedirs(args.out, exist_ok=True)
-    failures = 0
+    todo = []
     for arch in archs:
         for shape in shapes:
             for mp in meshes:
@@ -224,28 +235,43 @@ def main(argv=None) -> int:
                 if os.path.exists(fname) and not args.force:
                     print(f"[dryrun] cached {fname}")
                     continue
-                try:
-                    res = run_cell(arch, shape, mp,
-                                   attn_chunk=args.attn_chunk,
-                                   skip_upper_triangle=not args.no_triangle_skip,
-                                   moe_impl=args.moe_impl)
-                except Exception as e:  # record failures, keep sweeping
-                    res = {"arch": arch, "shape": shape, "multi_pod": mp,
-                           "status": "error", "error": repr(e),
-                           "traceback": traceback.format_exc()}
-                    failures += 1
-                with open(fname, "w") as f:
-                    json.dump(res, f, indent=1)
-                status = res["status"]
-                extra = ""
-                if status == "ok":
-                    extra = (f" flops/dev={res['flops_per_device']:.3e}"
-                             f" peak={res['memory']['peak_bytes']/2**30:.2f}GiB"
-                             f" compile={res['compile_s']}s")
-                print(f"[dryrun] {arch} × {shape} × {mesh_name}: {status}{extra}")
-                if status == "error":
-                    print(res["error"])
+                todo.append((fname, mesh_name, (
+                    arch, shape, mp, args.attn_chunk,
+                    not args.no_triangle_skip, args.moe_impl)))
+    results = []
+    if todo:
+        cores = len(os.sched_getaffinity(0))
+        with multiprocessing.get_context("spawn").Pool(
+                min(cores, len(todo))) as pool:
+            results = pool.map(_cell_result, [t[2] for t in todo])
+    failures = 0
+    for (fname, mesh_name, (arch, shape, *_)), res in zip(todo, results):
+        with open(fname, "w") as f:
+            json.dump(res, f, indent=1)
+        status = res["status"]
+        extra = ""
+        if status == "ok":
+            extra = (f" flops/dev={res['flops_per_device']:.3e}"
+                     f" peak={res['memory']['peak_bytes']/2**30:.2f}GiB"
+                     f" compile={res['compile_s']}s")
+        print(f"[dryrun] {arch} × {shape} × {mesh_name}: {status}{extra}")
+        if status == "error":
+            print(res["error"])
+            failures += 1
     return 1 if failures else 0
+
+
+def _cell_result(cell) -> Dict:
+    """:func:`run_cell` of ``cell`` (its positional arguments), a failure
+    recorded as the reference records it (and the sweep goes on)."""
+    arch, shape, mp, attn_chunk, skip, moe_impl = cell
+    try:
+        return run_cell(arch, shape, mp, attn_chunk=attn_chunk,
+                        skip_upper_triangle=skip, moe_impl=moe_impl)
+    except Exception as e:  # record failures, keep sweeping
+        return {"arch": arch, "shape": shape, "multi_pod": mp,
+                "status": "error", "error": repr(e),
+                "traceback": traceback.format_exc()}
 
 
 if __name__ == "__main__":

@@ -72,7 +72,7 @@ import torch.distributed as dist
 
 __all__ = ["GRAPH_AXIS", "ShardGroup", "GridGroups", "graph_group",
            "graph_grid", "MeshShape", "make_production_mesh", "ModelGroup",
-           "PHASES", "collective_phase",
+           "PHASES", "collective_phase", "regather_saved",
            "ModelGrid", "model_grid", "CollectiveLedger", "counting_group",
            "counting_graph_grid", "counting_grid"]
 
@@ -420,6 +420,68 @@ class _Gather(torch.autograd.Function):
             None
 
 
+class _WeightGather(torch.autograd.Function):
+    """A weight block gathered whole on ``dim`` over the grid's weights'
+    data group, cast to ``dtype`` first.  Backward: the data ranks'
+    gradients reduce-scattered back to the block in float32 in rank
+    order, summed over the pods in order, divided by the folded data
+    size, and added to the block's ``reduced_grad`` (float32); the block
+    gets no ``grad``.  Saves nothing gathered."""
+
+    @staticmethod
+    def forward(ctx, block, grid, dim, dtype):
+        ctx.grid, ctx.dim, ctx.block = grid, dim, block
+        return grid.weight_data._gather(block.detach().to(dtype), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        with collective_phase("backward"):
+            gf = ctx.grid._weight_grad(g.contiguous(), ctx.dim)
+        p = ctx.block
+        old = getattr(p, "reduced_grad", None)
+        p.reduced_grad = gf if old is None else old + gf
+        return None, None, None, None
+
+
+class _Regather:
+    """A saved tensor that was a gathered weight, or a view of one:
+    gathered again when the backward unpacks it."""
+
+    def __init__(self, how: tuple, t: torch.Tensor, whole: bool):
+        self.how, self.whole = how, whole
+        self.geometry = (tuple(t.shape), t.stride(), t.storage_offset())
+
+    def gather(self) -> torch.Tensor:
+        grid, block, dim, dtype = self.how
+        with collective_phase("backward"):
+            full = grid.weight_data._gather(block.detach().to(dtype), dim)
+        return full if self.whole else full.as_strided(*self.geometry)
+
+
+def _pack(t: torch.Tensor):
+    """A gathered weight (it carries ``regather``: grid, block, dim,
+    dtype), or a view of one, saved as a note."""
+    for cand in (t, t._base):
+        how = getattr(cand, "regather", None)
+        if how is not None:
+            return _Regather(how, t, cand is t)
+    return t
+
+
+def _unpack(x):
+    return x.gather() if isinstance(x, _Regather) else x
+
+
+def regather_saved():
+    """A context in which autograd saves no gathered weight: a product
+    that keeps its weight operand for the backward keeps a note instead,
+    and the backward gathers the weight again (FSDP's way), so a rank
+    holds about one layer's gathered weights at a time, not its model
+    block's, whatever ``remat``.  Each data rank's backward gathers in
+    the same order, as its forward did."""
+    return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
+
+
 class _Mean(torch.autograd.Function):
     """The members' mean.  Backward: a ``d``-th of the output gradient
     where the members compute one loss from it, else the mean of the
@@ -631,12 +693,55 @@ class ModelGrid:
     ``model_i``), ``data`` those with its ``model_i`` (group rank
     ``data_i``).  ``shape`` and ``axis_names`` read as a mesh's, so
     ``launch/specs.rules_for`` takes a grid.
+
+    Weights split over "data" (``two_d_weights``): :meth:`weight`
+    gathers a block over :attr:`weight_data`, the ranks of the "data"
+    axis alone; on two pods (the counting grids) that is one pod's 16,
+    where ``data`` folds pod × data, and a weight's gradient is summed
+    over the pods (:attr:`pods`) after its reduce-scatter, as the
+    reference's specs place them (``w_embed`` on "data", the batch on
+    ("pod", "data")).
     """
 
     data: ModelGroup
     model: ModelGroup
+    wdata: Optional[ModelGroup] = None
+    pod: Optional[ModelGroup] = None
 
     axis_names = ("data", "model")
+
+    @property
+    def weight_data(self) -> ModelGroup:
+        """The group a 2-D weight's block is split over: ``data`` on one
+        pod."""
+        return self.wdata if self.wdata is not None else self.data
+
+    @property
+    def pods(self) -> ModelGroup:
+        return self.pod if self.pod is not None else ModelGroup(1, 0)
+
+    def weight(self, p: torch.Tensor, dim: int, dtype) -> torch.Tensor:
+        """The whole of weight ``p`` on ``dim`` from the blocks the weights'
+        data ranks hold, in ``dtype`` (every rank of the group calls it in
+        the same order).  Under autograd its backward reduce-scatters the
+        gradient into ``p.reduced_grad`` (:class:`_WeightGather`), and
+        :func:`regather_saved` gathers it again where the backward needs
+        it; with no process group at more than one rank it raises."""
+        if not _tracked(p):
+            return self.weight_data._gather(p.detach().to(dtype), dim)
+        out = _WeightGather.apply(p, self, dim, dtype)
+        out.regather = (self, p, dim, dtype)
+        return out
+
+    def _weight_grad(self, g: torch.Tensor, dim: int) -> torch.Tensor:
+        """A gathered weight's gradient -> the float32 gradient of the
+        rank's block: reduce-scattered over the weights' data ranks, summed
+        over the pods, divided by the folded data size (the train step's
+        mean over data shards, ``train/zero.py``)."""
+        gf = self.weight_data._reduce_scatter(g, dim, torch.float32)
+        if self.pods.d > 1:
+            gf = self.pods._sum(gf)
+        return gf / self.data.d
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -903,11 +1008,17 @@ def counting_grid(mesh, ledger: Optional[CollectiveLedger] = None
     """Rank 0 of ``mesh`` (a :class:`MeshShape`, or anything with
     ``shape``) as a :class:`ModelGrid` of counting groups noting in one
     ``ledger``: the model axis as it is, "pod" x "data" folded into the
-    data axis."""
+    data axis; a 2-D weight's gather over "data" alone, its gradient then
+    summed over "pod" (:class:`ModelGrid`)."""
     ledger = ledger or CollectiveLedger()
     shape = dict(mesh.shape)
-    data = shape.get("pod", 1) * shape.get("data", 1)
+    pods = shape.get("pod", 1)
+    data = pods * shape.get("data", 1)
     return _CountingModelGrid(
         data=_CountingModelGroup(data, 0, ledger=ledger),
         model=_CountingModelGroup(shape.get("model", 1), 0, ledger=ledger),
+        wdata=_CountingModelGroup(shape.get("data", 1), 0, ledger=ledger)
+        if pods > 1 else None,
+        pod=_CountingModelGroup(pods, 0, ledger=ledger) if pods > 1
+        else None,
         mesh_shape=shape)

@@ -29,16 +29,30 @@ Where the port's layout differs from the reference's:
   forward at model > 1, and their cache raises there as their model does.
 * ``opt_state``: the specs are the reference's ZeRO-1 specs
   (``train/optimizer.opt_state_specs``) over the state of the full
-  parameters.  The structs are what a rank of the sharded train step
-  holds (``train/zero.py``): the state of its ZeRO block of its
-  parameter's block, the block as ``params`` above gives it (a ``wk`` /
-  ``wv`` leaf's whole KV heads included), split over the data axis on the
-  first dim the spec leaves unsplit that divides by the data size
-  (``zero1_extend_spec``'s rule).  The data axis is every batch axis
-  folded, as ``launch/mesh.counting_grid`` folds it (pod × data on two
-  pods, where the reference's specs split over "data" alone).  AdamW's m
-  and v have the ZeRO block's shape; Adafactor's factors are those of
-  the ZeRO block, of the whole parameter's factoring.
+  parameters, an Adafactor state over the reference's stacked ones (its
+  ``adafactor_init`` of ``params["layers"]`` stacked on the layer axis:
+  one state per group, ``f["layers.ln1.scale"]``).  The structs are what
+  a rank of the sharded train step holds (``train/zero.py``): the state
+  of its ZeRO block of its parameter's block, the block as ``params``
+  above gives it (a ``wk`` / ``wv`` leaf's whole KV heads included),
+  split over the data axis on the first dim the spec leaves unsplit that
+  divides by the data size (``zero1_extend_spec``'s rule).  The data axis
+  is every batch axis folded, as ``launch/mesh.counting_grid`` folds it
+  (pod × data on two pods, where the reference's specs split over "data"
+  alone).  AdamW's m and v have the ZeRO block's shape; Adafactor's
+  factors are those of a group's layers' ZeRO blocks stacked, of the
+  whole stacked parameter's factoring.
+* two-dimensional weights (``two_d_weights``, the giant models:
+  ``is_giant``): ``params`` are the block of both axes, each weight's
+  d_model dim split over "data" as the reference's specs say; a rank
+  gathers a weight whole over "data" where it uses it
+  (``launch/mesh.ModelGrid.weight``).  On two pods the reference splits
+  ``w_embed`` over "data" alone (16 ranks) and the batch over ("pod",
+  "data") (32), and so does the port: the gather runs over a pod's 16
+  data ranks, and the gradient, reduce-scattered over them, is then
+  summed over the pods in order.  Such a block spends its "data" on the
+  spec, so it gets no ZeRO split: its state is that of the whole block,
+  held alike on both pods.
 """
 
 from __future__ import annotations

@@ -28,7 +28,10 @@ runs the sharded step with ZeRO-1 state (``train/zero.py``).  On the CPU:
 (under ``torchrun``, when its caller has made no process group, ``main``
 joins a gloo one over torchrun's rendezvous; a caller that wants another
 backend, NCCL across cards, initializes the group before calling
-``main``).
+``main``).  The rules are ``launch.specs.rules_for``'s for the config
+(train): a giant model's weights are 2-D, each one's d_model dim split
+over "data" too, whenever ``is_giant(cfg, M)`` holds, and then the
+sharded step runs also at ``--model 1`` (never the replicating DDP step).
 
 Checkpoints are a one-rank run's tree at any grid: rank 0 writes every
 leaf whole, gathered leaf by leaf (``train/zero.full_tree``), and a rank
@@ -56,8 +59,9 @@ from ..data.pipeline import Prefetcher, SyntheticLM
 from ..device import resolve
 from ..launch.elastic import ElasticCoordinator
 from ..launch.mesh import graph_group, model_grid
+from ..launch.specs import is_giant, rules_for
 from ..train import zero
-from ..train.optimizer import OptHyper
+from ..train.optimizer import OptHyper, stack_key
 from ..train.step import init_train_state, make_ddp_step, make_train_step
 
 __all__ = ["main", "train_state_tree", "save_train_state",
@@ -101,11 +105,22 @@ def load_train_state(ckpt_dir: str, model, opt_state, cfg,
     """Restore ``model``'s parameters and ``opt_state`` in place from the
     newest checkpoint (or ``step``); returns its step.  Over ranks each
     rank keeps its pieces of each leaf.  Raises ``ValueError`` when the
-    checkpoint was written for another config."""
+    checkpoint was written for another config, or holds Adafactor state
+    per layer (the layout before the state was the stacked
+    parameters')."""
     step, info = read_manifest(ckpt_dir, step)
     if info["meta"].get("config") != config_hash(cfg):
         raise ValueError(f"checkpoint config mismatch: step {step} in "
                          f"{ckpt_dir}")
+    per_layer = [k for k in info["leaves"] if k.startswith("opt/f/") and
+                 stack_key(k.split("/")[2])[1]]
+    if per_layer:
+        raise ValueError(
+            f"step {step} in {ckpt_dir} holds Adafactor state per layer "
+            f"({per_layer[0]}, ...): it was written before the optimizer "
+            f"factored the reference's stacked layers, and its factors are "
+            f"not the stacked parameters' (a norm's (layers, d) factors, "
+            f"one update RMS over every layer), so it cannot be loaded")
     like = zero.block_sinks(model, opt_state) if _sharded(model) else \
         train_state_tree(model, opt_state)
     start, _, _ = load_checkpoint(ckpt_dir, like, step, inplace=True)
@@ -146,7 +161,13 @@ def main(argv: Optional[list] = None) -> None:
 
 def _train(args) -> None:
     world = _world()
-    if args.model > 1:
+    cfg = cfgbase.get_config(args.arch)
+    if args.reduced:
+        cfg = cfgbase.reduced(cfg)
+    # rules_for's weights are 2-D for a giant model: the grid's step holds
+    # them so at any model degree
+    grid_step = args.model > 1 or (world > 1 and is_giant(cfg, args.model))
+    if grid_step:
         data = args.data or max(world // args.model, 1)
         if data * args.model != world:
             raise ValueError(f"--data {data} --model {args.model} needs "
@@ -157,20 +178,23 @@ def _train(args) -> None:
                          f"{world} rank(s): the data-parallel degree is the "
                          f"group's size")
     dev = resolve(args.device)
-    cfg = cfgbase.get_config(args.arch)
-    if args.reduced:
-        cfg = cfgbase.reduced(cfg)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     hyper = OptHyper(lr=args.lr)
     chunk = min(1024, args.seq)
     rows = (0, 1)
-    if args.model > 1:
+    if grid_step:
         grid = model_grid(data, args.model)
-        model, opt_state = init_train_state(cfg, gen, device=dev, grid=grid)
+        model, opt_state = init_train_state(
+            cfg, gen, device=dev, grid=grid,
+            rules=rules_for(cfg, grid, "train"))
         step_fn = make_train_step(cfg, hyper, attn_chunk=chunk)
         rank = grid.data.rank * grid.model.d + grid.model.rank
         rows = (grid.data.rank, grid.data.d)
+        if rank == 0:
+            two_d = any(hasattr(p, "data_dim") for p in model.parameters())
+            print(f"[train] grid data={data} model={args.model}, weights "
+                  f"{'2-D' if two_d else '1-D'}")
     elif world > 1:
         model, opt_state = init_train_state(cfg, gen, device=dev)
         group = graph_group(world)
@@ -209,9 +233,9 @@ def _train(args) -> None:
                           f"({dt:.2f}s/5)")
             coord.heartbeat(rank, time.perf_counter() - t_step)
             if args.ckpt_dir and (i + 1) % args.ckpt_every == 0 and \
-                    (rank == 0 or args.model > 1):
+                    (rank == 0 or grid_step):
                 save_train_state(args.ckpt_dir, i + 1, model, opt_state, cfg)
-        if args.ckpt_dir and (rank == 0 or args.model > 1):
+        if args.ckpt_dir and (rank == 0 or grid_step):
             save_train_state(args.ckpt_dir, args.steps, model, opt_state,
                              cfg)
     finally:

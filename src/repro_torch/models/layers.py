@@ -23,6 +23,14 @@ each column-parallel product's input passes ``group.enter`` (backward:
 the ranks' input gradients summed) and each row-parallel output
 ``group.psum`` (backward: the identity), Megatron's pair, so the sharded
 forward trains (``launch/mesh.ModelGroup``).
+
+Weights split over "data" too (``two_d_weights``, the giant models): a
+parameter whose spec puts a dim on a data axis of more than one rank also
+carries ``data_dim`` (that dim) and ``data_grid`` (the grid), and every
+apply reads it through :func:`weight`, which gathers it whole on that dim
+where it is used (ZeRO-3's gather, ``launch/mesh.ModelGrid.weight``) and
+frees it after; the norms and whatever else the rules replicate carry
+neither and are read as they are.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from torch import nn
 
 __all__ = ["dtype_of", "Dense", "Norm", "Embed", "MLP", "dense",
            "norm_apply", "embed_apply", "unembed_apply", "mlp_apply",
-           "full_shape", "fill_normal_"]
+           "full_shape", "fill_normal_", "weight"]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -52,6 +60,16 @@ def full_shape(p: torch.Tensor) -> tuple:
     """``p``'s unsharded shape (its own shape unless it is a rank's
     block)."""
     return getattr(p, "full_shape", tuple(p.shape))
+
+
+def weight(p: torch.Tensor, dtype) -> torch.Tensor:
+    """Parameter ``p`` as an apply reads it, in ``dtype``: gathered whole on
+    its ``data_dim`` over the data ranks when it carries one (module
+    docstring)."""
+    grid = getattr(p, "data_grid", None)
+    if grid is None:
+        return p.to(dtype)
+    return grid.weight(p, p.data_dim, dtype)
 
 
 def fill_normal_(p: torch.Tensor, generator: torch.Generator,
@@ -87,9 +105,9 @@ class Dense(nn.Module):
 
 
 def dense(p: Dense, x: torch.Tensor, compute_dtype) -> torch.Tensor:
-    y = torch.matmul(x.to(compute_dtype), p.w.to(compute_dtype))
+    y = torch.matmul(x.to(compute_dtype), weight(p.w, compute_dtype))
     if p.b is not None:
-        y = y + p.b.to(compute_dtype)
+        y = y + weight(p.b, compute_dtype)
     return y
 
 
@@ -165,12 +183,13 @@ def embed_apply(p: Embed, tokens: torch.Tensor, compute_dtype) -> torch.Tensor:
     """Token rows; vocab-parallel, each rank looks up the ids in its range
     (the others give zeros) and the group sums: one rank's row plus zeros,
     exact."""
+    table = weight(p.table, p.table.dtype)    # the whole d of the rows
     if p.group is None:
         # rows cast after the lookup: the same numbers as casting the table
-        return F.embedding(tokens.long(), p.table).to(compute_dtype)
+        return F.embedding(tokens.long(), table).to(compute_dtype)
     ids = tokens.long() - p.lo
-    mine = (ids >= 0) & (ids < p.table.shape[0])
-    rows = F.embedding(torch.where(mine, ids, 0), p.table)
+    mine = (ids >= 0) & (ids < table.shape[0])
+    rows = F.embedding(torch.where(mine, ids, 0), table)
     rows = rows * mine[..., None].to(rows.dtype)
     return p.group.psum(rows.to(compute_dtype))
 
@@ -182,7 +201,7 @@ def unembed_apply(p: Embed, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     gradient, and the group's sum of ``x``'s)."""
     if p.group is not None:
         x = p.group.enter(x)
-    y = torch.matmul(x.to(compute_dtype), p.table.to(compute_dtype).t())
+    y = torch.matmul(x.to(compute_dtype), weight(p.table, compute_dtype).t())
     return y if p.group is None else p.group.all_gather_dim(y, -1)
 
 

@@ -64,10 +64,11 @@ router is whole on every rank but each rank's gradient of it is partial
 (its combine weighs only its own experts' gates), so the train step sums
 it over the model group (``models/transformer.grad_members``).
 
-The expert weights' d_model dim is never split here: a model whose rules
-put it on a data axis of more than one rank raises at construction
-(``models/transformer.py``).  The ``shard(...)`` annotations are dropped,
-as in the dense port.
+Where the rules put the weights' d_model dim on "data" (``two_d_weights``),
+the router and the expert weights are read through ``layers.weight``,
+which gathers each whole on that dim where it is used, under either
+layout (experts on "model", or ``expert_ff`` on "model").  The
+``shard(...)`` annotations are dropped, as in the dense port.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dense, _empty, fill_normal_, full_shape
+from .layers import Dense, _empty, fill_normal_, full_shape, weight
 
 __all__ = ["MoE", "Routing", "ExpertShard", "capacity", "tp_capacity",
            "route", "moe_apply", "moe_apply_sorted", "moe_apply_expert_tp",
@@ -174,7 +175,8 @@ def route(p: MoE, x: torch.Tensor, cfg, cap: Optional[int] = None
     t = b * s
     cap = capacity(t, cfg) if cap is None else cap
     dev = x.device
-    logits = torch.matmul(x.reshape(t, d).float(), p.router.w)     # (T, E)
+    logits = torch.matmul(x.reshape(t, d).float(),
+                          weight(p.router.w, torch.float32))      # (T, E)
     probs = torch.softmax(logits, dim=-1)
     # top-k as lax.top_k orders it: ties to the lower index
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -215,12 +217,12 @@ def _expert_outputs(p: MoE, xf: torch.Tensor, r: Routing, lo: int
     n = p.wi.shape[0]
     tok, valid = r.bucket_tok[lo:lo + n], r.bucket_valid[lo:lo + n]
     xe = xf[tok] * valid[..., None].to(compute)                   # (n, C, d)
-    h = torch.bmm(xe, p.wi.to(compute))
+    h = torch.bmm(xe, weight(p.wi, compute))
     if p.wg is not None:
-        h = F.silu(torch.bmm(xe, p.wg.to(compute))) * h
+        h = F.silu(torch.bmm(xe, weight(p.wg, compute))) * h
     else:
         h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
-    return torch.bmm(h, p.wo.to(compute))
+    return torch.bmm(h, weight(p.wo, compute))
 
 
 def _combine(ye: torch.Tensor, r: Routing, lo: int, t: int, k: int

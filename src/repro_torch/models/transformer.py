@@ -63,11 +63,17 @@ unsharded order and keeps the rank's block, one tensor at a time, and
 together hold the unsharded model's numbers.  ``forward_train`` runs over
 ranks: the collectives carry the gradients (``launch/mesh.ModelGroup``),
 and :func:`grad_members` names the blocks whose gradient the train step
-sums over model ranks (``train/zero.py``).  Not sharded (they raise):
-the ssm, audio, vlm and hybrid families over more than one rank, weights
-whose d_model dim the rules put on a data axis of more than one rank
-(``two_d_weights``), and heads that do not split into whole heads over the
-model ranks (qwen1.5-4b's 20 over 16); ``ROADMAP.md Queue 1 item 15
+sums over model ranks (``train/zero.py``).  Weights whose d_model dim the
+rules put on "data" (``two_d_weights``, the giant models) are split over
+the data ranks too: a rank holds the block of both axes, and each apply
+gathers the weight whole on that dim over the data ranks where it is used
+(ZeRO-3's gather: ``models/layers.weight``), in the forward, in prefill
+and decode at every call, and again in the backward; its gradient is
+reduce-scattered back to the block.  A 2-D block is held by one data
+rank (of each pod) only; the norms and the router's replicas stay whole.
+Not sharded (they raise): the ssm, audio, vlm and hybrid families over
+more than one rank, and heads that do not split into whole heads over
+the model ranks (qwen1.5-4b's 20 over 16); ``ROADMAP.md Queue 1 item 15
 (b)``.
 
 The cache keeps the reference's layout: ``{"attn": {"k", "v"}}`` with
@@ -442,11 +448,6 @@ class Transformer(nn.Module):
         if group is not None:
             from ..launch.specs import rules_for
             self.rules = rules or rules_for(cfg, group, "prefill")
-            if self.rules.mapping.get("w_embed") is not None and \
-                    group.data.d > 1:
-                raise NotImplementedError(
-                    f"{cfg.name}: weights split over the data axis "
-                    f"(two_d_weights) at data = {group.data.d}: {ITEM} (b)")
         w = _widths(cfg, group, self.rules)
         self.kv_heads = w.kv_heads
         self.embed = nn.ModuleDict({"tok": Embed(
@@ -474,15 +475,28 @@ class Transformer(nn.Module):
 
     def _hold_blocks(self, blocks) -> None:
         """Give each parameter its ``full_shape`` and ``keep``
-        (``param_blocks``), checking that its shape is the block's."""
+        (``param_blocks``), checking that its shape is the block's; a
+        parameter whose spec splits a dim over a data axis of more than
+        one rank also its ``data_dim`` and ``data_grid``
+        (``models/layers.weight`` gathers it where it is used)."""
+        two_d = self.grid.weight_data.d > 1
         for name, p in self.named_parameters():
-            full, _, keep = blocks[name]
+            full, spec, keep = blocks[name]
             want = tuple(keep(full).shape)
+            ddim = next((i for i, e in enumerate(spec)
+                         if "data" in sharding._axes(e)), None) \
+                if two_d else None
+            if ddim is not None:    # the modules hold a weight's whole d
+                p.data = torch.empty(want, dtype=p.dtype, device=p.device)
+                p.data_dim, p.data_grid = ddim, self.grid
+                self.two_d = True
             if tuple(p.shape) != want:
                 raise ValueError(f"{name}: this rank holds {tuple(p.shape)}, "
                                  f"its block is {want} of "
                                  f"{tuple(full.shape)}")
             p.full_shape, p.keep = tuple(full.shape), keep
+
+    two_d = False   # some weight is split over "data" (``_hold_blocks``)
 
     # -- parameters ---------------------------------------------------------
 
@@ -684,12 +698,19 @@ class Transformer(nn.Module):
         per ``cfg.remat``; the same numbers.  Over ranks the collectives
         carry the gradients (``launch/mesh.ModelGroup``), and a
         recompute calls its forward collectives again, in the same order
-        on every rank."""
+        on every rank.  Weights split over "data" are gathered where they
+        are used and, under any ``remat``, not kept for the backward,
+        which gathers them again (``launch/mesh.regather_saved``)."""
         if self.cfg.remat not in REMAT:
             raise ValueError(f"unknown remat {self.cfg.remat!r}; want one of "
                              f"{REMAT}")
-        return self._forward(batch, chunk, skip_upper_triangle,
-                             self.cfg.remat)
+        if not self.two_d:
+            return self._forward(batch, chunk, skip_upper_triangle,
+                                 self.cfg.remat)
+        from ..launch.mesh import regather_saved
+        with regather_saved():
+            return self._forward(batch, chunk, skip_upper_triangle,
+                                 self.cfg.remat)
 
     def loss_fn(self, batch: Dict[str, torch.Tensor], chunk: int = 1024,
                 skip_upper_triangle: bool = True
@@ -906,7 +927,9 @@ def model_holders(cfg, name: str, spec: tuple, m: int, r: int
     ``name`` as rank ``r``, in order: all of them for a parameter whole on
     every rank (``spec`` names no "model"), the ranks that read the same
     KV heads for a ``wk`` / ``wv`` leaf whose heads do not split
-    (:func:`param_blocks`), else ``r`` alone."""
+    (:func:`param_blocks`), else ``r`` alone.  Over "data" a block is held
+    by every data rank, but one the spec splits over "data" (a 2-D
+    weight) by its own data rank only (``train/zero.Leaf.d_owner``)."""
     if not any("model" in sharding._axes(e) for e in spec):
         return tuple(range(m))
     if m > 1 and _kv_leaf(name) and cfg.n_kv_heads % m:

@@ -40,6 +40,12 @@ class Engine:
     gives the same numbers without a cast per step.  After each
     :meth:`generate`, ``stats`` holds its host-clock seconds (each read
     after a device sync) and ``last_logits`` the last step's logits.
+
+    A model over a grid serves this rank's data shard's prompts; every
+    rank of the grid calls :meth:`generate` with the same budget, since a
+    prefill and each decode step run the model's collectives (with 2-D
+    weights, the gathers of every layer's weights over "data": every
+    data rank runs as many steps).
     """
 
     def __init__(self, cfg, model, scfg: ServeConfig,

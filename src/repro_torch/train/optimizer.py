@@ -9,7 +9,16 @@ hyper)`` writes the new values into ``params`` and ``state`` in place
 reference's, float32 scalars included, not ``torch.optim``'s variants.
 
 Adafactor (factored second moments, Shazeer & Stern 2018) keeps a row and
-a column factor per matrix instead of Adam's two full moments.
+a column factor per matrix instead of Adam's two full moments.  It sees
+the parameters as the reference's pytree stacks them: the per-layer
+leaves of one path (``layers.<i>.ln1.scale`` for every i) form one
+stacked parameter (:func:`stack_groups`), whose factoring and update RMS
+are the reference's.  Its state is therefore keyed by group, not by
+parameter: ``state["f"]["layers.ln1.scale"]`` holds the factors of the
+(n_layers, d) stacked scale (a row factor (n_layers,) and a column factor
+(d,)); a stacked matrix (L, a, b) has factors (L, a) and (L, b); a leaf
+that is not stacked (``embed.tok.table``) is a group of one under its own
+name.  AdamW is elementwise and keeps one m and v per parameter.
 
 ``zero1_extend_spec`` / ``opt_state_specs`` are the reference's ZeRO-1
 specs of the optimizer state (``launch/sharding.py``'s spec tuples over
@@ -23,13 +32,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 __all__ = ["OptHyper", "global_norm", "clip_by_global_norm", "adamw_init",
            "adamw_update", "adafactor_init", "adafactor_leaf",
-           "adafactor_update", "Means", "Optimizer",
+           "adafactor_update", "stack_key", "stack_groups", "Means",
+           "Optimizer",
            "get_optimizer", "zero1_extend_spec", "opt_state_specs"]
 
 Tensors = Dict[str, torch.Tensor]
@@ -130,23 +140,67 @@ def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
 
 
-def adafactor_leaf(p: torch.Tensor, factored: bool) -> Tensors:
-    """One parameter's zero Adafactor state: its row and column factors,
-    or a full second moment."""
-    z = dict(dtype=torch.float32, device=p.device)
+def stack_key(name: str) -> Tuple[str, Tuple[int, ...]]:
+    """A parameter's place in the reference's stacked pytree: its path
+    without the layer indices (``layers.3.mamba.1.in_proj.w`` ->
+    ``layers.mamba.in_proj.w``) and those indices ((3, 1)); () for a leaf
+    that is not stacked."""
+    parts = name.split(".")
+    return (".".join(p for p in parts if not p.isdigit()),
+            tuple(int(p) for p in parts if p.isdigit()))
+
+
+def stack_groups(names) -> Dict[str, Tuple[Tuple[int, ...],
+                                           List[Tuple[Tuple[int, ...], str]]]]:
+    """``{group key: (stack shape, [(index, name), ...] in index order)}``:
+    the per-layer parameters ``names`` grouped as the reference's pytree
+    stacks them (``layers.<i>.``, ``enc.layers.<i>.``, and a hybrid
+    period's inner ``mamba.<j>.`` / ``moe.<j>.`` / ``mlp.<j>.``).  A
+    parameter that is not stacked is a group of one, stack shape ()."""
+    groups: Dict[str, List[Tuple[Tuple[int, ...], str]]] = {}
+    for name in names:
+        key, idx = stack_key(name)
+        groups.setdefault(key, []).append((idx, name))
+    out = {}
+    for key, members in groups.items():
+        members.sort()
+        stack = tuple(max(ix[a] for ix, _ in members) + 1
+                      for a in range(len(members[0][0])))
+        if math.prod(stack) != len(members):
+            raise ValueError(f"{key}: {len(members)} leaves do not fill a "
+                             f"{stack} stack")
+        out[key] = (stack, members)
+    return out
+
+
+def adafactor_leaf(stack: Tuple[int, ...], block: Tuple[int, ...],
+                   factored: bool, device=None) -> Tensors:
+    """One group's zero Adafactor state: the row and column factors, or a
+    full second moment, of a ``stack + block`` parameter (``block``: the
+    held piece of each stacked leaf; ``factored``: the whole stacked
+    parameter's factoring)."""
+    z = dict(dtype=torch.float32, device=device)
+    shape = tuple(stack) + tuple(block)
     if factored:
-        return {"vr": torch.zeros(p.shape[:-1], **z),
-                "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
-    return {"v": torch.zeros(p.shape, **z)}
+        return {"vr": torch.zeros(shape[:-1], **z),
+                "vc": torch.zeros(shape[:-2] + shape[-1:], **z)}
+    return {"v": torch.zeros(shape, **z)}
 
 
 def adafactor_init(params: Tensors) -> Dict[str, Dict[str, Tensors]]:
-    return {"f": {k: adafactor_leaf(p, _factored(p.shape))
-                  for k, p in params.items()}}
+    """The reference's state of the stacked parameters: ``{"f": {group
+    key: factors}}`` (:func:`stack_groups`)."""
+    out = {}
+    for key, (stack, members) in stack_groups(params).items():
+        p = params[members[0][1]]
+        out[key] = adafactor_leaf(stack, tuple(p.shape),
+                                  _factored(stack + tuple(p.shape)),
+                                  p.device)
+    return {"f": out}
 
 
 class Means:
-    """The means Adafactor takes over a whole parameter ``k``, given the
+    """The sums Adafactor takes over a whole parameter ``k``, given the
     tensor it holds: here the parameter itself.  ``train/zero.py``'s
     subclass holds a block and adds the other ranks' partial sums."""
 
@@ -154,54 +208,118 @@ class Means:
         """The whole parameter's shape."""
         return tuple(p.shape)
 
-    def rows(self, k: str, x: torch.Tensor) -> torch.Tensor:
-        """Mean over the parameter's last dim."""
-        return torch.mean(x, dim=-1)
+    def total(self, k: str, part: torch.Tensor, dims) -> torch.Tensor:
+        """``part``, the held block's sum over the parameter's ``dims``
+        (with any leading dims), summed over every piece of the
+        parameter."""
+        return part
 
-    def cols(self, k: str, x: torch.Tensor) -> torch.Tensor:
-        """Mean over its second-to-last dim."""
-        return torch.mean(x, dim=-2)
 
-    def rows_of_vr(self, k: str, vr: torch.Tensor) -> torch.Tensor:
-        """Mean of the row factor over its last dim (the parameter's
-        second-to-last), keeping it."""
-        return torch.mean(vr, dim=-1, keepdim=True)
+#: the float32 bytes of gradient one stacked pass of Adafactor takes at
+#: once: a group's layers go in stacks of this size, a large layer alone
+STACK_BYTES = 1 << 28
 
-    def all(self, k: str, x: torch.Tensor) -> torch.Tensor:
-        """Mean over every element."""
-        return torch.mean(x)
+
+def _stacked_update(ps, gs, s, stack, full, means: Means, key: str, rho,
+                    h: OptHyper) -> None:
+    """One group's Adafactor step (:func:`adafactor_update`), in place:
+    ``ps`` / ``gs`` its layers' held blocks and float32 gradients in index
+    order, ``s`` its state, ``full`` one layer's whole shape.  The layers
+    go through in stacks of at most :data:`STACK_BYTES` (the update made
+    twice, once for its RMS, rather than held for the whole group)."""
+    n, k, nl = len(gs), len(stack), len(full)
+    shape = tuple(stack) + tuple(full)
+    per = max(1, STACK_BYTES // max(4 * gs[0].numel(), 1))
+    spans = [(a, min(a + per, n)) for a in range(0, n, per)]
+
+    def layers(ts, a, b):
+        return ts[a][None] if b == a + 1 else torch.stack(ts[a:b])
+
+    def flat(t, keep):      # the state with one leading layer axis
+        return t.view((n,) + t.shape[keep:])
+
+    if _factored(shape) and nl >= 2:
+        rows = torch.empty(flat(s["vr"], k).shape, device=gs[0].device)
+        cols = torch.empty(flat(s["vc"], k).shape, device=gs[0].device)
+        for a, b in spans:
+            g2 = layers(gs, a, b) ** 2 + h.epsilon1
+            rows[a:b] = g2.sum(-1)
+            cols[a:b] = g2.sum(-2)
+        vr = rho * flat(s["vr"], k) + (1 - rho) * means.total(
+            key, rows, (nl - 1,)) / full[-1]
+        vc = rho * flat(s["vc"], k) + (1 - rho) * means.total(
+            key, cols, (nl - 2,)) / full[-2]
+        rmean = means.total(key, vr.sum(-1, keepdim=True), (nl - 2,)) \
+            / full[-2]
+        r_sqrt = torch.sqrt(vr / torch.clamp(rmean, min=h.epsilon1))
+        c_sqrt = torch.sqrt(vc)
+
+        def update(a, b):
+            return layers(gs, a, b) / (r_sqrt[a:b, ..., None]
+                                       * c_sqrt[a:b, ..., None, :]
+                                       + h.epsilon2)
+        flat(s["vr"], k).copy_(vr)
+        flat(s["vc"], k).copy_(vc)
+    elif _factored(shape):      # a stacked vector: factors across layers
+        if nl != 1:
+            raise NotImplementedError(f"{key}: a stacked scalar {shape}; no "
+                                      f"parameter of the port is one")
+        g2 = torch.stack(gs) ** 2 + h.epsilon1                  # (n, b)
+        vr = rho * s["vr"] + (1 - rho) * means.total(
+            key, g2.sum(-1).view(stack), (0,)) / full[0]
+        vc = rho * s["vc"] + (1 - rho) * g2.view(stack + gs[0].shape) \
+            .sum(k - 1) / stack[-1]
+        rfac = vr / torch.clamp(vr.mean(-1, keepdim=True), min=h.epsilon1)
+        r_sqrt = torch.sqrt(rfac).reshape(n, 1)
+        c_sqrt = torch.sqrt(vc)[..., None, :].expand(stack + gs[0].shape) \
+            .reshape(n, -1)
+
+        def update(a, b):
+            return layers(gs, a, b) / (r_sqrt[a:b] * c_sqrt[a:b]
+                                       + h.epsilon2)
+        s["vr"].copy_(vr)
+        s["vc"].copy_(vc)
+    else:
+        v = flat(s["v"], k)
+        for a, b in spans:
+            v[a:b] = rho * v[a:b] + (1 - rho) * (layers(gs, a, b) ** 2
+                                                 + h.epsilon1)
+
+        def update(a, b):
+            return layers(gs, a, b) / (torch.sqrt(v[a:b]) + h.epsilon2)
+    # the update's RMS over every layer at once
+    sq = sum(torch.sum(torch.square(update(a, b))) for a, b in spans)
+    rms = torch.sqrt(means.total(key, sq, tuple(range(nl)))
+                     / math.prod(shape) + h.epsilon1)
+    scale = torch.clamp(rms, min=1.0)
+    for a, b in spans:      # p - lr·(u / scale) - lr·wd·p, in that order
+        pf = layers(ps, a, b).float()
+        new = update(a, b).div_(scale).mul_(h.lr)
+        torch.sub(pf, new, out=new)
+        new = new.sub_(pf * (h.lr * h.weight_decay)).to(ps[a].dtype)
+        for i in range(a, b):
+            ps[i].copy_(new[i - a])
 
 
 @torch.no_grad()
 def adafactor_update(params: Tensors, grads: Tensors, state, step: int,
                      h: OptHyper, means: Optional[Means] = None):
-    """One Adafactor step with update clipping (RMS <= 1); ``means`` (a
-    :class:`Means`) takes the row, column and RMS means over each whole
+    """One Adafactor step with update clipping (RMS <= 1) of the stacked
+    parameters (:func:`stack_groups`), as the reference takes it over its
+    pytree: a stacked norm (L, d) is factored, a stacked matrix's row and
+    column factors are its layers', and the update's RMS is one over every
+    layer.  ``means`` (a :class:`Means`) adds the sums over each whole
     parameter."""
     means = means or Means()
     any_p = next(iter(params.values()))
     t = _step(step, any_p) + 1.0
     rho = 1.0 - t ** (-h.decay_rate)
-    for k, p in params.items():
-        g = grads[k].float()
-        s = state["f"][k]
-        g2 = g * g + h.epsilon1
-        if _factored(means.shape(k, p)):
-            vr = rho * s["vr"] + (1 - rho) * means.rows(k, g2)
-            vc = rho * s["vc"] + (1 - rho) * means.cols(k, g2)
-            rfac = vr / torch.clamp(means.rows_of_vr(k, vr), min=h.epsilon1)
-            update = g / (torch.sqrt(rfac)[..., None]
-                          * torch.sqrt(vc)[..., None, :] + h.epsilon2)
-            s["vr"].copy_(vr)
-            s["vc"].copy_(vc)
-        else:
-            v = rho * s["v"] + (1 - rho) * g2
-            update = g / (torch.sqrt(v) + h.epsilon2)
-            s["v"].copy_(v)
-        rms = torch.sqrt(means.all(k, torch.square(update)) + h.epsilon1)
-        update = update / torch.clamp(rms, min=1.0)
-        pf = p.float()
-        p.copy_((pf - h.lr * update - h.lr * h.weight_decay * pf).to(p.dtype))
+    for key, (stack, members) in stack_groups(params).items():
+        names = [n for _, n in members]
+        _stacked_update([params[n] for n in names],
+                        [grads[n].float() for n in names], state["f"][key],
+                        stack, means.shape(names[0], params[names[0]]),
+                        means, names[0], rho, h)
     return params, state
 
 

@@ -69,13 +69,14 @@ def make_train_step(cfg, hyper: OptHyper = OptHyper(), *,
 
 
 def init_train_state(cfg, generator: Optional[torch.Generator] = None,
-                     device: DeviceLike = None, grid=None):
+                     device: DeviceLike = None, grid=None, rules=None):
     """(model with random weights from ``generator``, optimizer state).
     Over ``grid`` (a ``launch.mesh.ModelGrid``): the rank's blocks of the
-    one-rank model's weights, and the state of its ZeRO blocks
+    one-rank model's weights under ``rules`` (default: ``launch.specs.
+    rules_for``'s), and the state of its ZeRO blocks
     (``train/zero.init_state``)."""
     model = Transformer.init_params(cfg, generator, device=device,
-                                    group=grid)
+                                    group=grid, rules=rules)
     if _sharded(model):
         return model, zero.init_state(cfg.optimizer, model)
     opt = get_optimizer(cfg.optimizer)

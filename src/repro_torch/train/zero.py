@@ -15,6 +15,12 @@ only, ZeRO-1.  Each parameter's layout is a :class:`Leaf`:
   data size.  The data size is the grid's data axis, all batch axes
   folded (on two pods, pod × data: 32).  None: every data rank holds the
   whole block's state;
+* ``ddim``: the dim the spec itself splits over "data" (``two_d_weights``:
+  a weight's d_model dim, over the "data" axis of one pod, ``wd`` ranks);
+  such a block is the rank's own, so it has no ``zdim``, and its gradient
+  arrives reduced over the data ranks by the forward's weight gather
+  (``launch/mesh.ModelGrid.weight``), in float32 in
+  ``reduced_grad``;
 * ``mdim``: the dim split over "model" (None: whole on every model rank);
   ``holders``: the model ranks holding the same block (all of them for a
   whole parameter, the ranks sharing a KV head for a ``wk`` / ``wv`` leaf
@@ -31,28 +37,34 @@ only, ZeRO-1.  Each parameter's layout is a :class:`Leaf`:
    a rank receives the other data ranks' parts of its own ZeRO block,
    (d − 1)/d of a gradient, adds them in rank order and divides by the
    data size (a leaf with no ``zdim``: the whole gradient, summed the same
-   way);
+   way; a ``ddim`` leaf: already done by the weight gather's backward);
 3. clipping by the global norm of the whole gradient: each rank's sum of
    squares over its blocks, a block that several ranks hold counted by the
    first of them only, summed over "model" then over "data" in rank order;
 4. the optimizer's update of the ZeRO block of the parameter, in place,
-   and of its state: AdamW elementwise; Adafactor's row, column and RMS
-   means over the whole parameter, from partial sums over the ranks that
-   hold its pieces, in rank order (:class:`BlockMeans`); the reference's
-   formulas, float32 scalars included (``train/optimizer.py``);
-5. the updated blocks all-gathered over "data".
+   and of its state: AdamW elementwise; Adafactor over the reference's
+   stacked parameters (``train/optimizer.stack_groups``: a group's layers
+   are all on the rank), its row, column and RMS means over the whole
+   stacked parameter, from partial sums over its layers and over the
+   ranks that hold its pieces, in rank order (:class:`BlockMeans`); the
+   reference's formulas, float32 scalars included
+   (``train/optimizer.py``);
+5. the updated blocks all-gathered over "data" (a ``ddim`` block is the
+   rank's own: nothing to gather).
 
 Every rank then holds the same bits in what it shares with another: the
 norms, the router, a shared KV head's columns, and a block's data
 replicas.  The state's layout is step 0's, :func:`init_state`'s, the
-structs of ``launch/specs.opt_structs``.  :func:`full_tree` and
+structs of ``launch/specs.opt_structs``: AdamW's m and v per parameter,
+the ZeRO block's shape; Adafactor's per stacked group (``f[key]``), the
+factors of the group's stack of ZeRO blocks, of the whole stacked
+parameter's factoring.  :func:`full_tree` and
 :func:`block_sinks` gather and cut the checkpoint's leaves, which are a
 one-rank run's (``launch/train.py``).
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -63,7 +75,7 @@ from ..launch.sharding import _axes
 from ..models.transformer import grad_members, model_holders, param_blocks
 from .optimizer import (Means, OptHyper, _factored, adafactor_leaf,
                         adafactor_update, adamw_init, adamw_update,
-                        clip_by_global_norm, zero1_extend_spec)
+                        clip_by_global_norm, stack_groups, zero1_extend_spec)
 
 __all__ = ["Leaf", "layout_for", "layout", "init_state", "state_structs",
            "BlockMeans", "apply_gradients", "train_step", "full_tree",
@@ -84,6 +96,9 @@ class Leaf:
     m_rank: int
     d_rank: int
     d: int
+    ddim: Optional[int] = None
+    w_rank: int = 0
+    wd: int = 1
 
     @property
     def m_owner(self) -> bool:
@@ -93,7 +108,10 @@ class Leaf:
     @property
     def d_owner(self) -> bool:
         """This rank's block of the state is its own (not a data replica's
-        copy)."""
+        copy): a ZeRO block, a 2-D block on the first pod (the folded data
+        index is pod · wd + data), or a whole block on data rank 0."""
+        if self.ddim is not None:
+            return self.d_rank < self.wd
         return self.zdim is not None or self.d_rank == 0
 
     def zblock(self, t: torch.Tensor) -> torch.Tensor:
@@ -110,7 +128,8 @@ def _mrange(full: torch.Tensor, block: torch.Tensor, mdim) -> Tuple[int, int]:
     ``mdim``, and its size there."""
     if mdim is None:
         return 0, 0
-    return block.storage_offset() // full.stride(mdim), block.shape[mdim]
+    start = block.storage_offset() // full.stride(mdim) % full.shape[mdim]
+    return start, block.shape[mdim]
 
 
 def layout_for(cfg, coords: Dict[str, Tuple[int, int]], rules,
@@ -120,11 +139,14 @@ def layout_for(cfg, coords: Dict[str, Tuple[int, int]], rules,
     data axis."""
     di, d = data
     r, m = coords.get("model", (0, 1))
+    wi, wd = coords.get("data", (0, 1))
     dmesh = MeshShape(("data",), (d,))
     out = {}
     for name, (full, spec, keep) in param_blocks(cfg, coords, rules).items():
         mdim = next((i for i, e in enumerate(spec)
                      if "model" in _axes(e)), None)
+        ddim = next((i for i, e in enumerate(spec)
+                     if "data" in _axes(e)), None) if wd > 1 else None
         zdim = None
         if d > 1:
             ext = zero1_extend_spec(spec, tuple(full.shape), dmesh)
@@ -137,7 +159,7 @@ def layout_for(cfg, coords: Dict[str, Tuple[int, int]], rules,
             distinct=tuple(sorted({model_holders(cfg, name, spec, m, q)[0]
                                    for q in range(m)})),
             members=grad_members(cfg, name, spec, m, r), zdim=zdim,
-            m_rank=r, d_rank=di, d=d)
+            m_rank=r, d_rank=di, d=d, ddim=ddim, w_rank=wi, wd=wd)
     return out
 
 
@@ -157,15 +179,20 @@ def _state(opt_name: str, blocks: Dict[str, torch.Tensor],
     if opt_name == "adamw":
         return adamw_init(blocks)
     if opt_name == "adafactor":
-        return {"f": {k: adafactor_leaf(b, _factored(lay[k].full))
-                      for k, b in blocks.items()}}
+        out = {}
+        for key, (stack, members) in stack_groups(blocks).items():
+            b = blocks[members[0][1]]
+            out[key] = adafactor_leaf(
+                stack, tuple(b.shape),
+                _factored(stack + lay[members[0][1]].full), b.device)
+        return {"f": out}
     raise ValueError(f"unknown optimizer {opt_name!r}")
 
 
 def init_state(opt_name: str, model):
     """Zero optimizer state of the rank's ZeRO blocks: AdamW's m and v of
-    each block, or Adafactor's factors of it (of the whole parameter's
-    factoring)."""
+    each block, or Adafactor's factors of each stacked group's blocks (of
+    the whole stacked parameter's factoring)."""
     lay = layout(model)
     return _state(opt_name, {k: lay[k].zblock(p.detach())
                              for k, p in model.named_parameters()}, lay)
@@ -180,23 +207,26 @@ def state_structs(cfg, coords, rules, data: Tuple[int, int]):
     return _state(cfg.optimizer, blocks, lay)
 
 
-def state_dims(name: str, nd: int) -> Tuple[int, ...]:
-    """The parameter dims a state leaf keeps: all for m, v and Adafactor's
-    ``v``; all but the last for ``vr``; all but the second-to-last for
-    ``vc``."""
+def state_dims(name: str, nd: int, k: int = 0) -> Tuple[int, ...]:
+    """The parameter dims a state leaf keeps, -1 for each of its ``k``
+    leading stack dims (an Adafactor group's layers): all for m, v and
+    Adafactor's ``v``; all but the stacked parameter's last for ``vr``;
+    all but its second-to-last for ``vc``."""
+    dims = (-1,) * k + tuple(range(nd))
     if name == "vr":
-        return tuple(range(nd - 1))
+        return dims[:-1]
     if name == "vc":
-        return tuple(range(nd - 2)) + (nd - 1,)
-    return tuple(range(nd))
+        return dims[:-2] + dims[-1:]
+    return dims
 
 
 class BlockMeans(Means):
-    """Adafactor's means over a whole parameter from a rank's ZeRO block:
+    """Adafactor's sums over a whole parameter from a rank's ZeRO block:
     the block's partial sums, added over the model ranks that hold the
     other pieces of a reduced dim (a shared block counted by its first
-    holder) and over the data ranks when the dim is the ZeRO one, in rank
-    order; then divided by the whole parameter's count."""
+    holder), over the data ranks when the dim is the ZeRO one, and over
+    the weights' data ranks when it is the one the spec splits over
+    "data", in rank order."""
 
     def __init__(self, lay: Dict[str, Leaf], grid):
         self.lay, self.grid = lay, grid
@@ -204,42 +234,27 @@ class BlockMeans(Means):
     def shape(self, k, p):
         return self.lay[k].full
 
-    def _mean(self, k: str, part: torch.Tensor, dims, n: int):
+    def total(self, k, part, dims):
         leaf, grid = self.lay[k], self.grid
         if grid.model.d > 1 and leaf.mdim in dims:
             part = grid.model._sum(part if leaf.m_owner
                                    else torch.zeros_like(part))
         if grid.data.d > 1 and leaf.zdim in dims:
             part = grid.data._sum(part)
-        return part / n
-
-    def rows(self, k, x):
-        full = self.lay[k].full
-        return self._mean(k, x.sum(dim=-1), (len(full) - 1,), full[-1])
-
-    def cols(self, k, x):
-        full = self.lay[k].full
-        return self._mean(k, x.sum(dim=-2), (len(full) - 2,), full[-2])
-
-    def rows_of_vr(self, k, vr):
-        full = self.lay[k].full
-        return self._mean(k, vr.sum(dim=-1, keepdim=True),
-                          (len(full) - 2,), full[-2])
-
-    def all(self, k, x):
-        full = self.lay[k].full
-        return self._mean(k, x.sum(), tuple(range(len(full))),
-                          math.prod(full))
+        if leaf.ddim in dims:
+            part = grid.weight_data._sum(part)
+        return part
 
 
 def _reduce(g: torch.Tensor, leaf: Leaf, grid) -> torch.Tensor:
     """Steps 1's model-axis sum and 2 for one leaf -> the float32 gradient
-    of its ZeRO block."""
+    of its ZeRO block (a ``ddim`` leaf's ``g``: its ``reduced_grad``,
+    summed over "data" already)."""
     g = g.float()
     if len(leaf.members) > 1:
         g = grid.model._sum_over(g, leaf.members)
     data = grid.data
-    if data.d == 1:
+    if data.d == 1 or leaf.ddim is not None:
         return g
     if leaf.zdim is not None:
         return data._reduce_scatter(g, leaf.zdim, torch.float32) / data.d
@@ -289,6 +304,25 @@ def _update(model, opt_state, grads, step, hyper: OptHyper,
     return norm
 
 
+def _taken_grad(p: torch.Tensor, leaf: Leaf) -> torch.Tensor:
+    """The gradient the backward left for ``p`` (zeros if none), taken
+    off it: ``p.grad``, or for a ``ddim`` leaf the float32
+    ``reduced_grad`` that the weight gather's backward summed over "data"
+    (a ``p.grad`` there would be a use that bypassed the gather)."""
+    if leaf.ddim is None:
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+    else:
+        if p.grad is not None:
+            raise RuntimeError("a weight split over \"data\" got a gradient "
+                               "that did not pass its gather")
+        g = getattr(p, "reduced_grad", None)
+        if g is None:
+            g = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    p.grad = None
+    p.reduced_grad = None
+    return g
+
+
 def apply_gradients(model, opt_state, step, hyper: OptHyper
                     ) -> torch.Tensor:
     """Steps 1 (the model-axis sums) to 5 from the gradients the backward
@@ -301,9 +335,8 @@ def apply_gradients(model, opt_state, step, hyper: OptHyper
         grads = {}
         with collective_phase("gradients"):
             for k, p in model.named_parameters():
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                g = _taken_grad(p, lay[k])
                 grads[k] = _reduce(g, lay[k], grid)
-                p.grad = None
         with collective_phase("optimizer"):
             return _update(model, opt_state, grads, step, hyper, lay)
 
@@ -316,6 +349,8 @@ def train_step(model, opt_state, batch, step: int, hyper: OptHyper, *,
     every rank of the grid calls it in the same order."""
     grid = model.grid
     model.zero_grad(set_to_none=True)
+    for p in model.parameters():
+        p.reduced_grad = None
     loss, aux = model.loss_fn(batch, chunk=attn_chunk,
                               skip_upper_triangle=skip_upper_triangle)
     loss.backward()
@@ -337,12 +372,16 @@ def train_step(model, opt_state, batch, step: int, hyper: OptHyper, *,
 def _gather_full(x: torch.Tensor, leaf: Leaf, dims, grid,
                  zsplit: bool) -> torch.Tensor:
     """The whole leaf from the ranks' pieces ``x`` (kept parameter dims
-    ``dims``): the data ranks' ZeRO blocks, then the model ranks'
-    distinct blocks, concatenated in rank order."""
+    ``dims``, -1 a stack dim): the data ranks' ZeRO blocks, the weights'
+    data ranks' blocks of a 2-D leaf, then the model ranks' distinct
+    blocks, concatenated in rank order."""
     x = x.detach()
     if zsplit and grid.data.d > 1 and leaf.zdim in dims:
         x = torch.cat(grid.data._parts(x.contiguous()),
                       dims.index(leaf.zdim))
+    if leaf.ddim in dims:
+        x = torch.cat(grid.weight_data._parts(x.contiguous()),
+                      dims.index(leaf.ddim))
     if grid.model.d > 1 and leaf.mdim in dims:
         parts = grid.model._parts(x.contiguous())
         x = torch.cat([parts[q] for q in leaf.distinct],
@@ -354,6 +393,10 @@ def _cut(t: torch.Tensor, leaf: Leaf, dims, zsplit: bool) -> torch.Tensor:
     """:func:`_gather_full`'s inverse: this rank's piece of a whole leaf."""
     if leaf.mdim in dims and leaf.mrange[1]:
         t = t.narrow(dims.index(leaf.mdim), *leaf.mrange)
+    if leaf.ddim in dims:
+        j = dims.index(leaf.ddim)
+        n = t.shape[j] // leaf.wd
+        t = t.narrow(j, leaf.w_rank * n, n)
     if zsplit and leaf.d > 1 and leaf.zdim in dims:
         j = dims.index(leaf.zdim)
         n = t.shape[j] // leaf.d
@@ -379,6 +422,22 @@ def _set(tree, path, value) -> None:
     tree[path[-1]] = value
 
 
+def _state_places(opt_state, lay: Dict[str, Leaf]):
+    """(path, tensor, its parameter's :class:`Leaf`, the kept dims, the
+    whole leaf's shape) of each state leaf; an Adafactor group's leaf has
+    the layout of its layers' and their stack dims in front."""
+    groups = stack_groups(lay)
+    for path, name, sub, t in _state_leaves(opt_state):
+        stack, members = groups[name] if path[0] == "f" else ((), [((),
+                                                                    name)])
+        leaf = lay[members[0][1]]
+        dims = state_dims(sub, len(leaf.full), len(stack))
+        whole = tuple(stack) + leaf.full
+        yield path, t, leaf, dims, tuple(whole[len(stack) + i] if i >= 0
+                                         else whole[j]
+                                         for j, i in enumerate(dims))
+
+
 def full_tree(model, opt_state) -> dict:
     """The checkpoint tree ``{"params", "opt"}`` of a one-rank run, each
     leaf a function that gathers it whole (collective: every rank calls
@@ -389,9 +448,7 @@ def full_tree(model, opt_state) -> dict:
         dims = tuple(range(len(lay[k].full)))
         tree["params"][k] = lambda p=p, leaf=lay[k], dims=dims: \
             _gather_full(p, leaf, dims, grid, zsplit=False)
-    for path, name, sub, t in _state_leaves(opt_state):
-        leaf = lay[name]
-        dims = state_dims(sub, len(leaf.full))
+    for path, t, leaf, dims, _ in _state_places(opt_state, lay):
         _set(tree["opt"], path, lambda t=t, leaf=leaf, dims=dims:
              _gather_full(t, leaf, dims, grid, zsplit=True))
     return tree
@@ -402,10 +459,10 @@ class _Sink:
     leaf's ``shape``; ``copy_`` keeps the piece."""
 
     def __init__(self, target: torch.Tensor, leaf: Leaf, dims,
-                 zsplit: bool):
+                 zsplit: bool, shape: Tuple[int, ...]):
         self.target, self.leaf, self.dims, self.zsplit = (target, leaf,
                                                           dims, zsplit)
-        self.shape = tuple(leaf.full[i] for i in dims)
+        self.shape = shape
 
     def copy_(self, t: torch.Tensor) -> torch.Tensor:
         return self.target.copy_(_cut(t, self.leaf, self.dims, self.zsplit))
@@ -418,10 +475,9 @@ def block_sinks(model, opt_state) -> dict:
     tree: dict = {"params": {}, "opt": {}}
     for k, p in model.named_parameters():
         tree["params"][k] = _Sink(p.detach(), lay[k],
-                                  tuple(range(len(lay[k].full))), False)
-    for path, name, sub, t in _state_leaves(opt_state):
-        leaf = lay[name]
-        _set(tree["opt"], path,
-             _Sink(t, leaf, state_dims(sub, len(leaf.full)), True))
+                                  tuple(range(len(lay[k].full))), False,
+                                  lay[k].full)
+    for path, t, leaf, dims, shape in _state_places(opt_state, lay):
+        _set(tree["opt"], path, _Sink(t, leaf, dims, True, shape))
     return tree
 

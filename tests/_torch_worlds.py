@@ -700,11 +700,167 @@ def sharded_train_job(cases, ckpt=None) -> dict:
     return out
 
 
-def launch_train_job(argv) -> str:
-    """``launch/train.py``'s ``main(argv)`` on this rank; its output."""
+def two_d_job(cases, ckpt=None, memory=None, prompts=()) -> dict:
+    """Each of ``cases`` ((tag, data, model, config overrides, expert axis
+    parallel, arrays, tokens, batches, grads)) with its weights 2-D
+    (``default_rules(two_d_weights=True)``) over a (data, model) grid of
+    this world: ``forward`` of this data shard's rows of ``tokens``,
+    ``prefill`` of their first S - 4 tokens and 4 teacher-forced decode
+    steps; ``Engine.generate`` of this data shard's ``prompts``, 4 new
+    tokens; each parameter's block beside its spec's; three train steps of
+    ``batches`` (metrics, then this rank's blocks of what ranks share);
+    then, from ``arrays`` and fresh state, three ``zero.apply_gradients``
+    of the whole gradients ``grads`` (a 2-D block's as its
+    ``reduced_grad``): the whole parameters after each and the optimizer
+    state after the third, gathered as a checkpoint gathers them.
+
+    ``ckpt``: (tag, directory, n): after ``n`` steps of that case its
+    checkpoint is saved, then a model loaded from it takes step ``n``
+    again on the same grid.  ``memory``: (overrides, arrays, batch) at
+    this world's (data, 1): the peak live bytes of ``loss_fn`` and of its
+    backward (``launch/hlo_cost.CostCounter``) and the bytes of the
+    reduced gradients it leaves, with the weights 2-D and replicated, and
+    with the 2-D weights kept for the backward (no ``regather_saved``).
+    Returns numpy."""
+    import contextlib
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.launch import mesh, sharding
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.hlo_cost import CostCounter
+    from repro_torch.launch.mesh import model_grid
+    from repro_torch.models.transformer import Transformer, param_blocks
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.train import zero
+    from repro_torch.train.optimizer import OptHyper
+    from repro_torch.train.step import make_train_step
+    out = {"cases": {}}
+    for tag, data, model, over, eap, arrays, tokens, batches, grads in cases:
+        grid = model_grid(data, model)
+        di = grid.data.rank
+        rules = sharding.default_rules(two_d_weights=True,
+                                       expert_axis_parallel=eap)
+        cfg = _train_cfg(over)
+
+        def rows(a):
+            n = a.shape[0] // data
+            return torch.from_numpy(np.ascontiguousarray(
+                a[di * n:(di + 1) * n]))
+
+        def build():
+            return Transformer.from_arrays(cfg, arrays, device="cpu",
+                                           group=grid, rules=rules)
+        m = build()
+        blocks = param_blocks(cfg, grid.coords, rules)
+        res = {"coords": grid.coords, "metrics": [],
+               "blocks": {k: (tuple(p.shape),
+                              tuple(blocks[k][2](blocks[k][0]).shape),
+                              getattr(p, "data_dim", None))
+                          for k, p in m.named_parameters()}}
+        toks = rows(tokens)
+        s = toks.shape[1]
+        logits, _ = m({"tokens": toks})
+        pre, cache = m.prefill({"tokens": toks[:, :s - 4]}, s + 4)
+        steps = []
+        for i in range(s - 4, s):
+            dec, cache = m.decode_step(cache, toks[:, i:i + 1], i)
+            steps.append(dec.numpy())
+        res.update(forward=logits.numpy(), prefill=pre.numpy(),
+                   decode=np.stack(steps, 1)[:, :, 0])
+        if prompts:
+            n = len(prompts) // data
+            eng = Engine(cfg, m, ServeConfig(batch=n, max_seq=32),
+                         device="cpu")
+            res["generate"] = eng.generate(
+                list(prompts[di * n:(di + 1) * n]), 4)
+        state = zero.init_state(cfg.optimizer, m)
+        step = make_train_step(cfg, OptHyper(), attn_chunk=16)
+        for i, b in enumerate(batches):
+            if ckpt is not None and ckpt[0] == tag and i == ckpt[2]:
+                tree = zero.full_tree(m, state)
+                if grid.data.rank == 0 and grid.model.rank == 0:
+                    store.save_checkpoint(ckpt[1], i, tree,
+                                          meta={"config":
+                                                store.config_hash(cfg)})
+                else:
+                    store.gather_leaves(tree)
+                torch.distributed.barrier()
+                again = build()
+                again_state = zero.init_state(cfg.optimizer, again)
+                launch_train.load_train_state(ckpt[1], again, again_state,
+                                              cfg)
+                _, _, mr = step(again, again_state,
+                                {k: rows(v) for k, v in b.items()}, i)
+                res["resumed"] = {k: float(v) for k, v in mr.items()}
+            m, state, met = step(m, state, {k: rows(v) for k, v in b.items()},
+                                 i)
+            res["metrics"].append({k: float(v) for k, v in met.items()})
+        lay = zero.layout(m)
+        res["shared"] = _shared_blocks(m)
+        res["holders"] = {k: leaf.holders for k, leaf in lay.items()}
+        given = build()
+        given_state = zero.init_state(cfg.optimizer, given)
+        for i in range(3):
+            for k, p in given.named_parameters():
+                g = p.keep(torch.from_numpy(grads[k])) / len(lay[k].members)
+                if lay[k].ddim is None:
+                    p.grad = g
+                else:
+                    p.reduced_grad = g.float()
+            zero.apply_gradients(given, given_state, i, OptHyper())
+            whole = zero.full_tree(given, given_state)
+            res[f"params_{i + 1}"] = {k: f().numpy().copy()
+                                      for k, f in whole["params"].items()}
+        res["state_3"] = {(part, k, leaf): f().numpy().copy()
+                          for part, tree in whole["opt"].items()
+                          for k, sub in tree.items()
+                          for leaf, f in (sub.items() if isinstance(sub, dict)
+                                          else [(None, sub)])}
+        out["cases"][tag] = res
+    if memory is not None:
+        over, arrays, batch = memory
+        cfg = _train_cfg(over)
+        grid = model_grid(torch.distributed.get_world_size(), 1)
+        n = batch["tokens"].shape[0] // grid.data.d
+        mine = {k: torch.from_numpy(np.ascontiguousarray(
+            v[grid.data.rank * n:(grid.data.rank + 1) * n]))
+            for k, v in batch.items()}
+        peaks = {}
+        for name, two_d, keep in (("two_d", True, False),
+                                  ("replicated", False, False),
+                                  ("two_d_kept", True, True)):
+            m = Transformer.from_arrays(
+                cfg, arrays, device="cpu", group=grid,
+                rules=sharding.default_rules(two_d_weights=two_d))
+            hooks = mesh.regather_saved
+            if keep:
+                mesh.regather_saved = contextlib.nullcontext
+            try:
+                with CostCounter() as fwd:
+                    loss, _ = m.loss_fn(mine, chunk=16)
+            finally:
+                mesh.regather_saved = hooks
+            with CostCounter() as bwd:
+                loss.backward()
+            reduced = sum(4 * p.numel() for p in m.parameters()
+                          if getattr(p, "reduced_grad", None) is not None)
+            peaks[name] = (fwd.peak_live_bytes, bwd.peak_live_bytes, reduced)
+            del loss, m
+        out["memory"] = peaks
+    return out
+
+
+def launch_train_job(argv, giant_bytes=None) -> str:
+    """``launch/train.py``'s ``main(argv)`` on this rank; its output.  With
+    ``giant_bytes``, ``launch.specs.GIANT_PARAM_BYTES`` is set to it first
+    (0: every config is giant, so ``rules_for`` gives 2-D weights)."""
     import contextlib
     import io
+    from repro_torch.launch import specs
     from repro_torch.launch import train as launch_train
+    if giant_bytes is not None:
+        specs.GIANT_PARAM_BYTES = giant_bytes
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         launch_train.main(list(argv))

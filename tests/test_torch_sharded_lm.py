@@ -27,8 +27,9 @@ A sharded ``loss_fn`` of qwen2.5-3b and its gradient of the final norm
 agree with the unsharded port's on the rank's rows within 1e-5 (the
 collectives carry gradients; ``tests/test_torch_sharded_train.py`` holds
 the sharded train step).  The families with no sharded forward (ssm,
-audio, vlm, hybrid) raise over more than one rank, and so do weights
-split over a data axis of two.
+audio, vlm, hybrid) raise over more than one rank; weights split over a
+data axis of two are their spec's blocks (``tests/test_torch_two_d.py``
+holds their numbers).
 """
 
 import os
@@ -50,8 +51,8 @@ from repro.configs.base import reduced as r_reduced
 from repro.models import transformer as RT
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.launch import sharding, specs
-from repro_torch.launch.mesh import ModelGrid, ModelGroup
-from repro_torch.models.transformer import Transformer
+from repro_torch.launch.mesh import ModelGrid, ModelGroup, counting_grid
+from repro_torch.models.transformer import Transformer, param_blocks
 from repro_torch.serve.engine import Engine, ServeConfig
 
 torch.set_num_threads(2)
@@ -315,10 +316,32 @@ def test_sharded_training_raises(world, ref):
 
 
 def test_weights_split_over_data_raise():
+    """Weights split over a data axis of two (``two_d_weights``) are held
+    as the spec's block of both axes, and the (2, 2) model runs (over
+    counting groups: rank 0's shapes, ``tests/test_torch_two_d.py`` holds
+    the numbers); over a grid with no process group a gather raises
+    rather than reading a block as the whole weight."""
     cfg = reduced(get_config("qwen2.5-3b"))
     rules = sharding.default_rules(two_d_weights=True)
-    with pytest.raises(NotImplementedError, match="two_d_weights"):
-        Transformer(cfg, device="cpu", group=_abstract(2, 2), rules=rules)
+    m = Transformer.init_params(cfg, device="cpu", group=_abstract(2, 2),
+                                rules=rules)
+    blocks = param_blocks(cfg, _abstract(2, 2).coords, rules)
+    for k, p in m.named_parameters():
+        full, spec, keep = blocks[k]
+        assert tuple(p.shape) == tuple(keep(full).shape), k
+        assert (getattr(p, "data_dim", None) is not None) == \
+            any("data" in sharding._axes(e) for e in spec), k
+    assert m.layers[0].mlp.wi.w.shape == (32, 64)
+    assert m.layers[0].ln1.scale.shape == (64,)
+    toks = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no process group"):
+        m({"tokens": toks})
+    counted = Transformer.init_params(
+        cfg, device="cpu", group=counting_grid(_abstract(2, 2)), rules=rules)
+    logits, _ = counted({"tokens": toks})
+    assert logits.shape == (2, 8, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
     # at data = 1 the data axis splits nothing
     m = Transformer(cfg, device="cpu", group=_abstract(1, 2), rules=rules)
     assert m.layers[0].mlp.wi.w.shape == (64, 64)
+    assert not any(hasattr(p, "data_dim") for p in m.parameters())

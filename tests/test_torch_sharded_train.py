@@ -15,12 +15,12 @@ Each rank takes its data shard's rows.  Held against the reference's
 ``tests/test_torch_train.py``): step 0's loss to 1e-5 relative and gradient
 norm to 1e-4, three steps' losses to 1e-5; and, as that file holds the
 optimizer, every parameter after one sharded update of the reference's
-gradients (gathered whole) to 1e-6 of the reference's update of them over
-the port's per-layer leaves (a whole step's parameters differ from the
-reference's by up to 6.6e-6 with AdamW at one rank already, an update of
-a near-zero gradient turning on its rounding; and with Adafactor by
-1.2e-4, the reference factoring its stacked layers, ``ROADMAP.md`` Queue
-3).  ``expert_tp`` over two data shards routes
+gradients (gathered whole) to 1e-6 of the reference's own clipping and
+update of them over its stacked tree (a whole step's parameters differ
+from the reference's by up to 6.6e-6 with AdamW at one rank already, an
+update of a near-zero gradient turning on its rounding; Adafactor factors
+each stacked norm and takes one RMS over every layer, as the port's
+``train/optimizer.py`` does).  ``expert_tp`` over two data shards routes
 each shard on its own and averages the shards' aux losses (the reference's
 ``moe_apply_expert_tp`` under a mesh), so its reference is the mean over
 the two shards of the reference's loss and gradient, then the reference's
@@ -55,7 +55,7 @@ from repro_torch.launch import specs
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.transformer import Transformer
-from repro_torch.train.optimizer import OptHyper, _factored
+from repro_torch.train.optimizer import OptHyper, _factored, stack_groups
 from repro_torch.train.step import init_train_state, make_train_step
 
 torch.set_num_threads(2)
@@ -123,10 +123,9 @@ def _shard_mean(r_cfg):
 
 def _given_update(r_cfg, cfg, arrays, batch):
     """The reference's gradients of the whole batch and its parameters
-    after clipping them and one update, over the port's per-layer leaves
-    (as ``tests/test_torch_train.py`` holds the optimizer: the reference's
-    Adafactor over its stacked layers factors a norm's (layers, d) and
-    takes the update's RMS over every layer, ``ROADMAP.md`` Queue 3)."""
+    after clipping them and one update of its own stacked tree (its
+    Adafactor factors a norm's (layers, d) and takes the update's RMS over
+    every layer), both under the port's per-layer names."""
     params = jax.tree.map(jnp.asarray, arrays)
     grads = jax.jit(jax.grad(lambda p, b: RT.loss_fn(p, r_cfg, b,
                                                       chunk=S)[0]))(
@@ -136,12 +135,10 @@ def _given_update(r_cfg, cfg, arrays, batch):
         return {k: p.detach().numpy().copy() for k, p in
                 Transformer.from_arrays(cfg, jax.tree.map(np.asarray, tree),
                                         device="cpu").named_parameters()}
-    flat_p, flat_g = named(params), named(grads)
-    rp = {k: jnp.asarray(v) for k, v in flat_p.items()}
     after, _, _ = _clip_update(r_cfg)(
-        rp, {k: jnp.asarray(v) for k, v in flat_g.items()},
-        r_opt.get_optimizer(r_cfg.optimizer).init(rp), jnp.int32(0))
-    return flat_g, {k: np.asarray(v) for k, v in after.items()}
+        params, grads, r_opt.get_optimizer(r_cfg.optimizer).init(params),
+        jnp.int32(0))
+    return named(grads), named(after)
 
 
 @pytest.fixture(scope="module")
@@ -272,13 +269,19 @@ def test_ranks_hold_equal_bits_in_what_they_share(worlds, tag):
 @pytest.mark.parametrize("tag", [t for t in IDS if _case(t)[4][0] > 1])
 def test_zero_state_is_the_blocks_data_shard(worlds, tag):
     """Each state leaf is its parameter's ZeRO block (AdamW's m and v) or
-    that block's factors (Adafactor); a block split over "data" holds
+    the factors of its stacked group's blocks (Adafactor: the layers'
+    ZeRO blocks on a leading stack axis); a block split over "data" holds
     half of its model block's elements."""
     res, _ = worlds
     for r in res[tag]:
         split = 0
+        groups = stack_groups(r["block_shapes"])
         for path, shape in r["state_shapes"].items():
-            block = r["block_shapes"][path[1]]
+            if path[0] == "f":
+                stack, members = groups[path[1]]
+                block = stack + r["block_shapes"][members[0][1]]
+            else:
+                block = r["block_shapes"][path[1]]
             want = {"vr": block[:-1], "vc": block[:-2] + block[-1:]}.get(
                 path[-1], block)
             assert shape == want, (path, shape, want)
@@ -355,7 +358,10 @@ def _zero_split(block, spec, dsize):
 def test_opt_structs_are_the_zero_split_of_each_block(arch, multi_pod):
     """rank 0's optimizer state of every parameter is the ZeRO split of
     the block it holds (not the spec's block of the whole state: for
-    qwen2.5-3b's ``wk`` over 16 ranks, (128, 128), not (128, 16))."""
+    qwen2.5-3b's ``wk`` over 16 ranks, (128, 128), not (128, 16)); an
+    Adafactor state is per stacked group, the factors of its layers'
+    ZeRO blocks stacked, of the whole stacked parameter's factoring, and
+    its specs are the reference's over that stacked state."""
     mesh = make_production_mesh(multi_pod=multi_pod)
     cfg = get_config(arch)
     dsize = math.prod(n for ax, n in mesh.shape.items() if ax != "model")
@@ -364,15 +370,27 @@ def test_opt_structs_are_the_zero_split_of_each_block(arch, multi_pod):
     full = {k: tuple(p.shape) for k, p in
             Transformer(cfg, device="meta").named_parameters()}
     for k, p in params.items():
+        if cfg.optimizer != "adamw":
+            break
         z = _zero_split(tuple(p.shape), spec_tree[0][k], dsize)
-        if cfg.optimizer == "adamw":
-            assert tuple(state["m"][k].shape) == z, (k, z)
-            assert tuple(state["v"][k].shape) == z, (k, z)
-        elif _factored(full[k]):
-            assert tuple(state["f"][k]["vr"].shape) == z[:-1], k
-            assert tuple(state["f"][k]["vc"].shape) == z[:-2] + z[-1:], k
-        else:
-            assert tuple(state["f"][k]["v"].shape) == z, k
+        assert tuple(state["m"][k].shape) == z, (k, z)
+        assert tuple(state["v"][k].shape) == z, (k, z)
+    if cfg.optimizer == "adafactor":
+        groups = stack_groups(params)
+        assert sorted(state["f"]) == sorted(groups)
+        assert sorted(spec_tree[1]["f"]) == sorted(groups)
+        for key, (stack, members) in groups.items():
+            k = members[0][1]
+            z = stack + _zero_split(tuple(params[k].shape),
+                                    spec_tree[0][k], dsize)
+            if _factored(stack + full[k]):
+                assert tuple(state["f"][key]["vr"].shape) == z[:-1], key
+                assert tuple(state["f"][key]["vc"].shape) == \
+                    z[:-2] + z[-1:], key
+            else:
+                assert tuple(state["f"][key]["v"].shape) == z, key
+            for leaf, t in state["f"][key].items():
+                assert len(spec_tree[1]["f"][key][leaf]) == t.dim(), key
     if arch == DENSE and not multi_pod:
         assert tuple(state["m"]["layers.0.attn.wk.w"].shape) == (128, 128)
         assert spec_tree[1]["m"]["layers.0.attn.wk.w"] == ("data", "model")

@@ -9,7 +9,8 @@ routers' aux loss, and they train with Adafactor), with the reference's
 and the same numpy tokens through both packages.  Tolerances: the loss to
 1e-5 relative; every parameter's gradient to ``atol 1e-5 + rtol 1e-4`` of
 ``jax.grad``'s (two layers of float32 products summed in other orders);
-one AdamW or Adafactor update to 1e-6; three train steps' losses to 1e-5;
+one AdamW or Adafactor update to 1e-6 of the reference's over its stacked
+tree; three train steps' losses to 1e-5;
 clipping with exactly representable sums, int8 quantization and the data
 streams bit for bit.  The data-parallel step runs in a spawned gloo world
 of two ranks (``_torch_worlds.run_world``).
@@ -190,41 +191,69 @@ def _opt_inputs(case, seed=1):
     return params, grads
 
 
-def _ref_update(name, params, grads, step, hyper, state=None):
+def _stacked(case, named):
+    """Named per-layer tensors as the reference's stacked pytree (jnp)."""
+    model = case.model()
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(named[k])
+    return jax.tree.map(jnp.asarray, model.to_arrays())
+
+
+def _unstacked(case, tree):
+    """The reference's stacked pytree as the port's {name: numpy}."""
+    return {k: p.detach().numpy().copy() for k, p in Transformer.from_arrays(
+        case.cfg, jax.tree.map(np.asarray, tree),
+        device=CPU).named_parameters()}
+
+
+def _ref_update(case, name, params, grads, step, hyper, state=None):
+    """The reference's update of its own stacked tree; ``params`` the
+    stacked tree, ``grads`` the port's named gradients."""
     r = r_opt.get_optimizer(name)
-    rp = {k: jnp.asarray(v.numpy()) for k, v in params.items()}
-    rg = {k: jnp.asarray(v.numpy()) for k, v in grads.items()}
-    rs = r.init(rp) if state is None else state
-    return r.update(rp, rg, rs, jnp.int32(step), hyper)
+    rs = r.init(params) if state is None else state
+    return r.update(params, _stacked(case, grads), rs, jnp.int32(step),
+                    hyper)
 
 
 @pytest.mark.parametrize("name", ["adamw", "adafactor"])
 def test_optimizer_step_matches_reference(case, name):
+    """Two updates over the port's per-layer parameters against the
+    reference's over its stacked tree (its Adafactor factors each stacked
+    norm and takes one RMS over every layer); the state against the
+    reference's, an Adafactor group's under its stacked path."""
     hyper = opt.OptHyper(lr=1e-2)
     r_hyper = r_opt.OptHyper(lr=1e-2)
     params, grads = _opt_inputs(case)
     o = opt.get_optimizer(name)
     state = o.init(params)
-    r_params, r_state = _ref_update(name, params, grads, 0, r_hyper)
-    rp2, rs2 = _ref_update(name, {k: torch.from_numpy(np.asarray(v))
-                                  for k, v in r_params.items()},
-                           grads, 1, r_hyper, r_state)
+    r_params, r_state = _ref_update(case, name, _stacked(case, params),
+                                    grads, 0, r_hyper)
+    rp2, rs2 = _ref_update(case, name, r_params, grads, 1, r_hyper, r_state)
     got_p = {k: v.clone() for k, v in params.items()}
     o.update(got_p, grads, state, 0, hyper)
+    want = _unstacked(case, r_params)
     for k in params:
-        np.testing.assert_allclose(got_p[k].numpy(), np.asarray(r_params[k]),
-                                   atol=1e-6, rtol=0, err_msg=k)
+        np.testing.assert_allclose(got_p[k].numpy(), want[k], atol=1e-6,
+                                   rtol=0, err_msg=k)
     o.update(got_p, grads, state, 1, hyper)          # a second step
+    want = _unstacked(case, rp2)
     for k in params:
-        np.testing.assert_allclose(got_p[k].numpy(), np.asarray(rp2[k]),
-                                   atol=1e-6, rtol=0, err_msg=k)
-    flat_r = jax.tree_util.tree_flatten_with_path(rs2)[0]
+        np.testing.assert_allclose(got_p[k].numpy(), want[k], atol=1e-6,
+                                   rtol=0, err_msg=k)
+    if name == "adamw":
+        for part in ("m", "v"):
+            for k, leaf in _unstacked(case, rs2[part]).items():
+                np.testing.assert_allclose(state[part][k].numpy(), leaf,
+                                           atol=1e-6, rtol=1e-6, err_msg=k)
+        return
+    flat_r = jax.tree_util.tree_flatten_with_path(rs2["f"])[0]
+    assert len(flat_r) == sum(len(v) for v in state["f"].values())
     for path, leaf in flat_r:
-        node = state
-        for k in path:
-            node = node[k.key]
-        np.testing.assert_allclose(node.numpy(), np.asarray(leaf), atol=1e-6,
-                                   rtol=1e-6, err_msg=str(path))
+        key = ".".join(p.key for p in path[:-1])
+        np.testing.assert_allclose(state["f"][key][path[-1].key].numpy(),
+                                   np.asarray(leaf), atol=1e-6, rtol=1e-6,
+                                   err_msg=str(path))
 
 
 def test_get_optimizer_rejects_unknown():
