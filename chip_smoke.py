@@ -220,9 +220,11 @@ Phases (each prints one JSON line with its seconds):
    patches (4, 256, 6144) before phase 4's prompts (2304 positions), 32
    greedy tokens from ``pos = P + S``, twice.  For (b) and (c) decode
    against ``forward`` (batch 2, 256 tokens); every check within phase
-   4's tolerance.  K4 must launch 0 times for xLSTM, 12 per ``encode`` and
+   4's tolerance.  Then, on the same models, phase 4j's d = 1 yardstick
+   (``heads_yardstick``: a prefill and an ``encode``, 4 teacher-forced
+   steps).  K4 must launch 0 times for xLSTM, 12 per ``encode`` and
    36 per whisper prefill or forward, once a layer per internvl2 prefill
-   or forward (276 in the phase, 348 with ``--profile``), all through
+   or forward (348 in the phase, 420 with ``--profile``), all through
    ``"sm90_wgmma"``, and K1-K3 never.  After the window, K4 runs on the
    q, k, v of whisper's encoder (non-causal, (4, 1536, 12, 64)), decoder
    self-attention (causal, (4, 416, 12, 64)) and cross-attention
@@ -359,6 +361,31 @@ Phases (each prints one JSON line with its seconds):
    the prefill seconds, seconds a token and step seconds, each rank's
    peak memory beside the reckoning, and the collectives by axis and
    phase (the "data" axis carries the weight gathers).
+4j. attention's heads as whole heads where they do not split evenly over
+   the model ranks (``models/attention.head_range``: the first H % m ranks
+   one head more), and the audio and vlm families sharded: eight gloo
+   ranks sharing the card.  (a) qwen1.5-4b at full width cut to
+   ``HEADS_DENSE_LAYERS`` of 40 layers over (1, 8), the smallest m at
+   which its 20 heads do not split while its vocabulary and d_ff do: 3
+   heads on ranks 0-3, 2 on 4-7; (b) whisper-small at full width and
+   depth over (1, 8): 12 heads, 2 on ranks 0-3, 1 on 4-7, encoder and
+   decoder; (c) internvl2-26b at full width cut to ``VLM_LAYERS`` as
+   phase 4d cuts it, over (1, 2) on ranks 0 and 1 (24 query and 4 KV
+   heads a rank).  Each runs ``heads_yardstick`` (a prefill of
+   ``HEADS_BATCH`` prompts of ``HEADS_PROMPT`` ids behind whisper's frames
+   or the VLM's patches, then ``YARD_STEPS`` teacher-forced decode steps;
+   whisper's against ``encode``'s output) from seed-0 weights, every
+   rank's logits the same bits and within ``DECODE_TOL`` of the largest
+   logit of the d = 1 run on the same weights and inputs: (a)'s in the
+   parent, (b)'s and (c)'s by phase 4d on its models.  On each rank K4
+   runs ``"sm90_wgmma"`` on its own heads, bf16, causal and (whisper's
+   encoder and cross-attention) non-causal at D = 64, the launches per
+   shape counted a rank against ``heads_want_k4`` (a rank with no head
+   would launch none and count its headless calls); ranks 0 and m - 1
+   (the most and the fewest heads) hold K4 to its plain version on each
+   of their layer-0 shapes (``heads_path_inputs`` in K4's row).  Its line
+   prints each rank's heads, seconds and collectives per prefill, encode
+   and token (``ModelGroup.stats``: at m = 8 a psum receives 7 parts).
 5. every kernel against its plain PyTorch version at the shapes phases 2-4
    gave it, with its time, the plain version's, a library call's where one
    computes the same function, and the card's lower bound.  Printed as one
@@ -387,13 +414,15 @@ Phases (each prints one JSON line with its seconds):
    ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
-path's, and phases 3b's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's, 4b's and
-4h's are their own (3d's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's, 4b's and
-4h's print in each kernel row as ``launches_phase_3d`` ... ``_3g``,
-``launches_phase_moe``, ``launches_phase_sharded_lm``,
-``launches_phase_families``, ``launches_phase_hybrid``,
-``launches_phase_dryrun``, ``launches_phase_train`` and
-``launches_phase_sharded_train``; 4h's ranks count their own): each window's
+path's, and phases 3b's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's, 4b's, 4h's,
+4i's and 4j's are their own (3d's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's,
+4b's, 4h's, 4i's and 4j's print in each kernel row as
+``launches_phase_3d`` ... ``_3g``, ``launches_phase_moe``,
+``launches_phase_sharded_lm``, ``launches_phase_families``,
+``launches_phase_hybrid``, ``launches_phase_dryrun``,
+``launches_phase_train``, ``launches_phase_sharded_train``,
+``launches_phase_two_d`` and ``launches_phase_heads``; the ranks of 4f,
+4h, 4i and 4j count their own): each window's
 counts are zeroed just before it and read just after it.  Any failed
 check raises, and the script exits non-zero without its last line, which
 on success is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -406,6 +435,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -3394,10 +3424,11 @@ def check_outputs(arch, new, n_rows, vocab, logits):
     check(bool(torch.isfinite(logits).all()), f"{arch}: finite logits")
 
 
-def serve_whisper(dev, profile):
+def serve_whisper(dev, profile, yards=None):
     """whisper-small at full width and depth: stub frames (4, 1536, 768),
     decoder prompts of ``WHISPER_PROMPTS`` ids, 32 greedy tokens through
-    ``prefill``, ``encode`` and ``decode_step``; decode against forward."""
+    ``prefill``, ``encode`` and ``decode_step``; decode against forward.
+    With ``yards`` (a dict), also phase 4j's d = 1 yardstick into it."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.transformer import Transformer
     t0 = time.perf_counter()
@@ -3441,6 +3472,9 @@ def serve_whisper(dev, profile):
     dvf = decode_vs_forward(model, check_batch, s - 1,
                             enc_out=model.encode(check_batch["enc_embeds"]))
     rec = {}
+    if yards is not None:   # phase 4j's d = 1 run on this model
+        (yards[cfg.name], _), rec["seconds_heads_yardstick"] = timed(
+            lambda: heads_yardstick(model, heads_inputs(cfg), dev))
     if profile:
         k4 = {"k4": ("flash_fwd",)}
         held = {}
@@ -3469,10 +3503,11 @@ def serve_whisper(dev, profile):
             "seconds": time.perf_counter() - t0}
 
 
-def serve_vlm(dev, profile):
+def serve_vlm(dev, profile, yards=None):
     """internvl2-26b at full width, ``VLM_LAYERS`` of its layers, f32
     parameters: patch embeddings (4, 256, 6144) before phase 4's prompts,
-    32 greedy tokens from position P + S; decode against forward."""
+    32 greedy tokens from position P + S; decode against forward.  With
+    ``yards`` (a dict), also phase 4j's d = 1 yardstick into it."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.transformer import Transformer
     t0 = time.perf_counter()
@@ -3512,6 +3547,9 @@ def serve_vlm(dev, profile):
     dvf = decode_vs_forward(model, check_batch, s - 1)
     peak = torch.cuda.max_memory_allocated()
     rec = {}
+    if yards is not None:   # phase 4j's d = 1 run on this model
+        (yards[cfg.name], _), rec["seconds_heads_yardstick"] = timed(
+            lambda: heads_yardstick(model, heads_inputs(cfg), dev))
     if profile:
         k4 = {"k4": ("flash_fwd",)}
         held = {}
@@ -3546,10 +3584,12 @@ def serve_vlm(dev, profile):
 
 def phase_families(dev, kernels, profile):
     """Phase 4d: serve xlstm-350m, whisper-small and internvl2-26b (cut in
-    depth) in turn, in one launch window; then, outside it, hold K4 to its
-    plain version on the q, k, v of each distinct call the models' layer 0
-    gave it (whisper: encoder, decoder self- and cross-attention).
-    Returns the window's launches and K4's rows at those shapes."""
+    depth) in turn, in one launch window, with phase 4j's d = 1 yardsticks
+    of the last two; then, outside it, hold K4 to its plain version on the
+    q, k, v of each distinct call the models' layer 0 gave it (whisper:
+    encoder, decoder self- and cross-attention).  Returns the window's
+    launches, K4's rows at those shapes and the yardsticks ({arch: logits
+    on the host})."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     t0 = time.perf_counter()
@@ -3557,10 +3597,12 @@ def phase_families(dev, kernels, profile):
         k.launches = 0
     by_variant = flash_attention_fwd.launches_by_variant
     variants_before = dict(by_variant)
-    lines, calls = [], {}
+    lines, calls, yards = [], {}, {}
     for arch, serve in (("xlstm-350m", serve_xlstm),
-                        ("whisper-small", serve_whisper),
-                        ("internvl2-26b", serve_vlm)):
+                        ("whisper-small", functools.partial(
+                            serve_whisper, yards=yards)),
+                        ("internvl2-26b", functools.partial(
+                            serve_vlm, yards=yards))):
         before = flash_attention_fwd.launches
         with k4_calls() as (seen, first):
             line = serve(dev, profile)
@@ -3577,11 +3619,12 @@ def phase_families(dev, kernels, profile):
     n_enc, n_dec, n_vlm = wcfg.n_enc_layers, wcfg.n_layers, VLM_LAYERS
     per_prefill = n_enc + 2 * n_dec      # whisper: encoder, self, cross
     # two generations (encode + prefill), the check's forward, prefill and
-    # encode (+ the profile's prefill and encode)
+    # encode, phase 4j's yardstick (prefill and encode) (+ the profile's
+    # prefill and encode)
     want = {"xlstm-350m": 0,
-            "whisper-small": (2 + profile) * (n_enc + per_prefill)
+            "whisper-small": (3 + profile) * (n_enc + per_prefill)
             + 2 * per_prefill + n_enc,
-            "internvl2-26b": (4 + profile) * n_vlm}
+            "internvl2-26b": (5 + profile) * n_vlm}
     for line in lines:
         check(line["k4_launches"] == want[line["arch"]],
               f"phase 4d: {line['arch']} launched K4 {line['k4_launches']} "
@@ -3620,7 +3663,7 @@ def phase_families(dev, kernels, profile):
     emit({"phase": "families", "models": lines, "launches": launches,
           "k4_launches_predicted": want, "k4_on_path_inputs": k4_rows,
           "seconds": time.perf_counter() - t0})
-    return launches, k4_rows
+    return launches, k4_rows, yards
 
 
 # phase 4e: jamba's hybrid period at full width
@@ -3868,12 +3911,13 @@ def phase_hybrid(dev, kernels, profile):
 # phase 4g: the dry run, and rank 0 of one production-mesh cell on the card
 DRYRUN_CELL = ("qwen2.5-3b", "prefill_32k")
 DRYRUN_K4_SHAPE = (2, 32768, 1, 128)   # rank 0's heads after the GQA repeat
-# (ok, skipped, error) of the single- and two-pod sweeps: the dense archs
-# but qwen1.5-4b serve prefill and decode and train (the sharded train
-# step), and so do the giant models with their weights 2-D; the error
-# cells are ROADMAP.md Queue 1 item 15 (b)'s (tests/test_torch_dryrun.py
-# lists them)
-DRYRUN_STATUS = (30, 16, 34)
+# (ok, skipped, error) of the single- and two-pod sweeps: the dense, audio
+# and vlm archs serve prefill and decode and train (the sharded train
+# step; qwen1.5-4b's and whisper's heads as whole heads), and so do the
+# giant models with their weights 2-D; the error cells are the ssm and
+# hybrid families', ROADMAP.md Queue 1 item 15 (b)'s
+# (tests/test_torch_dryrun.py lists them)
+DRYRUN_STATUS = (48, 16, 16)
 RINGO_CELLS = ("pagerank_twitter", "pagerank_twitter_2d")
 RINGO_TOL = 1e-6   # card vs CPU, relative to the largest value
 
@@ -4978,6 +5022,309 @@ def phase_two_d(dev, kernels, train_d1, batches):
     return {"flash_attention_fwd": k4_total}, k4_rows
 
 
+# phase 4j: attention's heads over model ranks that do not split them
+# evenly (whole heads a rank), and the audio and vlm families sharded
+HEADS_RANKS = 8              # gloo ranks on the one card: (a), (b) over (1, 8)
+HEADS_VLM_RANKS = 2          # (c) over (1, 2): ranks 0 and 1 of the world
+HEADS_JOIN_SECONDS = 600.0
+HEADS_BATCH = 2
+HEADS_DENSE_LAYERS = 8       # qwen1.5-4b's depth in phase 4j (of 40)
+HEADS_PROMPT = {"qwen1.5-4b": 512, "whisper-small": 64, "internvl2-26b": 128}
+
+
+def heads_config(arch):
+    """Phase 4j's config of ``arch``: qwen1.5-4b cut to
+    ``HEADS_DENSE_LAYERS``, whisper-small whole, internvl2-26b cut to
+    ``VLM_LAYERS`` as phase 4d cuts it."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    cut = {"qwen1.5-4b": HEADS_DENSE_LAYERS,
+           "internvl2-26b": VLM_LAYERS}.get(arch)
+    return dataclasses.replace(cfg, n_layers=cut) if cut else cfg
+
+
+def heads_inputs(cfg) -> dict:
+    """Phase 4j's inputs for ``cfg`` on the host, from seed 0:
+    ``HEADS_BATCH`` prompts of ``HEADS_PROMPT`` ids, ``YARD_STEPS`` teacher
+    ids each, whisper's stub frames or the VLM's patches."""
+    rng = np.random.default_rng(0)
+    b, s = HEADS_BATCH, HEADS_PROMPT[cfg.name]
+    vocab = min(getattr(cfg, "vocab_unpadded", 0) or cfg.vocab_size,
+                cfg.vocab_size)
+    out = {"tokens": torch.from_numpy(
+               rng.integers(0, vocab, (b, s)).astype(np.int32)),
+           "teacher": torch.from_numpy(
+               rng.integers(0, vocab, (b, YARD_STEPS)).astype(np.int64))}
+    if cfg.is_encoder_decoder:
+        out["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.enc_seq_len, cfg.d_model), dtype=np.float32))
+    if cfg.n_patches:
+        out["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_patches, cfg.d_model), dtype=np.float32))
+    return out
+
+
+@torch.no_grad()
+def heads_yardstick(model, inputs, dev, group=None) -> tuple:
+    """``prefill`` of ``inputs``' prompts (with their frames or patches),
+    then a teacher-forced ``decode_step`` per teacher column (whisper's
+    against ``encode``'s output) -> ((B, 1 + n, V) float32 on the host,
+    the host seconds of each part and, with ``group``, its collectives'
+    counts, bytes and seconds in each)."""
+    cfg = model.cfg
+    batch = {k: v.to(dev) for k, v in inputs.items() if k != "teacher"}
+    teacher = inputs["teacher"].to(dev)
+    s = batch["tokens"].shape[1] + cfg.n_patches
+    n = teacher.shape[1]
+
+    def snap():
+        sync()
+        return time.perf_counter(), dict(group.stats) if group else {}
+
+    marks = [snap()]
+    logits, cache = model.prefill(batch, s + n)
+    rows = [logits[:, -1].float()]
+    marks.append(snap())
+    enc = model.encode(batch["enc_embeds"]) if cfg.is_encoder_decoder \
+        else None
+    marks.append(snap())
+    for j in range(n):
+        logits, cache = model.decode_step(cache, teacher[:, j:j + 1], s + j,
+                                          enc_out=enc)
+        rows.append(logits[:, -1].float())
+    marks.append(snap())
+    rec = {}
+    for i, part in enumerate(("prefill", "encode", "decode")):
+        (t0, c0), (t1, c1) = marks[i], marks[i + 1]
+        per = n if part == "decode" else 1
+        rec[f"{part}_seconds"] = (t1 - t0) / per   # decode: a token's
+        if group:
+            rec[f"collectives_{part}"] = {k: (c1[k] - c0[k]) / per
+                                          for k in c0}
+    return torch.stack(rows, 1).cpu(), rec
+
+
+def heads_want_k4(cfg, heads: int) -> dict:
+    """{(q shape, k shape, dtype, causal): launches} a rank holding
+    ``heads`` query heads makes in :func:`heads_yardstick` (none without a
+    head): whisper's encoder twice (prefill, ``encode``) non-causal,
+    decoder self-attention causal and cross-attention non-causal at D =
+    64; the others' layers causal, KV repeated to the query heads."""
+    if heads == 0:
+        return {}
+    b, d = HEADS_BATCH, cfg.resolved_head_dim
+    s = HEADS_PROMPT[cfg.name] + cfg.n_patches
+    q = (b, s, heads, d)
+    bf = str(torch.bfloat16)
+    if not cfg.is_encoder_decoder:
+        return {(q, q, bf, True): cfg.n_layers}
+    e = (b, cfg.enc_seq_len, heads, d)
+    return {(e, e, bf, False): 2 * cfg.n_enc_layers,
+            (q, q, bf, True): cfg.n_layers, (q, e, bf, False): cfg.n_layers}
+
+
+def heads_rank(rank: int, d: int, workdir: str, jobs, device: str):
+    """Phase 4j, one rank: join a gloo world of ``d`` ranks on ``device``
+    (card 0) and run each of ``jobs`` ((label, config, model ranks m,
+    inputs)) in turn on ranks 0..m-1 over a (1, m) grid, one model at a
+    time: init from seed 0 keeping this rank's blocks, then
+    :func:`heads_yardstick` with K4's calls recorded.  Saves its logits
+    and a JSON record per job; on the card rank 0 and rank m - 1 (the
+    fewest heads) also hold K4 to its plain version on each of their
+    layer-0 shapes."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.kernels.bsr_spmv import bsr_spmv
+    from repro_torch.kernels.bsr_tricount import bsr_tricount
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.segment_sum import segment_sum_chunked
+    from repro_torch.launch.mesh import ModelGrid, ModelGroup, model_grid
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import Transformer
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    work = Path(workdir)
+    kernels = (bsr_spmv, segment_sum_chunked, bsr_tricount,
+               flash_attention_fwd)
+    by_variant = flash_attention_fwd.launches_by_variant
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}",
+                            rank=rank, world_size=d,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        sub = dist.new_group(list(range(HEADS_VLM_RANKS)))   # every rank
+        for label, cfg, m, inputs in jobs:
+            if rank >= m:
+                dist.barrier()
+                continue
+            t0 = time.perf_counter()
+            grid = model_grid(1, d) if m == d else \
+                ModelGrid(ModelGroup(1, 0), ModelGroup(m, rank, sub))
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device=device).manual_seed(0)
+            model, t_init = timed(lambda: Transformer.init_params(
+                cfg, gen, device=device, group=grid))
+            heads = model.layers[0].attn.n_heads
+            for k in kernels:
+                k.launches = 0
+            for v in by_variant:
+                by_variant[v] = 0
+            attn.NO_HEAD["calls"] = 0
+            with k4_calls() as (seen, first):
+                logits, rec = heads_yardstick(model, inputs, device,
+                                              grid.model)
+            torch.save(logits, work / f"rank{rank}_{label}.pt")
+            info = {"rank": rank, "arch": cfg.name, "label": label,
+                    "grid": [1, m], "n_layers": cfg.n_layers,
+                    "heads": heads, "kv_heads": model.kv_heads,
+                    "no_head_calls": attn.NO_HEAD["calls"],
+                    "params_held": sum(p.numel()
+                                       for p in model.parameters()),
+                    "param_bytes_held": nbytes(*model.parameters()),
+                    "seconds_init": t_init, "yardstick": rec,
+                    "launches": {k.__name__: k.launches for k in kernels},
+                    "k4_launches_by_variant": dict(by_variant),
+                    "k4_calls": [[list(key[0]), list(key[1]), key[2], key[3],
+                                  seen.count(key)] for key in set(seen)]}
+            if on_card:
+                info["max_memory_allocated"] = \
+                    torch.cuda.max_memory_allocated()
+                if rank in (0, m - 1):
+                    info["k4_on_path_inputs"] = [
+                        {"rank": rank, "heads": heads,
+                         **k4_on_path_inputs(*first[key], key[3])}
+                        for key in sorted(first, key=str)]
+            del first, model, logits
+            info["seconds"] = time.perf_counter() - t0
+            (work / f"rank{rank}_{label}.json").write_text(json.dumps(info))
+            dist.barrier()      # one model on the card at a time
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_heads(dev, kernels, yards):
+    """Phase 4j: (a) qwen1.5-4b at full width, cut to
+    ``HEADS_DENSE_LAYERS``, and (b) whisper-small at full width and depth,
+    over (1, 8) gloo ranks sharing the card (20 and 12 heads: 3 or 2, 2 or
+    1 a rank); (c) internvl2-26b at full width cut to ``VLM_LAYERS`` over
+    (1, 2).  Each rank's logits of a prefill and ``YARD_STEPS``
+    teacher-forced decode steps are held within ``DECODE_TOL`` of the
+    largest logit to the d = 1 run of the same weights and inputs: (a)'s
+    made here, (b)'s and (c)'s by phase 4d (``yards``: {arch: logits});
+    every rank holds the same bits.  K4 runs on each rank's own heads, the
+    launches counted a rank.  Returns K4's launches in the phase (the
+    ranks' and (a)'s d = 1 run) and the ranks' K4 rows."""
+    import shutil
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import Transformer
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "phase4j"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfgs = {label: heads_config(arch) for label, arch in
+            (("a", "qwen1.5-4b"), ("b", "whisper-small"),
+             ("c", "internvl2-26b"))}
+    inputs = {label: heads_inputs(cfg) for label, cfg in cfgs.items()}
+    before = flash_attention_fwd.launches
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    one = Transformer.init_params(cfgs["a"], gen, device=dev)
+    (want_a, rec_a), t_one = timed(lambda: heads_yardstick(one, inputs["a"],
+                                                           dev))
+    del one
+    torch.cuda.empty_cache()
+    want = {"a": want_a, "b": yards["whisper-small"],
+            "c": yards["internvl2-26b"]}
+    total = flash_attention_fwd.launches - before
+    check(total == cfgs["a"].n_layers,
+          f"phase 4j: (a)'s d = 1 run launched K4 {total} times")
+    ranks = {"a": HEADS_RANKS, "b": HEADS_RANKS, "c": HEADS_VLM_RANKS}
+    lines, k4_rows = [], []
+    try:
+        jobs = [(label, cfgs[label], ranks[label], inputs[label])
+                for label in ("a", "b", "c")]
+        _, t_ranks = timed(lambda: run_ranks(
+            heads_rank, HEADS_RANKS, HEADS_JOIN_SECONDS, "phase 4j",
+            str(work), jobs, dev.type))
+        for label, cfg, m, _ in jobs:
+            per = [json.loads((work / f"rank{r}_{label}.json").read_text())
+                   for r in range(m)]
+            got = [torch.load(work / f"rank{r}_{label}.pt")
+                   for r in range(m)]
+            w = want[label]
+            scale = float(w.abs().max())
+            errs = []
+            for r, (info, g) in enumerate(zip(per, got)):
+                what = f"phase 4j ({label}) {cfg.name} rank {r}"
+                check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+                      f"{what}: logits {tuple(g.shape)}, want "
+                      f"{tuple(w.shape)}")
+                check(same_bits(g, got[0]), f"{what}: other logits than "
+                      f"rank 0's")
+                err = (g.double() - w.double()).abs().amax(-1)  # (B, 1 + n)
+                errs.append(err.tolist())
+                check(bool((err <= DECODE_TOL * scale).all()),
+                      f"{what}: |d=m - d=1| by row and position "
+                      f"{err.tolist()} over {DECODE_TOL} x {scale}")
+                lo, hi = attn.head_range(cfg.n_heads, m, r)
+                klo, khi = attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads,
+                                              m, r)
+                check((info["heads"], info["kv_heads"]) ==
+                      (hi - lo, khi - klo),
+                      f"{what}: holds {info['heads']} / {info['kv_heads']} "
+                      f"heads, want {hi - lo} / {khi - klo}")
+                calls = {(tuple(c[0]), tuple(c[1]), c[2], c[3]): c[4]
+                         for c in info["k4_calls"]}
+                want_k4 = heads_want_k4(cfg, hi - lo)
+                n = sum(want_k4.values())
+                check(calls == want_k4 and
+                      info["launches"]["flash_attention_fwd"] == n and
+                      info["k4_launches_by_variant"]["sm90_wgmma"] == n,
+                      f"{what}: K4 {calls}, {info['launches']}, "
+                      f"{info['k4_launches_by_variant']}; want {want_k4}")
+                layers = cfg.n_layers + (cfg.n_layers + 2 * cfg.n_enc_layers
+                                         if cfg.is_encoder_decoder else 0)
+                check(info["no_head_calls"] ==
+                      (0 if hi > lo else layers + YARD_STEPS * (
+                          2 if cfg.is_encoder_decoder else 1)
+                       * cfg.n_layers),
+                      f"{what}: {info['no_head_calls']} headless calls")
+                check(not any(c for k, c in info["launches"].items()
+                              if k != "flash_attention_fwd"),
+                      f"{what} launched graph kernels: {info['launches']}")
+                total += n
+                for row in info.pop("k4_on_path_inputs", []):
+                    k4_rows.append({"arch": cfg.name, **row})
+            lines.append({"label": label, "arch": cfg.name,
+                          "n_layers": cfg.n_layers,
+                          "n_layers_published": get_config_layers(cfg.name),
+                          "grid": [1, m], "heads_per_rank":
+                          [i["heads"] for i in per],
+                          "kv_heads_per_rank": [i["kv_heads"] for i in per],
+                          "yardstick_max_abs_logit": scale,
+                          "yardstick_per_row": errs[0],
+                          "tolerance": DECODE_TOL * scale,
+                          "per_rank": per})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "heads", "ranks": HEADS_RANKS, "backend": "gloo",
+          "models": lines, "one_rank_a": rec_a, "seconds_one_rank_a": t_one,
+          "seconds_ranks": t_ranks, "k4_launches": total,
+          "k4_on_path_inputs": k4_rows,
+          "seconds": time.perf_counter() - t0})
+    return {"flash_attention_fwd": total}, k4_rows
+
+
+def get_config_layers(arch) -> int:
+    """``arch``'s published depth."""
+    from repro_torch.configs.base import get_config
+    return get_config(arch).n_layers
+
+
 def one_ulp_ratio(got, want) -> float:
     """Largest |got - want| / (2^-7·|want| + 1e-6): <= 1 is one bf16 ulp."""
     limit = BF16_ULP * want.double().abs() + 1e-6
@@ -5048,7 +5395,8 @@ def k4_on_path_inputs(q, k, v, causal=True) -> dict:
 
 
 def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
-              hybrid_rows=(), sharded_rows=(), dryrun_rows=(), two_d_rows=()):
+              hybrid_rows=(), sharded_rows=(), dryrun_rows=(), two_d_rows=(),
+              heads_rows=()):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
         attention_error_ratios, flash_attention_fwd, flash_attention_fwd_plain)
@@ -5114,6 +5462,7 @@ def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
     row["sharded_lm_path_inputs"] = list(sharded_rows)   # phase 4f's rank 0
     row["dryrun_path_inputs"] = list(dryrun_rows)   # phase 4g's rank 0
     row["two_d_path_inputs"] = list(two_d_rows)     # phase 4i's rank 0
+    row["heads_path_inputs"] = list(heads_rows)     # phase 4j's ranks 0, m-1
     return row
 
 
@@ -5469,7 +5818,8 @@ def main() -> int:
     sharded_lm, k4_sharded = phase_sharded_lm(
         dev, {SHARDED_LM_MODELS[0][0]: yard, **yards})
     del yard, yards
-    families, k4_families = phase_families(dev, kernels, args.profile)
+    families, k4_families, heads_yards = phase_families(dev, kernels,
+                                                        args.profile)
     torch.cuda.empty_cache()
     hybrid, k4_hybrid = phase_hybrid(dev, kernels, args.profile)
     torch.cuda.empty_cache()
@@ -5497,11 +5847,14 @@ def main() -> int:
     two_d, k4_two_d = phase_two_d(dev, kernels, one_rank["c"], batches)
     del batches
     torch.cuda.empty_cache()
+    heads, k4_heads = phase_heads(dev, kernels, heads_yards)
+    del heads_yards
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter() - t_graph_rows
     rows.append(kernel_k4(path["flash_attention_fwd"], k4_variants, k4_moe,
                           k4_families, k4_hybrid, k4_sharded, k4_dry,
-                          k4_two_d))
+                          k4_two_d, k4_heads))
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
@@ -5517,7 +5870,8 @@ def main() -> int:
                  launches_phase_train=train.get(r["name"], 0),
                  launches_phase_sharded_train=sharded_train.get(r["name"],
                                                                 0),
-                 launches_phase_two_d=two_d.get(r["name"], 0))
+                 launches_phase_two_d=two_d.get(r["name"], 0),
+                 launches_phase_heads=heads.get(r["name"], 0))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(smi, flush=True)

@@ -47,12 +47,14 @@ the backward (the ``all-gather`` bytes), and reduce-scatters their
 gradients back (``reduce-scatter``), on two pods then sums them over
 "pod" (``launch/mesh.ModelGrid``).
 
-Cells the port cannot run yet raise and are recorded as the reference
-records a failing cell (``status: "error"`` with the message), each
-naming ``ROADMAP.md`` Queue 1 item 15 (b): heads that do not split into
-whole heads over 16 model ranks (qwen1.5-4b's 20) and the ssm / audio /
-vlm / hybrid families over model ranks, in every kind of cell, train_4k
-included.
+Attention's heads stay whole over the 16 model ranks: where they do not
+split evenly (qwen1.5-4b's 20, whisper-small's 12) rank 0 holds the most
+(2 and 1 heads), so its counts are the largest rank's
+(``models/attention.head_range``).  Cells the port cannot run yet raise
+and are recorded as the reference records a failing cell (``status:
+"error"`` with the message), each naming ``ROADMAP.md`` Queue 1 item 15
+(b): the ssm and hybrid families over model ranks (xlstm-350m,
+jamba-1.5-large-398b), in every kind of cell.
 
 Results are cached as JSON under ``--out`` (default
 ``build/dryrun_results``), so a sweep resumes; the cells are counted in

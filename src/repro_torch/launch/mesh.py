@@ -516,6 +516,15 @@ class _Same(torch.autograd.Function):
         return g / ctx.d, None
 
 
+def pad_to(t: torch.Tensor, dim: int, width: int) -> torch.Tensor:
+    """``t`` with zeros after it on ``dim`` up to ``width``."""
+    if t.shape[dim] == width:
+        return t
+    shape = list(t.shape)
+    shape[dim] = width - t.shape[dim]
+    return torch.cat([t, t.new_zeros(shape)], dim)
+
+
 def _tracked(t: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and t.requires_grad
 
@@ -612,6 +621,27 @@ class ModelGroup(ShardGroup):
         out = parts[members[0]].float()
         for i in members[1:]:
             out = out + parts[i].float()
+        return out.to(t.dtype)
+
+    def _sum_ranges(self, t: torch.Tensor, dim: Optional[int],
+                    ranges) -> torch.Tensor:
+        """Member ``i`` holds positions ``ranges[i]`` = (start, size) of an
+        axis on ``dim`` of ``t`` (sizes may differ, ranges overlap): each
+        of this member's positions summed in float32, in member order, over
+        the members that hold it, cast back (:meth:`_sum` where ``ranges``
+        is None: every member holds all of ``t``).  The parts cross padded
+        to the widest range."""
+        if ranges is None:
+            return self._sum(t)
+        width = max(n for _, n in ranges)
+        parts = self._parts(pad_to(t, dim, width).contiguous())
+        s, n = ranges[self.rank]
+        out = torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+        for q, (a, b) in enumerate(ranges):
+            lo, hi = max(a, s), min(a + b, s + n)
+            if lo < hi:
+                out.narrow(dim, lo - s, hi - lo).add_(
+                    parts[q].narrow(dim, lo - a, hi - lo).float())
         return out.to(t.dtype)
 
     def _gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -948,6 +978,14 @@ class _CountingModelGroup(ModelGroup):
 
     def _sum_over(self, t: torch.Tensor, members) -> torch.Tensor:
         b = _nbytes(t)
+        return self.ledger.note("all-reduce", _same(t), b, (self.d - 1) * b)
+
+    def _sum_ranges(self, t: torch.Tensor, dim: Optional[int],
+                    ranges) -> torch.Tensor:
+        """Counted as a sum of the widest range's parts."""
+        if ranges is None:
+            return self._sum(t)
+        b = _nbytes(t) // max(t.shape[dim], 1) * max(n for _, n in ranges)
         return self.ledger.note("all-reduce", _same(t), b, (self.d - 1) * b)
 
     def _gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:

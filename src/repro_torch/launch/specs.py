@@ -11,22 +11,30 @@ Each ``*_structs`` returns ``(structs, specs)``: meta tensors
 the same keys holding each leaf's spec (``launch/sharding.py``).  A "mesh"
 is anything with ``shape`` ({axis: size}) and ``axis_names``: a
 ``launch.mesh.ModelGrid``, or ``make_production_mesh()``'s
-``MeshShape``.  Every rank holds blocks of one shape, so the structs are
-rank 0's.
+``MeshShape``.  The structs are rank 0's: every rank holds blocks of one
+shape, but where attention's heads do not split evenly over "model" rank 0
+holds the most (``models/attention.head_range``).
 
 Where the port's layout differs from the reference's:
 
-* ``params``: the specs are the reference's.  A ``wk`` / ``wv`` leaf whose
-  KV heads do not split over "model" holds the columns of the heads its
-  rank's query heads read (``models/attention.kv_head_range``), not the
-  spec's block of the flat columns.
+* ``params``: the specs are the reference's, but attention's blocks are
+  whole heads (``models/transformer.head_cols``): ``wq``'s columns and
+  bias and ``wo``'s rows of the rank's query heads, as even as whole
+  heads allow, and for ``wk`` / ``wv`` the columns of the KV heads those
+  read (``models/attention.kv_head_range``), not the spec's even block of
+  the flat columns.  Where the heads do not split evenly (qwen1.5-4b's 20
+  over 16: 2 on rank 0; whisper-small's 12: 1), the reference's GSPMD
+  pads the flat columns to an even split and rank 0 holds 1/16 of them;
+  the port's rank 0 holds its whole heads, so its bytes differ
+  (``PERF.md``).
 * ``cache``: the reference puts the decode cache's sequence on
   ``kv_seq`` ("model" for ``decode_32k``) and splits no heads (its
   ``cache_structs``, ``repro/launch/specs.py:113-147``).  A rank of the port
   holds its KV heads and the whole sequence: k / v (L, B, S, Hkv, D) get
-  (None, batch, None, kv_heads, None).  Recurrent states (xLSTM, Mamba)
-  are split on their batch dim only; their families have no sharded
-  forward at model > 1, and their cache raises there as their model does.
+  (None, batch, None, kv_heads, None), rank 0's KV heads.  Recurrent
+  states (xLSTM, Mamba) are split on their batch dim only; their families
+  have no sharded forward at model > 1, and their cache raises there as
+  their model does.
 * ``opt_state``: the specs are the reference's ZeRO-1 specs
   (``train/optimizer.opt_state_specs``) over the state of the full
   parameters, an Adafactor state over the reference's stacked ones (its
@@ -164,7 +172,7 @@ def batch_structs(cfg: ArchConfig, shape: ShapeSpec, mesh, rules,
 
 def cache_structs(cfg: ArchConfig, shape: ShapeSpec, mesh, rules
                   ) -> Tuple[Dict, Dict]:
-    """The port's decode cache on one rank (module docstring)."""
+    """The port's decode cache on rank 0 (module docstring)."""
     m = mesh.shape["model"]
     if m > 1 and cfg.family not in model.SHARDED_FAMILIES:
         raise NotImplementedError(

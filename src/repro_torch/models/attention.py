@@ -25,20 +25,28 @@ into the cache tensors in place.
 Tensor parallel (an :class:`Attention` built with a ``group``): the module
 holds its rank's heads, ``wq`` / ``wk`` / ``wv`` column blocks and ``wo``'s
 row block (Megatron's split), so every function here runs on the local
-heads (K4 at (B, S, H / m, D)) and one all-reduce over the group follows
-``wo``.  The cache holds the local KV heads.  Heads stay whole: where
-``n_kv_heads`` does not split ``m`` ways, a rank holds the KV heads its
-query heads read (:func:`kv_head_range`), so a KV head is held by
-``m / n_kv_heads`` ranks.  The reference's rule splits ``wk``'s flat
-output over "model" instead (``repro/launch/sharding.py:151``), splitting
-a head, and GSPMD reshards it.
+heads (K4 at (B, S, H_r, D)) and one all-reduce over the group follows
+``wo``.  The cache holds the local KV heads.  Heads stay whole: rank r of
+m holds the contiguous query heads :func:`head_range` gives it, as even as
+whole heads allow (the first H % m ranks one more), and the KV heads
+those read (:func:`kv_head_range`), so a KV head is held by every rank
+whose query heads read it.  Where a rank's query heads do not read its KV
+heads in equal groups (a range that straddles a KV head boundary), the
+module maps each local query head to its local KV head (``kv_index``).  A
+rank with no query head (H < m) holds zero-width blocks, launches no K4
+and adds zeros to ``wo``'s sum: an explicit branch, counted in
+:data:`NO_HEAD`.  The reference's rule splits the flat head columns over
+"model" instead (``repro/launch/sharding.py:151``), splitting a head where
+the heads do not divide, and GSPMD reshards it; the port gives the same
+numbers with whole heads.
 
-Trained over ranks, ``attention_train``'s input passes ``group.enter``
-(backward: the ranks' input gradients summed) and ``wo``'s output
-``group.psum`` (backward: the identity).  A KV head that several ranks
-hold gets a partial gradient on each, from that rank's query heads only;
-the train step sums it over exactly those ranks
-(``models/transformer.grad_members``).
+Trained over ranks, ``attention_train``'s input (and cross-attention's
+encoder states) passes ``group.enter`` (backward: the ranks' input
+gradients summed) and ``wo``'s output ``group.psum`` (backward: the
+identity).  A KV head that several ranks hold gets a partial gradient on
+each, from that rank's query heads only; the train step sums each head
+over exactly the ranks that hold it (``models/transformer.grad_members``,
+``train/zero.py``).
 """
 
 from __future__ import annotations
@@ -53,10 +61,12 @@ from .layers import Dense, dense
 
 __all__ = ["rope_frequencies", "apply_rope", "Attention", "flash_attention",
            "attention_train", "init_kv_cache", "attention_prefill",
-           "attention_decode", "kv_head_range"]
+           "attention_decode", "head_range", "kv_head_range", "NO_HEAD"]
 
 Cache = Dict[str, torch.Tensor]
 NEG_INF = -1e30
+#: layer calls on a rank that holds no query head (no K4 launched)
+NO_HEAD = {"calls": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -90,35 +100,62 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def head_range(n_heads: int, m: int, r: int) -> Tuple[int, int]:
+    """The query heads [lo, hi) of rank ``r`` of ``m``: contiguous, as even
+    as whole heads allow, the first ``H % m`` ranks one more (so rank 0
+    holds the most; a rank past the H-th holds none)."""
+    base, extra = divmod(n_heads, m)
+    lo = r * base + min(r, extra)
+    return lo, lo + base + (r < extra)
+
+
 def kv_head_range(n_heads: int, n_kv_heads: int, m: int, r: int
                   ) -> Tuple[int, int]:
-    """The KV heads [lo, hi) that rank ``r`` of ``m`` reads: its query
-    heads are [r·H/m, (r+1)·H/m), and query head i reads KV head
-    i // (H / Hkv).  Needs ``H % m == 0`` and ``Hkv % m == 0`` (each rank
-    Hkv / m heads of its own) or ``m % Hkv == 0`` (one head, read by m /
-    Hkv ranks); raises ``ValueError`` otherwise."""
-    if n_heads % m or (n_kv_heads % m and m % n_kv_heads):
-        raise ValueError(f"{n_heads} query and {n_kv_heads} KV heads do not "
-                         f"split into whole heads over {m} ranks")
-    per, group = n_heads // m, n_heads // n_kv_heads
-    lo = r * per // group
-    return lo, (r * per + per - 1) // group + 1
+    """The KV heads [lo, hi) that rank ``r`` of ``m`` reads: query head i
+    (of the rank's :func:`head_range`) reads KV head i // (H / Hkv).  A
+    rank with no query head reads none (``lo == hi``)."""
+    if n_heads % n_kv_heads:
+        raise ValueError(f"{n_heads} query heads do not group over "
+                         f"{n_kv_heads} KV heads")
+    group = n_heads // n_kv_heads
+    qlo, qhi = head_range(n_heads, m, r)
+    if qlo == qhi:
+        return qlo // group, qlo // group
+    return qlo // group, (qhi - 1) // group + 1
+
+
+def kv_index(n_heads: int, n_kv_heads: int, m: int, r: int
+             ) -> Optional[Tuple[int, ...]]:
+    """Rank ``r``'s local KV head for each of its local query heads, or
+    None where they read the local KV heads in equal groups in order
+    (what :func:`_repeat_kv` gives)."""
+    qlo, qhi = head_range(n_heads, m, r)
+    klo, khi = kv_head_range(n_heads, n_kv_heads, m, r)
+    group = n_heads // n_kv_heads
+    idx = tuple(i // group - klo for i in range(qlo, qhi))
+    h, hkv = qhi - qlo, khi - klo
+    if h == 0 or (h % hkv == 0 and
+                  idx == tuple(j // (h // hkv) for j in range(h))):
+        return None
+    return idx
 
 
 class Attention(nn.Module):
     """``wq``, ``wk``, ``wv`` (optional bias) and ``wo``, for ``n_heads``
     query and ``n_kv_heads`` KV heads; with ``group`` (a
     ``launch.mesh.ModelGroup``) those are the rank's heads and ``wo``'s
-    output is summed over the group."""
+    output is summed over the group.  ``kv_index``: each query head's KV
+    head where they do not read them in equal groups (:func:`kv_index`)."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int,
                  head_dim: int, *, qkv_bias: bool = False, group=None,
+                 kv_index: Optional[Tuple[int, ...]] = None,
                  device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.n_heads, self.n_kv_heads, self.head_dim = (n_heads, n_kv_heads,
                                                         head_dim)
-        self.group = group
+        self.group, self.kv_index = group, kv_index
         self.wq = Dense(d_model, n_heads * head_dim, bias=qkv_bias, **kw)
         self.wk = Dense(d_model, n_kv_heads * head_dim, bias=qkv_bias, **kw)
         self.wv = Dense(d_model, n_kv_heads * head_dim, bias=qkv_bias, **kw)
@@ -154,6 +191,28 @@ def _out(p: Attention, o: torch.Tensor, compute_dtype) -> torch.Tensor:
     b, s = o.shape[:2]
     y = dense(p.wo, o.reshape(b, s, -1), compute_dtype)
     return y if p.group is None else p.group.psum(y)
+
+
+def _no_head(p: Attention, q: torch.Tensor, compute_dtype,
+             enc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A rank that holds no query head: no K4; ``wo``'s zero-width product
+    adds zeros to the group's sum.  The zero-width products keep the
+    input's (and cross-attention's encoder states') gradient path, so the
+    backward's collectives run on this rank too."""
+    NO_HEAD["calls"] += 1
+    b, s = q.shape[:2]
+    o = q.reshape(b, s, 0)
+    if enc is not None:
+        o = o + dense(p.wk, enc, compute_dtype).sum(1, keepdim=True)
+    y = dense(p.wo, o, compute_dtype)
+    return y if p.group is None else p.group.psum(y)
+
+
+def _expand_kv(p: Attention, k: torch.Tensor) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, H, D): each query head's KV head."""
+    if p.kv_index is None:
+        return _repeat_kv(k, p.n_heads // p.n_kv_heads)
+    return k.index_select(2, torch.tensor(p.kv_index, device=k.device))
 
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
@@ -203,17 +262,21 @@ def attention_train(p: Attention, x: torch.Tensor, cfg, *, causal: bool = True,
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
+    enc = None if kv_override is None else kv_override[0]
     if p.group is not None:     # column-parallel entry: x's gradient summed
         x = p.group.enter(x)
+        enc = None if enc is None else p.group.enter(enc)
     q, k, v = _project_qkv(p, x, h, hkv, hd, compute)
-    if kv_override is not None:   # cross-attention: K/V from encoder states
-        k, v = _project_enc_kv(p, kv_override[0], hkv, hd, compute)
+    if h == 0:
+        return _no_head(p, q, compute, enc)
+    if enc is not None:           # cross-attention: K/V from encoder states
+        k, v = _project_enc_kv(p, enc, hkv, hd, compute)
         causal = False            # no RoPE across modalities
     else:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    k = _repeat_kv(k, h // hkv)
-    v = _repeat_kv(v, h // hkv)
+    k = _expand_kv(p, k)
+    v = _expand_kv(p, v)
     out = flash_attention(q, k, v, causal=causal, q_chunk=chunk, k_chunk=chunk,
                           skip_upper_triangle=skip_upper_triangle)
     return _out(p, out, compute)
@@ -235,12 +298,14 @@ def attention_prefill(p: Attention, x: torch.Tensor, cfg, cache: Cache,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, x, h, hkv, hd, compute)
+    if h == 0:
+        return _no_head(p, q, compute), cache
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     cache["k"][:, :s] = k
     cache["v"][:, :s] = v
-    kf = _repeat_kv(k, h // hkv)
-    vf = _repeat_kv(v, h // hkv)
+    kf = _expand_kv(p, k)
+    vf = _expand_kv(p, v)
     out = flash_attention(q, kf, vf, causal=True, q_chunk=chunk, k_chunk=chunk)
     return _out(p, out, compute), cache
 
@@ -261,6 +326,8 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg, cache: Cache,
     h, hkv, hd = p.n_heads, p.n_kv_heads, p.head_dim
     b = x.shape[0]
     q = dense(p.wq, x, compute).reshape(b, 1, h, hd)
+    if h == 0:
+        return _no_head(p, q, compute), cache
     if kv_override is None:
         if isinstance(pos, torch.Tensor):
             pos_t = pos.reshape(1).to(device=x.device, dtype=torch.long)
@@ -280,6 +347,8 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg, cache: Cache,
         k, v = _project_enc_kv(p, kv_override[0], hkv, hd, compute)
         valid_upto = k.shape[1]
     s_max = k.shape[1]
+    if p.kv_index is not None:    # uneven groups: each query head's own
+        k, v, hkv = _expand_kv(p, k), _expand_kv(p, v), h
     # query head i*g + j reads KV head i, as after _repeat_kv; grouping the
     # query heads instead of copying the cache g times gives the same dots
     g = h // hkv

@@ -46,24 +46,34 @@ same bits as before.  The MoE layers' load-balance losses sum into
 ``forward``'s aux, as in the reference; ``prefill`` and ``decode_step``
 drop them.
 
-Sharded over ranks (``group=``, a ``launch.mesh.ModelGrid``): the dense
-and MoE families hold each parameter's block by ``launch.sharding.
-param_specs`` and compute Megatron-style: ``wq`` / ``wk`` / ``wv`` and the
-MLP's ``wi`` / ``wg`` column-parallel, attention's and the MLP's ``wo``
-row-parallel with one all-reduce after each, the token embedding
-vocab-parallel (one all-reduce), the LM head's logits gathered along the
-vocabulary, so every rank holds all of them (and ``Engine`` picks the same
-token on each); norms and the router are whole on every rank, the MoE
-layers run per ``models/moe.py``.  A rank's KV cache holds its KV heads
-(``models/attention.py`` on heads that do not split).  Each rank's batch
-is its data shard's rows where the rules split "batch" over "data", the
-whole batch otherwise.  ``init_params`` draws every full tensor in the
-unsharded order and keeps the rank's block, one tensor at a time, and
-``from_arrays`` cuts the reference's arrays the same way, so the ranks
-together hold the unsharded model's numbers.  ``forward_train`` runs over
-ranks: the collectives carry the gradients (``launch/mesh.ModelGroup``),
-and :func:`grad_members` names the blocks whose gradient the train step
-sums over model ranks (``train/zero.py``).  Weights whose d_model dim the
+Sharded over ranks (``group=``, a ``launch.mesh.ModelGrid``): the dense,
+MoE, audio and vlm families hold each parameter's block by ``launch.
+sharding.param_specs`` and compute Megatron-style: ``wq`` / ``wk`` /
+``wv`` and the MLP's ``wi`` / ``wg`` column-parallel, attention's and the
+MLP's ``wo`` row-parallel with one all-reduce after each, the token
+embedding vocab-parallel (one all-reduce), the LM head's logits gathered
+along the vocabulary, so every rank holds all of them (and ``Engine``
+picks the same token on each); norms and the router are whole on every
+rank, the MoE layers run per ``models/moe.py``.  Attention's blocks are
+whole heads (``models/attention.head_range``): rank r holds a contiguous
+range of query heads, as even as whole heads allow (qwen1.5-4b's 20 over
+16 ranks: 2 on ranks 0–3, 1 on the others; whisper's 12: 1 on ranks
+0–11, none on 12–15), ``wq``'s columns, ``wo``'s rows and the q bias of
+those heads, and ``wk`` / ``wv`` the KV heads they read, where the
+reference's spec splits the flat columns evenly and GSPMD reshards a
+split head.  A rank's KV cache holds its KV heads.  Whisper's encoder
+layers run over the group as the decoder's do; its output is whole on
+every model rank and the decoder's cross-attention projects it onto the
+rank's KV heads.  A VLM's patch prefix goes before the first layer on
+every model rank.  Each rank's batch is its data shard's rows where the
+rules split "batch" over "data", the whole batch otherwise.
+``init_params`` draws every full tensor in the unsharded order and keeps
+the rank's block, one tensor at a time, and ``from_arrays`` cuts the
+reference's arrays the same way, so the ranks together hold the
+unsharded model's numbers.  ``forward_train`` runs over ranks: the
+collectives carry the gradients (``launch/mesh.ModelGroup``), and
+:func:`grad_members` names the blocks whose gradient the train step sums
+over model ranks (``train/zero.py``).  Weights whose d_model dim the
 rules put on "data" (``two_d_weights``, the giant models) are split over
 the data ranks too: a rank holds the block of both axes, and each apply
 gathers the weight whole on that dim over the data ranks where it is used
@@ -71,10 +81,8 @@ gathers the weight whole on that dim over the data ranks where it is used
 and decode at every call, and again in the backward; its gradient is
 reduce-scattered back to the block.  A 2-D block is held by one data
 rank (of each pod) only; the norms and the router's replicas stay whole.
-Not sharded (they raise): the ssm, audio, vlm and hybrid families over
-more than one rank, and heads that do not split into whole heads over
-the model ranks (qwen1.5-4b's 20 over 16); ``ROADMAP.md Queue 1 item 15
-(b)``.
+Not sharded (they raise): the ssm and hybrid families over more than one
+rank (``ROADMAP.md Queue 1 item 15 (b)``).
 
 The cache keeps the reference's layout: ``{"attn": {"k", "v"}}`` with
 shape (n_layers, B, max_seq, Hkv, D) in the compute dtype for the
@@ -108,11 +116,11 @@ from .layers import (MLP, Embed, Norm, dtype_of, embed_apply, full_shape,
                      mlp_apply, norm_apply, unembed_apply)
 
 __all__ = ["Transformer", "n_scan_steps", "REMAT", "param_blocks",
-           "model_holders", "grad_members"]
+           "head_cols", "model_ranges", "model_holders", "grad_members"]
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 _FAMILIES = ("dense", "moe", "ssm", "audio", "vlm", "hybrid")
-SHARDED_FAMILIES = ("dense", "moe")
+SHARDED_FAMILIES = ("dense", "moe", "audio", "vlm")
 _STACKED = ("layers.", "enc.layers.")   # stacked on a leading axis
 _INNER = ("mamba.", "moe.", "mlp.")     # a hybrid period's inner stacks
 ITEM = "ROADMAP.md Queue 1 item 15"
@@ -264,17 +272,15 @@ class _Widths:
     vocab_lo: int = 0
     group: Any = None
     experts: Optional[moe_mod.ExpertShard] = None
+    kv_index: Optional[Tuple[int, ...]] = None
 
 
 def _widths(cfg, grid, rules) -> _Widths:
     if grid is None:
         return _Widths(cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size)
     m, r = grid.model.d, grid.model.rank
-    try:
-        lo, hi = attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads, m, r)
-    except ValueError as e:     # the reference's GSPMD pads a split head
-        raise NotImplementedError(f"{cfg.name}: {e} (a head split across "
-                                  f"ranks): {ITEM} (b)") from e
+    qlo, qhi = attn.head_range(cfg.n_heads, m, r)
+    lo, hi = attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads, m, r)
     for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
         if n % m:
             raise ValueError(f"{cfg.name}: {what} {n} does not split over "
@@ -290,8 +296,9 @@ def _widths(cfg, grid, rules) -> _Widths:
             grid, r * n if on_model else 0, n, on_model,
             rules.mapping.get("batch") is not None)
     v = cfg.vocab_size // m
-    return _Widths(cfg.n_heads // m, hi - lo, cfg.d_ff // m, v, r * v,
-                   grid.model if m > 1 else None, experts)
+    return _Widths(qhi - qlo, hi - lo, cfg.d_ff // m, v, r * v,
+                   grid.model if m > 1 else None, experts,
+                   attn.kv_index(cfg.n_heads, cfg.n_kv_heads, m, r))
 
 
 def _moe(cfg, w: _Widths, kw) -> moe_mod.MoE:
@@ -306,7 +313,7 @@ def _moe(cfg, w: _Widths, kw) -> moe_mod.MoE:
 def _attention(cfg, w: _Widths, kw) -> attn.Attention:
     return attn.Attention(cfg.d_model, w.heads, w.kv_heads,
                           cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
-                          group=w.group, **kw)
+                          group=w.group, kv_index=w.kv_index, **kw)
 
 
 class Block(nn.Module):
@@ -880,14 +887,35 @@ class Transformer(nn.Module):
         return x
 
 
-def _keep(t: torch.Tensor, spec: tuple, coords, kv) -> torch.Tensor:
-    """A rank's block of a full parameter: by ``spec``, but for a ``wk`` /
-    ``wv`` leaf (``kv``: its columns [lo, hi)) the columns of the KV heads
-    the rank's query heads read."""
-    if kv is not None:
-        t = t.narrow(-1, kv[0], kv[1] - kv[0])
-        spec = spec[:-1] + (None,)
-    return sharding.local_block(t, spec, coords)
+def _keep(t: torch.Tensor, spec: tuple, coords, heads) -> torch.Tensor:
+    """A rank's block of a full parameter: by ``spec``, but for an
+    attention leaf (``heads``: (dim, lo, hi)) the rows or columns
+    [lo, hi) of its whole heads on that dim."""
+    if heads is not None:
+        dim, lo, hi = heads
+        t = t.narrow(dim, lo, hi - lo)
+        spec = list((None,) * (t.dim() - len(spec)) + tuple(spec))
+        spec[dim] = None
+    return sharding.local_block(t, tuple(spec), coords)
+
+
+def head_cols(cfg, name: str, m: int, r: int
+              ) -> Optional[Tuple[int, int, int]]:
+    """(dim, lo, hi) of the whole heads rank ``r`` of ``m`` holds of
+    attention leaf ``name`` (:func:`_head_leaf`): the columns of its query
+    heads for ``wq``'s weight and bias, the rows for ``wo``'s weight, the
+    columns of the KV heads those read for ``wk`` / ``wv``; None for any
+    other leaf or at ``m == 1``."""
+    kind = _head_leaf(name)
+    if kind is None or m == 1:
+        return None
+    hd = cfg.resolved_head_dim
+    if kind == "kv":
+        lo, hi = attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads, m, r)
+    else:
+        lo, hi = attn.head_range(cfg.n_heads, m, r)
+    dim = 0 if name.endswith("wo.w") else -1
+    return dim, lo * hd, hi * hd
 
 
 def param_blocks(cfg, coords, rules: sharding.LogicalRules
@@ -895,30 +923,55 @@ def param_blocks(cfg, coords, rules: sharding.LogicalRules
     """``{name: (the full parameter on the meta device, spec, keep)}`` of
     each parameter of ``cfg``'s model on the rank at ``coords`` (``{axis:
     (index, size)}``) under ``rules``: ``keep`` cuts a full tensor to the
-    rank's block.  The block
-    is ``local_block`` by the spec (``launch.sharding.param_specs``, the
-    reference's), but for ``wk`` / ``wv`` on KV heads that do not split
-    over "model" (``models/attention.kv_head_range``)."""
+    rank's block.  The block is ``local_block`` by the spec
+    (``launch.sharding.param_specs``, the reference's), but on attention's
+    head dim the rank's whole heads (:func:`head_cols`), whether or not
+    the heads split evenly over "model"."""
     full = {k: p.detach() for k, p in
             Transformer(cfg, device="meta").named_parameters()}
     specs = sharding.param_specs(full, rules)
     r, m = coords.get("model", (0, 1))
-    hd = cfg.resolved_head_dim
-    try:
-        kv_cols = tuple(i * hd for i in attn.kv_head_range(
-            cfg.n_heads, cfg.n_kv_heads, m, r)) if m > 1 else None
-    except ValueError:      # no whole heads: no model of the port runs so
-        kv_cols = None
     out = {}
     for name, p in full.items():
-        kv = kv_cols if _kv_leaf(name) else None
         out[name] = (p, specs[name], functools.partial(
-            _keep, spec=specs[name], coords=coords, kv=kv))
+            _keep, spec=specs[name], coords=coords,
+            heads=head_cols(cfg, name, m, r)))
     return out
 
 
+def _head_leaf(name: str) -> Optional[str]:
+    """"q" for ``wq``'s weight and bias and ``wo``'s weight, "kv" for
+    ``wk`` / ``wv``'s, None for any other leaf (``wo``'s bias is on
+    d_model)."""
+    hit = re.search(r"attn\.w([qkvo])\.([wb])$", name)
+    if hit is None or hit.group(1) == "o" and hit.group(2) == "b":
+        return None
+    return "kv" if hit.group(1) in "kv" else "q"
+
+
 def _kv_leaf(name: str) -> bool:
-    return re.search(r"attn\.w[kv]\.[wb]$", name) is not None
+    return _head_leaf(name) == "kv"
+
+
+def model_ranges(cfg, name: str, spec: tuple, shape: Tuple[int, ...],
+                 m: int) -> Optional[Tuple[Tuple[int, int], ...]]:
+    """Each model rank's (start, size) on the dim of parameter ``name``
+    (full shape ``shape``) that "model" splits, or None where the spec
+    names no "model" (whole on every rank): the rank's whole heads for an
+    attention leaf (:func:`head_cols`), else the spec's even blocks."""
+    mdim = next((i for i, e in enumerate(spec)
+                 if "model" in sharding._axes(e)), None)
+    if mdim is None:
+        return None
+    out = []
+    for q in range(m):
+        heads = head_cols(cfg, name, m, q)
+        if heads is not None:
+            out.append((heads[1], heads[2] - heads[1]))
+        else:
+            n = shape[mdim] // m
+            out.append((q * n, n))
+    return tuple(out)
 
 
 def model_holders(cfg, name: str, spec: tuple, m: int, r: int
@@ -926,18 +979,15 @@ def model_holders(cfg, name: str, spec: tuple, m: int, r: int
     """The model ranks (of ``m``) that hold the same block of parameter
     ``name`` as rank ``r``, in order: all of them for a parameter whole on
     every rank (``spec`` names no "model"), the ranks that read the same
-    KV heads for a ``wk`` / ``wv`` leaf whose heads do not split
-    (:func:`param_blocks`), else ``r`` alone.  Over "data" a block is held
-    by every data rank, but one the spec splits over "data" (a 2-D
-    weight) by its own data rank only (``train/zero.Leaf.d_owner``)."""
+    KV heads for a ``wk`` / ``wv`` leaf (:func:`param_blocks`), else
+    ``r`` alone.  Over "data" a block is held by every data rank, but one
+    the spec splits over "data" (a 2-D weight) by its own data rank only
+    (``train/zero.Leaf.d_owner``)."""
     if not any("model" in sharding._axes(e) for e in spec):
         return tuple(range(m))
-    if m > 1 and _kv_leaf(name) and cfg.n_kv_heads % m:
-        try:
-            heads = [attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads, m, q)
-                     for q in range(m)]
-        except ValueError:  # no whole heads: the spec's block (no model)
-            return (r,)
+    if m > 1 and _kv_leaf(name):
+        heads = [attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads, m, q)
+                 for q in range(m)]
         return tuple(q for q in range(m) if heads[q] == heads[r])
     return (r,)
 
@@ -948,14 +998,20 @@ def grad_members(cfg, name: str, spec: tuple, m: int, r: int
     gradient, in order (``r`` alone: its own is the whole).
 
     A block several ranks hold needs the sum where its ranks compute
-    different things from it: a KV head shared by the ranks whose query
-    heads read it (each rank's gradient comes from its own query heads),
-    and an MoE router under a sharded layer (each rank's combine weighs
-    only its own experts' gates, or its own columns of every expert).
-    The norms are whole on every rank too, but every rank computes the
-    same thing from them, so each already holds the whole gradient."""
+    different things from it: a KV head read by the query heads of several
+    ranks (each rank's gradient comes from its own query heads; the ranks
+    whose KV heads overlap rank ``r``'s, each head summed over the ranks
+    that hold it, ``train/zero.py``), and an MoE router under a sharded
+    layer (each rank's combine weighs only its own experts' gates, or its
+    own columns of every expert).  The norms are whole on every rank too,
+    but every rank computes the same thing from them, so each already
+    holds the whole gradient."""
     if m > 1 and _kv_leaf(name):
-        return model_holders(cfg, name, spec, m, r)
+        heads = [attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads, m, q)
+                 for q in range(m)]
+        lo, hi = heads[r]
+        return tuple(q for q, (a, b) in enumerate(heads)
+                     if q == r or max(a, lo) < min(b, hi))
     if m > 1 and re.search(r"moe\.(\d+\.)?router\.w$", name):
         return tuple(range(m))
     return (r,)

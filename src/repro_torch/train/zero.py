@@ -22,11 +22,17 @@ only, ZeRO-1.  Each parameter's layout is a :class:`Leaf`:
   (``launch/mesh.ModelGrid.weight``), in float32 in
   ``reduced_grad``;
 * ``mdim``: the dim split over "model" (None: whole on every model rank);
+  ``mranges``: every model rank's (start, size) on it, which differ where
+  attention's heads do not split evenly (``models/transformer.
+  model_ranges``: whole heads, a rank with none holding zero width);
   ``holders``: the model ranks holding the same block (all of them for a
-  whole parameter, the ranks sharing a KV head for a ``wk`` / ``wv`` leaf
-  whose heads do not split); ``members``: the model ranks whose gradients
-  add up to the block's (``models/transformer.grad_members``: shared KV
-  heads, the MoE router).
+  whole parameter, the ranks reading the same KV heads for a ``wk`` /
+  ``wv`` leaf); ``members``: the model ranks whose gradients add up to the
+  block's (``models/transformer.grad_members``: shared KV heads, the MoE
+  router), each KV head summed over the ranks that hold it; ``msum``:
+  some rank's block is such a sum, so every model rank joins it.  A
+  position of the whole parameter is counted (norm, Adafactor's sums,
+  the checkpoint) by the first rank that holds it (:meth:`Leaf.owned`).
 
 :func:`train_step`, in order:
 
@@ -39,8 +45,8 @@ only, ZeRO-1.  Each parameter's layout is a :class:`Leaf`:
    data size (a leaf with no ``zdim``: the whole gradient, summed the same
    way; a ``ddim`` leaf: already done by the weight gather's backward);
 3. clipping by the global norm of the whole gradient: each rank's sum of
-   squares over its blocks, a block that several ranks hold counted by the
-   first of them only, summed over "model" then over "data" in rank order;
+   squares over its blocks, a position that several ranks hold counted by
+   the first of them only, summed over "model" then over "data" in rank order;
 4. the optimizer's update of the ZeRO block of the parameter, in place,
    and of its state: AdamW elementwise; Adafactor over the reference's
    stacked parameters (``train/optimizer.stack_groups``: a group's layers
@@ -70,9 +76,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..launch.mesh import MeshShape, collective_phase
+from ..launch.mesh import MeshShape, collective_phase, pad_to
 from ..launch.sharding import _axes
-from ..models.transformer import grad_members, model_holders, param_blocks
+from ..models.transformer import (grad_members, model_holders, model_ranges,
+                                  param_blocks)
 from .optimizer import (Means, OptHyper, _factored, adafactor_leaf,
                         adafactor_update, adamw_init, adamw_update,
                         clip_by_global_norm, stack_groups, zero1_extend_spec)
@@ -88,10 +95,10 @@ class Leaf:
     """One parameter's place on the grid (module docstring)."""
     full: Tuple[int, ...]
     mdim: Optional[int]
-    mrange: Tuple[int, int]             # (start, size) of the block on mdim
+    mranges: Optional[Tuple[Tuple[int, int], ...]]   # (start, size) a rank
     holders: Tuple[int, ...]
-    distinct: Tuple[int, ...]           # one model rank per distinct block
     members: Tuple[int, ...]
+    msum: bool
     zdim: Optional[int]
     m_rank: int
     d_rank: int
@@ -104,6 +111,27 @@ class Leaf:
     def m_owner(self) -> bool:
         """This rank is the first that holds its block."""
         return self.m_rank == self.holders[0]
+
+    @property
+    def mrange(self) -> Tuple[int, int]:
+        """(start, size) of this rank's block on ``mdim``."""
+        return self.mranges[self.m_rank]
+
+    def owned(self, q: int) -> Tuple[int, int]:
+        """(start, size) of the part of model rank ``q``'s range that no
+        lower rank holds (the ranges ascend, so these tile the dim)."""
+        s, n = self.mranges[q]
+        lo = max([s] + [a + b for a, b in self.mranges[:q]])
+        return lo, max(s + n - lo, 0)
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        """The part of ``t`` (this rank's block, or its ZeRO block) that
+        this rank counts: its :meth:`owned` range on ``mdim``; a whole
+        parameter on its first holder, nothing elsewhere."""
+        if self.mdim is None:
+            return t if self.m_owner else t.narrow(0, 0, 0)
+        lo, n = self.owned(self.m_rank)
+        return t.narrow(self.mdim, lo - self.mrange[0], n)
 
     @property
     def d_owner(self) -> bool:
@@ -126,8 +154,6 @@ class Leaf:
 def _mrange(full: torch.Tensor, block: torch.Tensor, mdim) -> Tuple[int, int]:
     """Where ``block`` (a view of the contiguous ``full``) starts on
     ``mdim``, and its size there."""
-    if mdim is None:
-        return 0, 0
     start = block.storage_offset() // full.stride(mdim) % full.shape[mdim]
     return start, block.shape[mdim]
 
@@ -152,13 +178,17 @@ def layout_for(cfg, coords: Dict[str, Tuple[int, int]], rules,
             ext = zero1_extend_spec(spec, tuple(full.shape), dmesh)
             zdim = next((i for i, (a, b) in enumerate(zip(ext, spec))
                          if a == "data" and b != "data"), None)
+        ranges = model_ranges(cfg, name, spec, tuple(full.shape), m)
+        if mdim is not None and ranges[r][1] and \
+                ranges[r] != _mrange(full, keep(full), mdim):
+            raise AssertionError(f"{name}: the block is not at "
+                                 f"model_ranges' {ranges[r]}")
         out[name] = Leaf(
-            full=tuple(full.shape), mdim=mdim,
-            mrange=_mrange(full, keep(full), mdim),
+            full=tuple(full.shape), mdim=mdim, mranges=ranges,
             holders=model_holders(cfg, name, spec, m, r),
-            distinct=tuple(sorted({model_holders(cfg, name, spec, m, q)[0]
-                                   for q in range(m)})),
-            members=grad_members(cfg, name, spec, m, r), zdim=zdim,
+            members=grad_members(cfg, name, spec, m, r),
+            msum=any(len(grad_members(cfg, name, spec, m, q)) > 1
+                     for q in range(m)), zdim=zdim,
             m_rank=r, d_rank=di, d=d, ddim=ddim, w_rank=wi, wd=wd)
     return out
 
@@ -237,8 +267,12 @@ class BlockMeans(Means):
     def total(self, k, part, dims):
         leaf, grid = self.lay[k], self.grid
         if grid.model.d > 1 and leaf.mdim in dims:
-            part = grid.model._sum(part if leaf.m_owner
-                                   else torch.zeros_like(part))
+            n = leaf.owned(leaf.m_rank)[1]
+            if 0 < n < leaf.mrange[1]:
+                raise NotImplementedError(
+                    f"{k}: Adafactor's sums over a block that other ranks "
+                    f"hold in part (KV heads that straddle ranks)")
+            part = grid.model._sum(part if n else torch.zeros_like(part))
         if grid.data.d > 1 and leaf.zdim in dims:
             part = grid.data._sum(part)
         if leaf.ddim in dims:
@@ -251,8 +285,8 @@ def _reduce(g: torch.Tensor, leaf: Leaf, grid) -> torch.Tensor:
     of its ZeRO block (a ``ddim`` leaf's ``g``: its ``reduced_grad``,
     summed over "data" already)."""
     g = g.float()
-    if len(leaf.members) > 1:
-        g = grid.model._sum_over(g, leaf.members)
+    if leaf.msum:
+        g = grid.model._sum_ranges(g, leaf.mdim, leaf.mranges)
     data = grid.data
     if data.d == 1 or leaf.ddim is not None:
         return g
@@ -266,8 +300,8 @@ def _global_norm(grads: Dict[str, torch.Tensor], lay: Dict[str, Leaf],
     """Step 3's norm: each element of the whole gradient counted once."""
     total = None
     for k, g in grads.items():
-        sq = torch.sum(torch.square(g))
-        if not (lay[k].m_owner and lay[k].d_owner):
+        sq = torch.sum(torch.square(lay[k].own(g)))
+        if not lay[k].d_owner:
             sq = torch.zeros_like(sq)
         total = sq if total is None else total + sq
     if grid.model.d > 1:
@@ -373,8 +407,9 @@ def _gather_full(x: torch.Tensor, leaf: Leaf, dims, grid,
                  zsplit: bool) -> torch.Tensor:
     """The whole leaf from the ranks' pieces ``x`` (kept parameter dims
     ``dims``, -1 a stack dim): the data ranks' ZeRO blocks, the weights'
-    data ranks' blocks of a 2-D leaf, then the model ranks' distinct
-    blocks, concatenated in rank order."""
+    data ranks' blocks of a 2-D leaf, then each model rank's
+    :meth:`Leaf.owned` part of its block (the blocks padded to the widest
+    for the gather), concatenated in rank order."""
     x = x.detach()
     if zsplit and grid.data.d > 1 and leaf.zdim in dims:
         x = torch.cat(grid.data._parts(x.contiguous()),
@@ -383,15 +418,19 @@ def _gather_full(x: torch.Tensor, leaf: Leaf, dims, grid,
         x = torch.cat(grid.weight_data._parts(x.contiguous()),
                       dims.index(leaf.ddim))
     if grid.model.d > 1 and leaf.mdim in dims:
-        parts = grid.model._parts(x.contiguous())
-        x = torch.cat([parts[q] for q in leaf.distinct],
-                      dims.index(leaf.mdim))
+        j = dims.index(leaf.mdim)
+        width = max(n for _, n in leaf.mranges)
+        parts = grid.model._parts(pad_to(x, j, width).contiguous())
+        x = torch.cat([parts[q].narrow(j, lo - s, n) for q, ((s, _), (lo, n))
+                       in enumerate(zip(leaf.mranges, map(
+                           leaf.owned, range(grid.model.d))))], j)
     return x
+
 
 
 def _cut(t: torch.Tensor, leaf: Leaf, dims, zsplit: bool) -> torch.Tensor:
     """:func:`_gather_full`'s inverse: this rank's piece of a whole leaf."""
-    if leaf.mdim in dims and leaf.mrange[1]:
+    if leaf.mdim in dims:
         t = t.narrow(dims.index(leaf.mdim), *leaf.mrange)
     if leaf.ddim in dims:
         j = dims.index(leaf.ddim)

@@ -700,6 +700,106 @@ def sharded_train_job(cases, ckpt=None) -> dict:
     return out
 
 
+def heads_job(data: int, model: int, cases) -> dict:
+    """Each of ``cases`` ((tag, config overrides, arrays, batch, prompt,
+    teacher, grads)) over a (``data``, ``model``) grid whose model ranks
+    need not split the heads evenly: on this data shard's rows, ``forward``
+    of ``batch``; ``loss_fn`` of it and the whole gradient (each block
+    summed over the model ranks that hold it, reduced over "data" and
+    gathered as a checkpoint gathers state); ``prefill`` of ``prompt`` and
+    a teacher-forced ``decode_step`` per column of ``teacher`` (whisper:
+    against ``encode``'s output); the calls that found no head on this
+    rank (``models/attention.NO_HEAD``); the parameters and cache beside
+    ``launch.specs.input_specs``' meta shapes (rank 0's); then, from
+    ``arrays``, one ``zero.apply_gradients`` of the whole gradients
+    ``grads`` (a position several model ranks hold given to the first of
+    them) and the whole parameters after it.  Returns numpy."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import model_grid
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import zero
+    from repro_torch.train.optimizer import OptHyper
+    grid = model_grid(data, model)
+    di = grid.data.rank
+
+    def rows(a):
+        n = a.shape[0] // data
+        return torch.from_numpy(np.ascontiguousarray(a[di * n:(di + 1) * n]))
+
+    def whole(m, grads):
+        lay = zero.layout(m)
+        out = {}
+        for k, g in grads.items():
+            dims = tuple(range(len(lay[k].full)))
+            out[k] = zero._gather_full(zero._reduce(g, lay[k], grid), lay[k],
+                                       dims, grid, zsplit=True).numpy()
+        return out
+
+    out = {"coords": grid.coords}
+    for tag, over, arrays, batch, prompt, teacher, grads in cases:
+        cfg = _train_cfg(over)
+        m = Transformer.from_arrays(cfg, arrays, device="cpu", group=grid)
+        mine = {k: rows(v) for k, v in batch.items()}
+        attn.NO_HEAD["calls"] = 0
+        logits, _ = m({k: v for k, v in mine.items() if k != "targets"})
+        res = {"forward": logits.numpy(), "heads": m.layers[0].attn.n_heads,
+               "kv_heads": m.kv_heads}
+        loss, _ = m.loss_fn(mine)
+        loss.backward()
+        lay = zero.layout(m)
+        taken = {k: zero._taken_grad(p, lay[k])
+                 for k, p in m.named_parameters()}
+        with torch.no_grad():
+            res["loss"] = float(grid.data._sum(loss.detach()) / data
+                                if data > 1 else loss)
+            res["grads"] = whole(m, taken)
+            p_mine = {k: rows(v) for k, v in prompt.items()}
+            n_prompt = p_mine["tokens"].shape[1] + cfg.n_patches
+            max_seq = n_prompt + teacher.shape[1] + 2
+            pre, cache = m.prefill(p_mine, max_seq)
+            enc = m.encode(p_mine["enc_embeds"]) \
+                if cfg.is_encoder_decoder else None
+            steps = [pre.numpy()[:, -1]]
+            t = rows(teacher)
+            for j in range(t.shape[1]):
+                dec, cache = m.decode_step(cache, t[:, j:j + 1],
+                                           n_prompt + j, enc_out=enc)
+                steps.append(dec.numpy()[:, 0])
+        res["steps"] = np.stack(steps, 1)
+        res["no_head_calls"] = attn.NO_HEAD["calls"]
+        b = batch["tokens"].shape[0]
+        shape = ShapeSpec("t", max_seq, b, "decode")
+        _, structs, _ = specs.input_specs(cfg, shape, grid)
+        res["param_shapes"] = {k: tuple(p.shape)
+                               for k, p in m.named_parameters()}
+        res["param_meta"] = {k: tuple(t.shape) for k, t in structs[0].items()}
+        res["cache_shapes"] = {k: tuple(t.shape)
+                               for k, t in cache["attn"].items()}
+        res["cache_meta"] = {k: tuple(t.shape)
+                             for k, t in structs[1]["attn"].items()}
+        given = Transformer.from_arrays(cfg, arrays, device="cpu", group=grid)
+        state = zero.init_state(cfg.optimizer, given)
+        lay = zero.layout(given)
+        for k, p in given.named_parameters():
+            g = p.keep(torch.from_numpy(grads[k])).clone()
+            if lay[k].msum and lay[k].mdim is not None:
+                lo, n = lay[k].owned(lay[k].m_rank)
+                keep = torch.zeros_like(g)
+                keep.narrow(lay[k].mdim, lo - lay[k].mrange[0], n).fill_(1)
+                g = g * keep
+            p.grad = g
+        res["grad_norm"] = float(zero.apply_gradients(given, state, 0,
+                                                      OptHyper()))
+        tree = zero.full_tree(given, state)["params"]
+        res["params_1"] = {k: f().numpy() for k, f in tree.items()}
+        out[tag] = res
+    return out
+
+
 def two_d_job(cases, ckpt=None, memory=None, prompts=()) -> dict:
     """Each of ``cases`` ((tag, data, model, config overrides, expert axis
     parallel, arrays, tokens, batches, grads)) with its weights 2-D

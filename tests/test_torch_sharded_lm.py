@@ -27,7 +27,8 @@ A sharded ``loss_fn`` of qwen2.5-3b and its gradient of the final norm
 agree with the unsharded port's on the rank's rows within 1e-5 (the
 collectives carry gradients; ``tests/test_torch_sharded_train.py`` holds
 the sharded train step).  The families with no sharded forward (ssm,
-audio, vlm, hybrid) raise over more than one rank; weights split over a
+hybrid) raise over more than one rank, the audio and vlm families build
+(``tests/test_torch_sharded_heads.py`` holds them); weights split over a
 data axis of two are their spec's blocks (``tests/test_torch_two_d.py``
 holds their numbers).
 """
@@ -279,14 +280,36 @@ def _abstract(data, model):
 @pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-small",
                                   "internvl2-26b", "jamba-1.5-large-398b"])
 def test_unported_families_raise_over_model_ranks(arch):
+    """The ssm and hybrid families have no sharded forward yet and raise
+    over model ranks, model and cache alike; the audio and vlm families
+    build over (1, 2) (``tests/test_torch_sharded_heads.py`` holds their
+    numbers), each rank holding its query heads and the KV heads they
+    read, in its model and in ``cache_structs``."""
     cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15 \\(b\\)"):
-        Transformer(cfg, device="cpu", group=_abstract(1, 2))
     mesh = _abstract(1, 2)
     from repro_torch.configs.base import ShapeSpec
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15 \\(b\\)"):
-        specs.cache_structs(cfg, ShapeSpec("d", 8, 2, "decode"), mesh,
-                            specs.rules_for(cfg, mesh, "decode"))
+    shape = ShapeSpec("d", 8, 2, "decode")
+    if arch in ("xlstm-350m", "jamba-1.5-large-398b"):
+        with pytest.raises(NotImplementedError,
+                           match="Queue 1 item 15 \\(b\\)"):
+            Transformer(cfg, device="cpu", group=_abstract(1, 2))
+        with pytest.raises(NotImplementedError,
+                           match="Queue 1 item 15 \\(b\\)"):
+            specs.cache_structs(cfg, shape, mesh,
+                                specs.rules_for(cfg, mesh, "decode"))
+    else:
+        for r in range(2):
+            grid = ModelGrid(ModelGroup(1, 0), ModelGroup(2, r))
+            m = Transformer(cfg, device="cpu", group=grid)
+            layers = list(m.layers) + (list(m.enc["layers"]) if m.enc
+                                       else [])
+            assert all(blk.attn.n_heads == cfg.n_heads // 2 for blk in
+                       layers)
+            assert m.kv_heads == cfg.n_kv_heads // 2 == \
+                m.init_cache(2, 8)["attn"]["k"].shape[3]
+        cache, _ = specs.cache_structs(cfg, shape, mesh,
+                                       specs.rules_for(cfg, mesh, "decode"))
+        assert cache["attn"]["k"].shape[3] == cfg.n_kv_heads // 2
     # one rank: the unsharded model, through the grid
     Transformer(cfg, device="cpu", group=_abstract(1, 1))
 

@@ -182,32 +182,55 @@ def test_local_blocks_tile_the_tensor(grid):
                              {"model": (0, 2)})
 
 
+# reduced configs whose heads would split evenly get counts that do not
+UNEVEN_HEADS = {"qwen1.5-4b": {"n_heads": 6, "n_kv_heads": 6},
+                "whisper-small": {"n_heads": 3, "n_kv_heads": 3},
+                "internvl2-26b": {"n_heads": 6, "n_kv_heads": 2}}
+
+
 @pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b",
+                                  "qwen1.5-4b", "whisper-small",
+                                  "internvl2-26b"])
 def test_param_blocks_tile_each_parameter(arch, grid):
     """Every rank's blocks of every parameter of reduced ``arch``, by its
-    spec: they tile the tensor.  K and V: each rank holds the whole KV
-    heads its query heads read, every head is held by someone."""
+    spec: they tile the tensor.  Attention: each rank holds whole heads,
+    its ``head_range``'s query heads (``wq``'s columns and bias, ``wo``'s
+    rows; the spec's block where the heads split evenly) and the KV heads
+    they read; every head is held by someone, a query head by one rank."""
     data, model = grid
-    cfg = reduced(get_config(arch))
+    cfg = reduced(get_config(arch), **UNEVEN_HEADS.get(arch, {}))
     full = dict(Transformer.init_params(cfg, device="cpu").named_parameters())
     rules = specs.rules_for(cfg, MeshShape(("data", "model"), grid),
                             "prefill")
     hd, h, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    heads_held = set()
+    heads_held, q_held = set(), []
     for c in _coords(data, model):
         blocks = param_blocks(cfg, c, rules)
+        r = c["model"][0]
+        lo, hi = attn.head_range(h, model, r)
+        if c["data"][0] == 0:
+            q_held.extend(range(lo, hi))
         for name, p in full.items():
             meta, spec, keep = blocks[name]
             assert meta.shape == p.shape and meta.device.type == "meta"
             blk = keep(p.detach())
-            if name.endswith(("attn.wk.w", "attn.wv.w")):
-                lo, hi = attn.kv_head_range(h, hkv, model, c["model"][0])
-                assert torch.equal(blk, p[:, lo * hd:hi * hd])
-                heads_held.update(range(lo, hi))
+            if name.endswith(("attn.wk.w", "attn.wv.w", "attn.wk.b",
+                              "attn.wv.b")):
+                klo, khi = attn.kv_head_range(h, hkv, model, r)
+                assert torch.equal(blk, p[..., klo * hd:khi * hd]), name
+                heads_held.update(range(klo, khi))
                 continue
+            if name.endswith(("attn.wq.w", "attn.wq.b", "attn.wo.w")):
+                cols = slice(lo * hd, hi * hd)
+                want = p[cols] if name.endswith(("wq.b", "wo.w")) \
+                    else p[:, cols]
+                assert torch.equal(blk, want), name
+                if h % model:
+                    continue
             assert torch.equal(blk, p[_offsets(p.shape, spec, c)]), name
     assert heads_held == set(range(hkv))
+    assert sorted(q_held) == list(range(h))
 
 
 def test_decode_cache_specs_pin_both_layouts():
