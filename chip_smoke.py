@@ -386,6 +386,30 @@ Phases (each prints one JSON line with its seconds):
    of their layer-0 shapes (``heads_path_inputs`` in K4's row).  Its line
    prints each rank's heads, seconds and collectives per prefill, encode
    and token (``ModelGroup.stats``: at m = 8 a psum receives 7 parts).
+4k. the ssm and hybrid families over model ranks, eight gloo ranks
+   sharing the card.  (a) xlstm-350m at full width and depth, float32
+   compute (``RECURRENT_OVER``), over (1, 8):
+   its 4 mLSTM heads one a rank on ranks 0-3 and none on 4-7 (the
+   headless branch, ``models/xlstm.NO_HEAD``), the sLSTM's 2048 channels
+   as 256 a rank, its ``h`` gathered at each step; (b) jamba-1.5-large at
+   full width in phase 4e's period (``HYBRID_PERIOD``) over (1, 2) on
+   ranks 0 and 1, ``expert_tp``, capacity factor 1.25, bf16: 32 query and
+   4 KV heads, 8192 Mamba channels and 8 experts a rank.  Each runs
+   ``heads_yardstick`` (a prefill of ``RECURRENT_BATCH`` prompts of
+   ``RECURRENT_PROMPT`` ids, then ``YARD_STEPS`` teacher-forced decode
+   steps) from seed-0 weights, every rank's logits the same bits and
+   within ``DECODE_TOL`` of the largest logit of the d = 1 run on the same
+   weights and inputs, run first in the parent over the one-rank grid and
+   freed before the ranks spawn (jamba's 45.94 GB and both ranks' do not
+   fit together; the ranks draw their blocks one after another).  The
+   model group's calls a prefill and a token must be
+   ``recurrent_collectives``' (an sLSTM gather a step a block).  K4
+   launches once a jamba rank, ``"sm90_wgmma"`` at (2, 1024, 32, 128),
+   none for xLSTM; ranks 0 and 1 hold it to its plain version on their
+   layer-0 inputs (``recurrent_path_inputs`` in K4's row).  Its line
+   prints the prefill seconds and ms a token, seconds a decode token,
+   collectives by count and bytes sent and received, each rank's peak
+   memory and the largest gap against d = 1 over the largest logit.
 5. every kernel against its plain PyTorch version at the shapes phases 2-4
    gave it, with its time, the plain version's, a library call's where one
    computes the same function, and the card's lower bound.  Printed as one
@@ -415,14 +439,15 @@ Phases (each prints one JSON line with its seconds):
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
 path's, and phases 3b's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's, 4b's, 4h's,
-4i's and 4j's are their own (3d's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's,
-4b's, 4h's, 4i's and 4j's print in each kernel row as
+4i's, 4j's and 4k's are their own (3d's to 3g's, 4c's, 4f's, 4d's, 4e's,
+4g's, 4b's, 4h's, 4i's, 4j's and 4k's print in each kernel row as
 ``launches_phase_3d`` ... ``_3g``, ``launches_phase_moe``,
 ``launches_phase_sharded_lm``, ``launches_phase_families``,
 ``launches_phase_hybrid``, ``launches_phase_dryrun``,
 ``launches_phase_train``, ``launches_phase_sharded_train``,
-``launches_phase_two_d`` and ``launches_phase_heads``; the ranks of 4f,
-4h, 4i and 4j count their own): each window's
+``launches_phase_two_d``, ``launches_phase_heads`` and
+``launches_phase_recurrent``; the ranks of 4f, 4h, 4i, 4j and 4k count
+their own): each window's
 counts are zeroed just before it and read just after it.  Any failed
 check raises, and the script exits non-zero without its last line, which
 on success is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -3911,13 +3936,13 @@ def phase_hybrid(dev, kernels, profile):
 # phase 4g: the dry run, and rank 0 of one production-mesh cell on the card
 DRYRUN_CELL = ("qwen2.5-3b", "prefill_32k")
 DRYRUN_K4_SHAPE = (2, 32768, 1, 128)   # rank 0's heads after the GQA repeat
-# (ok, skipped, error) of the single- and two-pod sweeps: the dense, audio
-# and vlm archs serve prefill and decode and train (the sharded train
-# step; qwen1.5-4b's and whisper's heads as whole heads), and so do the
-# giant models with their weights 2-D; the error cells are the ssm and
-# hybrid families', ROADMAP.md Queue 1 item 15 (b)'s
-# (tests/test_torch_dryrun.py lists them)
-DRYRUN_STATUS = (48, 16, 16)
+# (ok, skipped, error) of the single- and two-pod sweeps: every arch
+# serves prefill and decode and trains (the sharded train step;
+# qwen1.5-4b's and whisper's heads as whole heads), the giant models and
+# jamba with their weights 2-D, and the ssm and hybrid families run
+# long_500k too (their sLSTM loop counted one middle step for all); the
+# others skip long_500k (tests/test_torch_dryrun.py lists the cells)
+DRYRUN_STATUS = (64, 16, 0)
 RINGO_CELLS = ("pagerank_twitter", "pagerank_twitter_2d")
 RINGO_TOL = 1e-6   # card vs CPU, relative to the largest value
 
@@ -3942,9 +3967,6 @@ def dryrun_sweep() -> dict:
           tuple(status.values()) == DRYRUN_STATUS,
           f"dry run: {status} cells ok / skipped / error, want "
           f"{DRYRUN_STATUS}")
-    check(all("item 15 (b)" in c["error"] for c in cells
-              if c["status"] == "error"),
-          "a dry-run cell failed for another reason than item 15 (b)")
     cell = next(c for c in cells if (c["arch"], c["shape"]) == DRYRUN_CELL
                 and not c["multi_pod"])
     ringo = []
@@ -5025,7 +5047,7 @@ def phase_two_d(dev, kernels, train_d1, batches):
 # phase 4j: attention's heads over model ranks that do not split them
 # evenly (whole heads a rank), and the audio and vlm families sharded
 HEADS_RANKS = 8              # gloo ranks on the one card: (a), (b) over (1, 8)
-HEADS_VLM_RANKS = 2          # (c) over (1, 2): ranks 0 and 1 of the world
+HEADS_VLM_RANKS = 2          # (c) over (1, 2): ranks 0 and 1 (lm_rank's)
 HEADS_JOIN_SECONDS = 600.0
 HEADS_BATCH = 2
 HEADS_DENSE_LAYERS = 8       # qwen1.5-4b's depth in phase 4j (of 40)
@@ -5123,15 +5145,31 @@ def heads_want_k4(cfg, heads: int) -> dict:
             (q, q, bf, True): cfg.n_layers, (q, e, bf, False): cfg.n_layers}
 
 
-def heads_rank(rank: int, d: int, workdir: str, jobs, device: str):
-    """Phase 4j, one rank: join a gloo world of ``d`` ranks on ``device``
-    (card 0) and run each of ``jobs`` ((label, config, model ranks m,
-    inputs)) in turn on ranks 0..m-1 over a (1, m) grid, one model at a
-    time: init from seed 0 keeping this rank's blocks, then
-    :func:`heads_yardstick` with K4's calls recorded.  Saves its logits
-    and a JSON record per job; on the card rank 0 and rank m - 1 (the
-    fewest heads) also hold K4 to its plain version on each of their
-    layer-0 shapes."""
+def rank_widths(model) -> dict:
+    """What a rank of a sharded model holds: its attention's query and KV
+    heads, or an xLSTM's mLSTM heads, and a recurrent family's share of
+    the inner channels (:func:`lm_rank`'s record)."""
+    blk = model.layers[0]
+    if model.cfg.family == "ssm":
+        return {"heads": blk.mixer(0).n_heads,
+                "inner": blk.mixer(1).r_h.w.shape[1]}
+    out = {"heads": blk.attn.n_heads, "kv_heads": model.kv_heads}
+    if model.cfg.family == "hybrid":
+        out["inner"] = blk.mamba[0].d_skip.shape[0]
+    return out
+
+
+def lm_rank(rank: int, d: int, workdir: str, jobs, device: str):
+    """Phases 4j and 4k, one rank: join a gloo world of ``d`` ranks on
+    ``device`` (card 0) and run each of ``jobs`` ((label, config, model
+    ranks m, inputs)) in turn on ranks 0..m-1 over a (1, m) grid (m < d:
+    ranks 0 and 1), one model at a time: init from seed 0 keeping this
+    rank's blocks (the ranks one after another, so two full-size draws
+    never overlap on the card), then :func:`heads_yardstick` with K4's
+    calls recorded.  Saves its logits and a JSON record per job
+    (:func:`rank_widths`, the headless calls of attention and of the
+    mLSTM); on the card rank 0 and rank m - 1 (the fewest heads) also
+    hold K4 to its plain version on each of their layer-0 shapes."""
     import datetime
     import torch.distributed as dist
     from repro_torch.kernels.bsr_spmv import bsr_spmv
@@ -5140,6 +5178,7 @@ def heads_rank(rank: int, d: int, workdir: str, jobs, device: str):
     from repro_torch.kernels.segment_sum import segment_sum_chunked
     from repro_torch.launch.mesh import ModelGrid, ModelGroup, model_grid
     from repro_torch.models import attention as attn
+    from repro_torch.models import xlstm
     from repro_torch.models.transformer import Transformer
     on_card = device == "cuda"
     if on_card:
@@ -5153,7 +5192,7 @@ def heads_rank(rank: int, d: int, workdir: str, jobs, device: str):
                             rank=rank, world_size=d,
                             timeout=datetime.timedelta(seconds=300))
     try:
-        sub = dist.new_group(list(range(HEADS_VLM_RANKS)))   # every rank
+        sub = dist.new_group([0, 1])        # every rank calls new_group
         for label, cfg, m, inputs in jobs:
             if rank >= m:
                 dist.barrier()
@@ -5164,23 +5203,28 @@ def heads_rank(rank: int, d: int, workdir: str, jobs, device: str):
             if on_card:
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
-            gen = torch.Generator(device=device).manual_seed(0)
-            model, t_init = timed(lambda: Transformer.init_params(
-                cfg, gen, device=device, group=grid))
-            heads = model.layers[0].attn.n_heads
+            for turn in range(m):           # the ranks' draws in turn
+                if turn == rank:
+                    gen = torch.Generator(device=device).manual_seed(0)
+                    model, t_init = timed(lambda: Transformer.init_params(
+                        cfg, gen, device=device, group=grid))
+                    if on_card:
+                        torch.cuda.empty_cache()
+                dist.barrier(group=None if m == d else sub)
             for k in kernels:
                 k.launches = 0
             for v in by_variant:
                 by_variant[v] = 0
-            attn.NO_HEAD["calls"] = 0
+            attn.NO_HEAD["calls"] = xlstm.NO_HEAD["calls"] = 0
             with k4_calls() as (seen, first):
                 logits, rec = heads_yardstick(model, inputs, device,
                                               grid.model)
             torch.save(logits, work / f"rank{rank}_{label}.pt")
             info = {"rank": rank, "arch": cfg.name, "label": label,
                     "grid": [1, m], "n_layers": cfg.n_layers,
-                    "heads": heads, "kv_heads": model.kv_heads,
-                    "no_head_calls": attn.NO_HEAD["calls"],
+                    **rank_widths(model),
+                    "no_head_calls": attn.NO_HEAD["calls"]
+                    + xlstm.NO_HEAD["calls"],
                     "params_held": sum(p.numel()
                                        for p in model.parameters()),
                     "param_bytes_held": nbytes(*model.parameters()),
@@ -5194,7 +5238,7 @@ def heads_rank(rank: int, d: int, workdir: str, jobs, device: str):
                     torch.cuda.max_memory_allocated()
                 if rank in (0, m - 1):
                     info["k4_on_path_inputs"] = [
-                        {"rank": rank, "heads": heads,
+                        {"rank": rank, "heads": info["heads"],
                          **k4_on_path_inputs(*first[key], key[3])}
                         for key in sorted(first, key=str)]
             del first, model, logits
@@ -5248,7 +5292,7 @@ def phase_heads(dev, kernels, yards):
         jobs = [(label, cfgs[label], ranks[label], inputs[label])
                 for label in ("a", "b", "c")]
         _, t_ranks = timed(lambda: run_ranks(
-            heads_rank, HEADS_RANKS, HEADS_JOIN_SECONDS, "phase 4j",
+            lm_rank, HEADS_RANKS, HEADS_JOIN_SECONDS, "phase 4j",
             str(work), jobs, dev.type))
         for label, cfg, m, _ in jobs:
             per = [json.loads((work / f"rank{r}_{label}.json").read_text())
@@ -5316,6 +5360,227 @@ def phase_heads(dev, kernels, yards):
           "seconds_ranks": t_ranks, "k4_launches": total,
           "k4_on_path_inputs": k4_rows,
           "seconds": time.perf_counter() - t0})
+    return {"flash_attention_fwd": total}, k4_rows
+
+
+# phase 4k: the ssm and hybrid families over model ranks
+RECURRENT_RANKS = 8           # gloo ranks on the one card: (a) over (1, 8)
+RECURRENT_HYBRID_RANKS = 2    # (b) over (1, 2): ranks 0 and 1 (lm_rank's)
+RECURRENT_JOIN_SECONDS = 600.0
+RECURRENT_BATCH = 2
+RECURRENT_PROMPT = {"xlstm-350m": 64,                 # one mLSTM chunk
+                    HYBRID_ARCH: 1024}                # 4 Mamba chunks
+# xLSTM computes in float32 here: in bf16 its recurrences amplify the
+# rounding of the ranks' partial sums, 6.6% of the largest logit against
+# d = 1 after a 64-id prompt on an H100 (PERF.md, phase 4k), as they
+# amplify the reference's own bf16 drift (7.6% over 128 steps,
+# probes/xlstm_bf16_drift.py); in float32 the gap is the sharding's
+RECURRENT_OVER = {"xlstm-350m": {"compute_dtype": "float32"},
+                  HYBRID_ARCH: {"moe_impl": "expert_tp",
+                                "capacity_factor": 1.25}}
+
+
+def recurrent_config(arch):
+    """Phase 4k's config of ``arch``: xlstm-350m whole, float32 compute;
+    jamba at full width in phase 4e's period (``HYBRID_PERIOD``
+    sub-layers), ``expert_tp``, bf16."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, attn_every=HYBRID_PERIOD,
+                                  n_layers=HYBRID_PERIOD)
+    return dataclasses.replace(cfg, **RECURRENT_OVER.get(arch, {}))
+
+
+def recurrent_collectives(cfg, s: int) -> int:
+    """The model group's calls in a prefill of ``s`` tokens (``s = 1``: a
+    decode step): the embedding's psum and the logits' gather; an xLSTM
+    period's sLSTM gathers ``h`` at each step and each block sums its
+    ``proj_out``; a hybrid period's Mamba sums B, C, dt and ``out_proj``,
+    its attention ``wo``, each MLP its output and each ``expert_tp`` MoE
+    its output and its aux loss."""
+    if cfg.family == "ssm":
+        per = sum(s + 1 if k == "slstm" else 1 for k in cfg.block_pattern)
+        return 2 + cfg.n_layers // len(cfg.block_pattern) * per
+    n = cfg.attn_every
+    moe = sum(i % cfg.moe_every == 1 for i in range(n))
+    per = 2 * (n - 1) + 1 + (n - moe) + moe * (
+        2 if cfg.moe_impl == "expert_tp" else 1)
+    return 2 + cfg.n_layers // n * per
+
+
+def recurrent_yardstick(cfg, inputs, dev) -> tuple:
+    """The d = 1 run of phase 4k: seed-0 weights over the one-rank grid
+    (so jamba's ``expert_tp`` keeps its own capacity rule, as its ranks
+    do), :func:`heads_yardstick` -> (logits on the host, its record, K4's
+    calls)."""
+    from repro_torch.launch.mesh import model_grid
+    from repro_torch.models.transformer import Transformer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, t_init = timed(lambda: Transformer.init_params(
+        cfg, gen, device=dev, group=model_grid(1, 1)))
+    with k4_calls() as (seen, _):
+        logits, rec = heads_yardstick(model, inputs, dev)
+    rec.update(seconds_init=t_init, param_bytes=nbytes(*model.parameters()),
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    del model
+    torch.cuda.empty_cache()
+    return logits, rec, list(seen)
+
+
+def phase_recurrent(dev, kernels):
+    """Phase 4k: (a) xlstm-350m at full width and depth over (1, 8) gloo
+    ranks sharing the card (its 4 mLSTM heads on ranks 0-3, none on 4-7;
+    the sLSTM's 2048 channels as 256 a rank, its ``h`` gathered each step)
+    and (b) jamba-1.5-large at full width in phase 4e's period over (1,
+    2) on ranks 0 and 1 (``expert_tp``, capacity factor 1.25, bf16; 32
+    query and 4 KV heads and 8192 Mamba channels a rank).  Each rank's
+    logits of a prefill and ``YARD_STEPS`` teacher-forced decode steps
+    are held within ``DECODE_TOL`` of the largest logit to the d = 1 run
+    of the same weights and inputs, run here first and freed before the
+    ranks spawn (jamba's d = 1 model, 45.94 GB, and both ranks' would not
+    fit together); every rank holds the same bits.  Returns K4's
+    launches in the phase (the d = 1 runs' and the ranks') and the ranks'
+    K4 rows."""
+    import shutil
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models import attention as attn
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "phase4k"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    for k in kernels:
+        k.launches = 0
+    cfgs = {"a": recurrent_config("xlstm-350m"),
+            "b": recurrent_config(HYBRID_ARCH)}
+    check(cfgs["b"].param_dtype == cfgs["b"].compute_dtype == "bfloat16"
+          and cfgs["b"].d_model == 8192 and cfgs["b"].n_heads == 64,
+          "phase 4k: jamba at full width, bf16")
+    inputs = {}
+    for label, cfg in cfgs.items():
+        rng = np.random.default_rng(0)
+        b, s = RECURRENT_BATCH, RECURRENT_PROMPT[cfg.name]
+        inputs[label] = {
+            "tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, s)).astype(np.int32)),
+            "teacher": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, YARD_STEPS)).astype(np.int64))}
+    want, one = {}, {}
+    for label in ("a", "b"):
+        want[label], one[label], seen = recurrent_yardstick(
+            cfgs[label], inputs[label], dev)
+        one[label]["k4_calls"] = len(seen)
+    total = flash_attention_fwd.launches
+    check(total == 1 and one["a"]["k4_calls"] == 0,
+          f"phase 4k: the d = 1 runs launched K4 {total} times (jamba's "
+          f"attention once, xLSTM none)")
+    ranks = {"a": RECURRENT_RANKS, "b": RECURRENT_HYBRID_RANKS}
+    lines, k4_rows = [], []
+    try:
+        jobs = [(label, cfgs[label], ranks[label], inputs[label])
+                for label in ("a", "b")]
+        _, t_ranks = timed(lambda: run_ranks(
+            lm_rank, RECURRENT_RANKS, RECURRENT_JOIN_SECONDS,
+            "phase 4k", str(work), jobs, dev.type))
+        for label, cfg, m, _ in jobs:
+            per = [json.loads((work / f"rank{r}_{label}.json").read_text())
+                   for r in range(m)]
+            got = [torch.load(work / f"rank{r}_{label}.pt")
+                   for r in range(m)]
+            w = want[label]
+            scale = float(w.abs().max())
+            errs = []
+            inner = cfg.d_model * cfg.ssm_expand // m
+            for r, (info, g) in enumerate(zip(per, got)):
+                what = f"phase 4k ({label}) {cfg.name} rank {r}"
+                check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+                      f"{what}: logits {tuple(g.shape)}, want "
+                      f"{tuple(w.shape)}")
+                check(same_bits(g, got[0]), f"{what}: other logits than "
+                      f"rank 0's")
+                err = (g.double() - w.double()).abs().amax(-1)  # (B, 1 + n)
+                errs.append(err.tolist())
+                check(bool((err <= DECODE_TOL * scale).all()),
+                      f"{what}: |d=m - d=1| by row and position "
+                      f"{err.tolist()} over {DECODE_TOL} x {scale}")
+                lo, hi = attn.head_range(cfg.n_heads, m, r)
+                check(info["heads"] == hi - lo and info["inner"] == inner,
+                      f"{what}: holds {info['heads']} heads and "
+                      f"{info['inner']} channels, want {hi - lo} and "
+                      f"{inner}")
+                rec = info["yardstick"]
+                for part, s in (("prefill", RECURRENT_PROMPT[cfg.name]),
+                                ("decode", 1)):
+                    calls = rec[f"collectives_{part}"]["calls"]
+                    check(calls == recurrent_collectives(cfg, s),
+                          f"{what}: {calls} collectives a {part}, want "
+                          f"{recurrent_collectives(cfg, s)}")
+                headless = cfg.family == "ssm" and hi == lo
+                n_mlstm = cfg.n_layers // len(cfg.block_pattern) \
+                    if cfg.family == "ssm" else 0
+                check(info["no_head_calls"] ==
+                      (n_mlstm * (1 + YARD_STEPS) if headless else 0),
+                      f"{what}: {info['no_head_calls']} headless calls")
+                calls = {(tuple(c[0]), tuple(c[1]), c[2], c[3]): c[4]
+                         for c in info["k4_calls"]}
+                n = 0
+                if cfg.family == "hybrid":
+                    q = (RECURRENT_BATCH, RECURRENT_PROMPT[cfg.name],
+                         hi - lo, cfg.resolved_head_dim)
+                    want_k4 = {(q, q, str(torch.bfloat16), True): 1}
+                    n = 1
+                else:
+                    want_k4 = {}
+                check(calls == want_k4 and
+                      info["launches"]["flash_attention_fwd"] == n and
+                      info["k4_launches_by_variant"].get("sm90_wgmma", 0)
+                      == n,
+                      f"{what}: K4 {calls}, {info['launches']}, "
+                      f"{info['k4_launches_by_variant']}; want {want_k4}")
+                check(not any(c for k, c in info["launches"].items()
+                              if k != "flash_attention_fwd"),
+                      f"{what} launched graph kernels: {info['launches']}")
+                total += n
+                for row in info.pop("k4_on_path_inputs", []):
+                    k4_rows.append({"arch": cfg.name, **row})
+            lines.append({"label": label, "arch": cfg.name,
+                          "n_layers": cfg.n_layers,
+                          "n_layers_published": get_config_layers(cfg.name),
+                          "grid": [1, m], "prompt": RECURRENT_PROMPT[cfg.name],
+                          "batch": RECURRENT_BATCH,
+                          "heads_per_rank": [i["heads"] for i in per],
+                          "inner_per_rank": [i["inner"] for i in per],
+                          "prefill_seconds": [i["yardstick"][
+                              "prefill_seconds"] for i in per],
+                          "prefill_ms_per_token": [
+                              1e3 * i["yardstick"]["prefill_seconds"]
+                              / RECURRENT_PROMPT[cfg.name] for i in per],
+                          "decode_seconds_per_token": [i["yardstick"][
+                              "decode_seconds"] for i in per],
+                          "collectives_prefill": per[0]["yardstick"][
+                              "collectives_prefill"],
+                          "collectives_per_token": per[0]["yardstick"][
+                              "collectives_decode"],
+                          "max_memory_allocated": [
+                              i.get("max_memory_allocated") for i in per],
+                          "yardstick_max_abs_logit": scale,
+                          "max_gap_over_max_logit": max(
+                              max(max(row) for row in e) for e in errs)
+                          / scale,
+                          "tolerance": DECODE_TOL * scale,
+                          "one_rank": one[label], "per_rank": per})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {k.__name__: k.launches for k in kernels}
+    emit({"phase": "recurrent", "ranks": RECURRENT_RANKS, "backend": "gloo",
+          "models": lines, "seconds_ranks": t_ranks, "k4_launches": total,
+          "launches_parent": launches, "k4_on_path_inputs": k4_rows,
+          "seconds": time.perf_counter() - t0})
+    check(not any(c for k, c in launches.items()
+                  if k != "flash_attention_fwd"),
+          f"phase 4k launched graph kernels: {launches}")
     return {"flash_attention_fwd": total}, k4_rows
 
 
@@ -5396,7 +5661,7 @@ def k4_on_path_inputs(q, k, v, causal=True) -> dict:
 
 def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
               hybrid_rows=(), sharded_rows=(), dryrun_rows=(), two_d_rows=(),
-              heads_rows=()):
+              heads_rows=(), recurrent_rows=()):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
         attention_error_ratios, flash_attention_fwd, flash_attention_fwd_plain)
@@ -5463,6 +5728,7 @@ def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
     row["dryrun_path_inputs"] = list(dryrun_rows)   # phase 4g's rank 0
     row["two_d_path_inputs"] = list(two_d_rows)     # phase 4i's rank 0
     row["heads_path_inputs"] = list(heads_rows)     # phase 4j's ranks 0, m-1
+    row["recurrent_path_inputs"] = list(recurrent_rows)   # phase 4k's jamba
     return row
 
 
@@ -5850,11 +6116,13 @@ def main() -> int:
     heads, k4_heads = phase_heads(dev, kernels, heads_yards)
     del heads_yards
     torch.cuda.empty_cache()
+    recurrent, k4_recurrent = phase_recurrent(dev, kernels)
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter() - t_graph_rows
     rows.append(kernel_k4(path["flash_attention_fwd"], k4_variants, k4_moe,
                           k4_families, k4_hybrid, k4_sharded, k4_dry,
-                          k4_two_d, k4_heads))
+                          k4_two_d, k4_heads, k4_recurrent))
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
@@ -5871,7 +6139,8 @@ def main() -> int:
                  launches_phase_sharded_train=sharded_train.get(r["name"],
                                                                 0),
                  launches_phase_two_d=two_d.get(r["name"], 0),
-                 launches_phase_heads=heads.get(r["name"], 0))
+                 launches_phase_heads=heads.get(r["name"], 0),
+                 launches_phase_recurrent=recurrent.get(r["name"], 0))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(smi, flush=True)

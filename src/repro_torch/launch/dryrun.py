@@ -48,13 +48,18 @@ gradients back (``reduce-scatter``), on two pods then sums them over
 "pod" (``launch/mesh.ModelGrid``).
 
 Attention's heads stay whole over the 16 model ranks: where they do not
-split evenly (qwen1.5-4b's 20, whisper-small's 12) rank 0 holds the most
-(2 and 1 heads), so its counts are the largest rank's
-(``models/attention.head_range``).  Cells the port cannot run yet raise
-and are recorded as the reference records a failing cell (``status:
-"error"`` with the message), each naming ``ROADMAP.md`` Queue 1 item 15
-(b): the ssm and hybrid families over model ranks (xlstm-350m,
-jamba-1.5-large-398b), in every kind of cell.
+split evenly (qwen1.5-4b's 20, whisper-small's 12, xlstm-350m's 4 mLSTM
+heads) rank 0 holds the most (2, 1 and 1 heads), so its counts are the
+largest rank's (``models/attention.head_range``).  The ssm and hybrid
+families (xlstm-350m, jamba-1.5-large-398b, whose weights are 2-D too)
+run every shape, long_500k included.  Their recurrences are host loops of
+the same trip (the sLSTM one token a step: 393,216 steps in a 32k-token
+cell; the mLSTM's and the Mamba's chunks): a counted cell runs the first
+and last trip and one middle trip counted for all, forward and backward,
+as the reference multiplies a ``while`` body by its trip count
+(``launch/hlo_cost.loop``), which gives a literal run's counts.  A cell
+that raises is recorded as the reference records a failing cell
+(``status: "error"`` with the message); none does.
 
 Results are cached as JSON under ``--out`` (default
 ``build/dryrun_results``), so a sweep resumes; the cells are counted in
@@ -245,7 +250,8 @@ def main(argv=None) -> int:
         cores = len(os.sched_getaffinity(0))
         with multiprocessing.get_context("spawn").Pool(
                 min(cores, len(todo))) as pool:
-            results = pool.map(_cell_result, [t[2] for t in todo])
+            results = pool.map(_cell_result, [t[2] for t in todo],
+                               chunksize=1)
     failures = 0
     for (fname, mesh_name, (arch, shape, *_)), res in zip(todo, results):
         with open(fname, "w") as f:

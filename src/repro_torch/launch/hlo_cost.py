@@ -6,6 +6,12 @@ each ``while`` body by its trip count, because ``cost_analysis()`` counts
 a scanned layer once.  The port has no HLO: it runs the function, on the
 meta device (``launch/dryrun.py``) or on a card, and counts what runs.  A
 Python loop runs its body once per trip, so trip counts come for free.
+A loop whose middle trips all run the same ops on the same shapes may
+count one of them for all instead, as the reference multiplies a
+``while`` body by its trip count (:func:`loop`, :class:`Trips`):
+the sLSTM's host loop of one step a token (``models/xlstm.slstm_train``),
+which a literal count of a 32k-token cell would step 393,216 times, and
+the mLSTM's and the Mamba's chunk loops.
 The result keeps the reference's type and meaning, per rank:
 
   flops            — ``torch.utils.flop_counter.FlopCounterMode``: 2·m·n·k
@@ -38,27 +44,31 @@ last Python reference goes), and the wire bytes the ledger adds.
 ``xla_cost_dict`` has no counterpart: there is no compiled executable to
 ask.  Nor has ``HloCost.transcendentals``, which the reference's walker
 never adds to.
+
+``peak_live_bytes`` does not multiply: a trip counted for many holds its
+tensors once.
 """
 
 from __future__ import annotations
 
 import weakref
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
 
-from .mesh import CollectiveLedger, _nbytes
+from .mesh import CollectiveLedger, _nbytes, _quiet
 
-__all__ = ["HloCost", "CostCounter", "tree_bytes"]
+__all__ = ["HloCost", "CostCounter", "Trips", "loop", "tree_bytes"]
 
 _ALLOCATIONS = {"empty", "empty_like", "empty_strided", "new_empty",
                 "new_empty_strided"}
 # views whose schema declares no alias (a reshape's copy is the clone)
 _UNANNOTATED_VIEWS = {"_unsafe_view"}
+_ACTIVE: List["CostCounter"] = []      # the counters entered, innermost last
 
 
 @dataclass
@@ -136,18 +146,22 @@ class CostCounter:
     """Counts what runs inside ``with CostCounter(ledger) as c:``.
 
     ``ledger``: the counting groups' (``launch/mesh.py``); collectives are
-    read from it as the difference over the block.  After the block:
+    read from it as the difference over the block.  ``one_trip``: a
+    :func:`loop` on the meta device runs one middle trip for all (False:
+    every trip).  After the block:
     ``cost`` (:class:`HloCost`), ``wire_bytes`` and ``collective_calls``
     (by kind), ``peak_live_bytes`` (the most bytes the counted ops' outputs
     held at once, arguments not included).
     """
 
-    def __init__(self, ledger: Optional[CollectiveLedger] = None):
-        self.ledger = ledger
+    def __init__(self, ledger: Optional[CollectiveLedger] = None,
+                 one_trip: bool = True):
+        self.ledger, self.one_trip = ledger, one_trip
         self.cost = HloCost()
         self.wire_bytes: Dict[str, float] = {}
         self.collective_calls: Dict[str, int] = {}
         self.peak_live_bytes = 0
+        self._more_flops = 0.0      # the flops of trips counted for others
 
     def __enter__(self) -> "CostCounter":
         self._before = self.ledger.snapshot() if self.ledger else None
@@ -157,12 +171,15 @@ class CostCounter:
             self.ledger.listeners.append(self._bytes.collective)
         self._flops.__enter__()
         self._bytes.__enter__()
+        _ACTIVE.append(self)
         return self
 
     def __exit__(self, *exc) -> None:
+        _ACTIVE.remove(self)
         self._bytes.__exit__(*exc)
         self._flops.__exit__(*exc)
-        self.cost = HloCost(flops=float(self._flops.get_total_flops()),
+        self.cost = HloCost(flops=float(self._flops.get_total_flops()
+                                        + self._more_flops),
                             bytes=float(self._bytes.bytes))
         self.peak_live_bytes = int(self._bytes.peak)
         if self.ledger is not None:
@@ -177,6 +194,19 @@ class CostCounter:
             self.cost.collective_bytes = diff("bytes")
             self.wire_bytes = diff("wire_bytes")
             self.collective_calls = diff("calls")
+
+    def _totals(self) -> tuple:
+        return (self._flops.get_total_flops() + self._more_flops,
+                self._bytes.bytes,
+                self.ledger.snapshot() if self.ledger else None)
+
+    def _repeat(self, before: tuple, times: int) -> None:
+        """Add ``times`` more of what was counted since ``before``."""
+        flops, nbytes, ledger = self._totals()
+        self._more_flops += times * (flops - before[0])
+        self._bytes.bytes += times * (nbytes - before[1])
+        if ledger is not None:
+            self.ledger.repeat_since(before[2], times)
 
     def per_device(self, argument_bytes: int, output) -> Dict:
         """A dry-run cell's counts, under the reference's result keys (less
@@ -196,3 +226,131 @@ class CostCounter:
             },
         }
 
+
+def _loop_counter(t: torch.Tensor) -> Optional[CostCounter]:
+    """The innermost :class:`CostCounter` entered, where ``t`` lies on the
+    meta device (a count with no numbers: a loop may run one middle trip
+    for all) and the counter's ``one_trip`` holds; else None, and the loop
+    runs every trip."""
+    if not _ACTIVE or t.device.type != "meta" or not _ACTIVE[-1].one_trip:
+        return None
+    return _ACTIVE[-1]
+
+
+class Trips:
+    """One trip of a loop counted for ``n``: what runs inside ``with
+    Trips(counter, n):`` is counted ``n`` times.  Its backward is too when
+    the trip's inputs pass :meth:`enter` and its outputs :meth:`exit`:
+    autograd runs the nodes made between the two after ``exit``'s
+    backward and before ``enter``'s (it runs ready nodes latest made
+    first, and a gradient flows only from a later node to an earlier
+    one), and those two mark the span.  Gradients that several trips add
+    into one tensor are added outside the span, once each, as a literal
+    run adds them, and :meth:`fan_out` gives the counted trip's output for
+    every trip it stands for."""
+
+    def __init__(self, counter: CostCounter, n: int):
+        self.counter, self.n = counter, int(n)
+        self._backward: List[tuple] = []
+
+    def __enter__(self) -> "Trips":
+        self._forward = self.counter._totals()
+        return self
+
+    def __exit__(self, kind, *_) -> None:
+        if kind is None:
+            self.counter._repeat(self._forward, self.n - 1)
+
+    def enter(self, *ts: torch.Tensor) -> tuple:
+        """The trip's inputs: where its backward's span ends."""
+        return _TripEnter.apply(self, *ts)
+
+    def exit(self, *ts: torch.Tensor) -> tuple:
+        """The trip's outputs: where its backward's span starts."""
+        return _TripExit.apply(self, *ts)
+
+    @staticmethod
+    def fan_out(t: torch.Tensor, n: int) -> tuple:
+        """``n`` views of ``t``, a trip's output standing for ``n`` trips'
+        outputs, each of which a literal loop's consumer takes once: their
+        ``n`` gradients are added uncounted (a literal loop adds none),
+        into a tensor with the strides of each (a slice of a ``cat``'s
+        gradient, which the trip's backward copies as a literal one's
+        does)."""
+        return _FanOut.apply(n, t)
+
+
+def loop(t: torch.Tensor, n: int, body, state: tuple):
+    """``state, out = body(state, i)`` for ``i`` in ``range(n)`` ->
+    (the last state, the ``n`` outs).  Where :func:`_loop_counter` of
+    ``t`` finds a counter (the meta device), trips 1 to n - 2, which run
+    the same ops on the same shapes, run once and count ``n - 2`` times
+    (:class:`Trips`), forward and backward: trip 0 (its state carries no
+    gradient) and trip n - 1 (its state goes nowhere) run as they are.
+    Elsewhere every trip runs."""
+    counter = _loop_counter(t)
+    if counter is None or n < 4:
+        outs = []
+        for i in range(n):
+            state, out = body(state, i)
+            outs.append(out)
+        return state, outs
+    state, out = body(state, 0)
+    outs = [out]
+    with Trips(counter, n - 2) as trips:
+        state, out = body(trips.enter(*state), 1)
+        *state, out = trips.exit(*state, out)
+    outs += Trips.fan_out(out, n - 2)
+    state, out = body(tuple(state), n - 1)
+    outs.append(out)
+    return state, outs
+
+
+class _TripExit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, trips, *ts):
+        ctx.trips = trips
+        ctx.set_materialize_grads(False)
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        trips = ctx.trips
+        trips._backward.append(trips.counter._totals())
+        return (None, *gs)
+
+
+class _FanOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, n, t):
+        ctx.set_materialize_grads(False)
+        with _quiet():
+            return tuple(t.view_as(t) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = [g for g in gs if g is not None]
+        if not gs:
+            return None, None
+        with _quiet():     # laid out as each trip's own gradient
+            total = torch.empty_strided(gs[0].shape, gs[0].stride(),
+                                        dtype=gs[0].dtype,
+                                        device=gs[0].device)
+            total.copy_(gs[0])
+            for g in gs[1:]:
+                total.add_(g)
+        return None, total
+
+
+class _TripEnter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, trips, *ts):
+        ctx.trips = trips
+        ctx.set_materialize_grads(False)
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        trips = ctx.trips
+        trips.counter._repeat(trips._backward.pop(), trips.n - 1)
+        return (None, *gs)

@@ -882,6 +882,16 @@ class CollectiveLedger:
         return {"calls": dict(self.calls), "bytes": dict(self.bytes),
                 "wire_bytes": dict(self.wire_bytes)}
 
+    def repeat_since(self, snap: Dict[str, Dict[str, float]],
+                     times: int) -> None:
+        """Note ``times`` more of what was noted since ``snap`` (a
+        :meth:`snapshot`), as ``launch/hlo_cost.Trips`` counts one trip
+        for many; the listeners are not called again."""
+        for key in ("calls", "bytes", "wire_bytes"):
+            now = getattr(self, key)
+            for kind, v in list(now.items()):
+                now[kind] = v + times * (v - snap[key].get(kind, 0))
+
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()

@@ -31,10 +31,14 @@ Where the port's layout differs from the reference's:
   ``kv_seq`` ("model" for ``decode_32k``) and splits no heads (its
   ``cache_structs``, ``repro/launch/specs.py:113-147``).  A rank of the port
   holds its KV heads and the whole sequence: k / v (L, B, S, Hkv, D) get
-  (None, batch, None, kv_heads, None), rank 0's KV heads.  Recurrent
-  states (xLSTM, Mamba) are split on their batch dim only; their families
-  have no sharded forward at model > 1, and their cache raises there as
-  their model does.
+  (None, batch, None, kv_heads, None), rank 0's KV heads.  A recurrent
+  state holds rank 0's share, as its model does: an mLSTM's ``c`` (L, B,
+  h_r, dk, dk), ``n`` (L, B, h_r, dk) and ``m`` (L, B, h_r) of its whole
+  heads (``models/transformer.head_cols``), an sLSTM's (L, B, di / m) and
+  a Mamba's ``h`` (L, n, B, di / m, N) and ``conv`` (L, n, B, W - 1,
+  di / m) of its channels, specs (None, batch, "model", ...) and (None,
+  None, batch, "model", ...), (..., "model") for ``conv``: the reference
+  shards them on batch only, and its GSPMD reshards.
 * ``opt_state``: the specs are the reference's ZeRO-1 specs
   (``train/optimizer.opt_state_specs``) over the state of the full
   parameters, an Adafactor state over the reference's stacked ones (its
@@ -72,7 +76,7 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
 from ..launch import sharding as shlib
-from ..models import attention as attn
+from ..launch.mesh import counting_grid
 from ..models import transformer as model
 from ..models.layers import dtype_of
 from ..train import zero
@@ -172,19 +176,12 @@ def batch_structs(cfg: ArchConfig, shape: ShapeSpec, mesh, rules,
 
 def cache_structs(cfg: ArchConfig, shape: ShapeSpec, mesh, rules
                   ) -> Tuple[Dict, Dict]:
-    """The port's decode cache on rank 0 (module docstring)."""
-    m = mesh.shape["model"]
-    if m > 1 and cfg.family not in model.SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} has no sharded forward yet ({m} model "
-            f"ranks): {model.ITEM} (b)")
+    """The port's decode cache on rank 0 (module docstring): the
+    ``init_cache`` of rank 0's model over a counting grid of ``mesh``."""
     dp, b = _local_batch(mesh, rules, shape.global_batch)
-    cache = model.Transformer(cfg, device=META).init_cache(b, shape.seq_len)
-    if m > 1:
-        lo, hi = attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads, m, 0)
-        cache["attn"] = {k: _meta(t.shape[:3] + (hi - lo,) + t.shape[4:],
-                                  t.dtype)
-                         for k, t in cache["attn"].items()}
+    grid = counting_grid(mesh) if mesh.shape["model"] > 1 else None
+    cache = model.Transformer(cfg, device=META, group=grid, rules=rules) \
+        .init_cache(b, shape.seq_len)
     specs = {}
     for group, leaves in cache.items():
         specs[group] = {}
@@ -192,10 +189,15 @@ def cache_structs(cfg: ArchConfig, shape: ShapeSpec, mesh, rules
             if group == "attn":
                 specs[group][name] = (None, dp, None,
                                       rules.mapping["kv_heads"], None)
-            else:   # xLSTM (periods, B, ...), Mamba (periods, n, B, ...)
-                at = 2 if group == "mamba" else 1
-                specs[group][name] = tuple(dp if i == at else None
-                                           for i in range(t.dim()))
+                continue
+            # xLSTM (periods, B, heads or channels, ...), Mamba (periods,
+            # n, B, channels, N) and its window (periods, n, B, W - 1,
+            # channels)
+            at = 2 if group == "mamba" else 1
+            split = t.dim() - 1 if name == "conv" else at + 1
+            specs[group][name] = tuple(
+                dp if i == at else rules.mapping["ssm_inner"] if i == split
+                else None for i in range(t.dim()))
     return cache, specs
 
 

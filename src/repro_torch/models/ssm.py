@@ -7,7 +7,9 @@ state n the recurrence is ``h[t] = exp(dt[t]·A)·h[t-1] + dt[t]·u[t]·B[t]``
 and the output ``y[t] = h[t]·C[t] + D·u[t]``, gated by ``silu(z)``.
 
 * :func:`mamba_train` runs the whole sequence chunk by chunk, as the
-  reference's ``lax.scan`` over chunks of 256: within a chunk the (a, b)
+  reference's ``lax.scan`` over chunks of 256 (``launch/hlo_cost.loop``:
+  counted on the meta device, the middle chunks run once and count for
+  all): within a chunk the (a, b)
   pairs of ``h' = a·h + b`` are combined by a log-depth inclusive scan
   (:func:`scan_pairs`, 8 steps at 256 tokens), then the carried state
   enters through the chunk's cumulative a.  It never divides by a product
@@ -25,6 +27,22 @@ state contraction ``einsum("bldn,bln->bld")`` is a float32 product, so on
 the card it needs TF32 off (``torch.backends.cuda.matmul.allow_tf32 =
 False``, PyTorch's default).  The module has no kernel of its own; the
 reference has no Pallas kernel here either.
+
+Over model ranks (a :class:`Mamba` built with ``group``, a
+``launch.mesh.ModelGroup``, and ``di`` its share of the inner width, the
+reference's "ssm_inner" rules): ``in_proj`` and ``gate_proj`` are
+column-parallel (their input passes ``group.enter``); ``conv_w``,
+``dt_bias``, ``a_log`` and ``d_skip`` are the rank's channels, so the
+causal conv, the scan and the state are the rank's alone; ``x_proj_b``,
+``x_proj_c`` and ``x_proj_dt`` are row-parallel, each rank's product a
+partial sum of B, C and dt over its channels, and the group adds the
+three, concatenated (B, S, 2N + 1), in one fixed-order ``group.psum``
+before any use (:func:`_projections`, once a call for the whole
+sequence: they are per token).  What follows the sum is per channel, so
+its gradient is each rank's part: the sum passes ``group.enter`` too,
+which adds the parts in the backward.  ``out_proj`` is row-parallel,
+summed by ``group.psum``.  The cache ``{"h", "conv"}`` holds the rank's
+channels.
 """
 
 from __future__ import annotations
@@ -35,7 +53,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dense, _empty, dense
+from ..launch import hlo_cost
+from .layers import Dense, _empty, dense, fill_normal_
 
 __all__ = ["Mamba", "mamba_train", "mamba_init_cache", "mamba_decode",
            "scan_pairs", "CHUNK"]
@@ -48,13 +67,15 @@ class Mamba(nn.Module):
     """``in_proj``, ``gate_proj`` (d, di), ``conv_w`` (W, di), ``x_proj_b``,
     ``x_proj_c`` (di, N), ``x_proj_dt`` (di, 1), ``dt_bias`` (di,),
     ``a_log`` (di, N), ``d_skip`` (di,) and ``out_proj`` (di, d); inner
-    width ``di = d_model * cfg.ssm_expand``, state ``N =
-    cfg.ssm_state_dim``."""
+    width ``di = d_model * cfg.ssm_expand`` (with ``group``, the rank's
+    share of it), state ``N = cfg.ssm_state_dim``."""
 
-    def __init__(self, d_model: int, cfg, *, device=None,
-                 dtype=torch.float32):
+    def __init__(self, d_model: int, cfg, *, di: int = None, group=None,
+                 device=None, dtype=torch.float32):
         super().__init__()
-        di, n = d_model * cfg.ssm_expand, cfg.ssm_state_dim
+        di = d_model * cfg.ssm_expand if di is None else di
+        n = cfg.ssm_state_dim
+        self.group = group
         kw = dict(device=device, dtype=dtype)
         self.in_proj = Dense(d_model, di, **kw)
         self.gate_proj = Dense(d_model, di, **kw)
@@ -72,8 +93,7 @@ class Mamba(nn.Module):
         ``a_log`` = log(1..N) in every channel, ``d_skip`` 1."""
         for m in (self.in_proj, self.gate_proj):
             m.reset(generator)
-        self.conv_w.copy_(torch.randn(self.conv_w.shape, generator=generator,
-                                      device=self.conv_w.device) * 0.2)
+        fill_normal_(self.conv_w, generator, 0.2)     # drawn whole
         for m in (self.x_proj_b, self.x_proj_c, self.x_proj_dt):
             m.reset(generator)
         n = self.a_log.shape[1]
@@ -96,17 +116,33 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _ssm_params(p: Mamba, u: torch.Tensor, compute):
-    """Input-dependent (dA, dBu, C) of ``u`` (B, L, di): (B, L, di, N)
-    float32 twice and (B, L, N) float32."""
+def _projections(p: Mamba, u: torch.Tensor, compute):
+    """B (B, L, N), C (B, L, N) and the step dt (B, L, di) of ``u`` (B, L,
+    di), in the compute dtype; over a group the three projections' partial
+    sums added in one ``psum`` (module docstring)."""
     bmat = dense(p.x_proj_b, u, compute)                  # (B, L, N)
     cmat = dense(p.x_proj_c, u, compute)
-    dt = F.softplus(dense(p.x_proj_dt, u, compute)
-                    + p.dt_bias.to(compute))              # (B, L, di)
+    dt = dense(p.x_proj_dt, u, compute)                   # (B, L, 1)
+    if p.group is not None:
+        n = bmat.shape[-1]
+        both = p.group.enter(p.group.psum(torch.cat([bmat, cmat, dt], -1)))
+        bmat, cmat, dt = both.split([n, n, 1], dim=-1)
+    return bmat, cmat, F.softplus(dt + p.dt_bias.to(compute))
+
+
+def _discretize(p: Mamba, u, bmat, cmat, dt):
+    """(dA, dBu, C) of ``u`` and its projections: (B, L, di, N) float32
+    twice and (B, L, N) float32."""
     a = -torch.exp(p.a_log.float())                       # (di, N)
     da = torch.exp(dt[..., None].float() * a)
     dbu = (dt * u).float()[..., None] * bmat.float()[..., None, :]
     return da, dbu, cmat.float()
+
+
+def _ssm_params(p: Mamba, u: torch.Tensor, compute):
+    """Input-dependent (dA, dBu, C) of ``u`` (B, L, di)
+    (:func:`_discretize` of :func:`_projections`)."""
+    return _discretize(p, u, *_projections(p, u, compute))
 
 
 def scan_pairs(a: torch.Tensor, b: torch.Tensor
@@ -148,41 +184,55 @@ def mamba_train(p: Mamba, x: torch.Tensor, cfg, chunk: int = CHUNK,
     decode."""
     compute = x.dtype
     b, s, _ = x.shape
-    u_raw = dense(p.in_proj, x, compute)
-    z = dense(p.gate_proj, x, compute)
-    u = F.silu(_causal_conv(u_raw, p.conv_w.to(compute)))
-    di, n = u.shape[-1], p.a_log.shape[1]
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"mamba_train: the sequence length {s} must be a "
                          f"multiple of the chunk min({chunk}, S); padding "
                          f"would change the state")
-    h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
-    ys = []
-    for c0 in range(0, s, chunk):
-        da, dbu, c = _ssm_params(p, u[:, c0:c0 + chunk], compute)
+    if p.group is not None:     # column-parallel entry: x's gradient summed
+        x = p.group.enter(x)
+    u_raw = dense(p.in_proj, x, compute)
+    z = dense(p.gate_proj, x, compute)
+    u = F.silu(_causal_conv(u_raw, p.conv_w.to(compute)))
+    di, n = u.shape[-1], p.a_log.shape[1]
+    bmat, cmat, dt = _projections(p, u, compute)
+
+    def fold(state, i):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        da, dbu, c = _discretize(p, u[:, sl], bmat[:, sl], cmat[:, sl],
+                                 dt[:, sl])
         a_cum, hs = scan_pairs(da, dbu)
         del da, dbu
-        hs = torch.addcmul(hs, a_cum, h[:, None])         # (B, L, di, N)
+        hs = torch.addcmul(hs, a_cum, state[0][:, None])  # (B, L, di, N)
         del a_cum
-        ys.append(torch.einsum("bldn,bln->bld", hs, c).to(compute))
-        h = hs[:, -1].clone()
-        del hs
+        y = torch.einsum("bldn,bln->bld", hs, c).to(compute)
+        return (hs[:, -1].clone(),), y
+
+    h0 = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+    (h,), ys = hlo_cost.loop(x, s // chunk, fold, (h0,))
     y = torch.cat(ys, dim=1)
     y = y + u * p.d_skip.to(compute)
     y = y * F.silu(z)
-    out = dense(p.out_proj, y, compute)
+    out = _out(p, y, compute)
     if return_state:
         wdt = p.conv_w.shape[0]
         return out, {"h": h, "conv": u_raw[:, -(wdt - 1):].clone()}
     return out
 
 
+def _out(p: Mamba, y: torch.Tensor, compute) -> torch.Tensor:
+    """``out_proj`` of ``y``; summed over the group when ``p`` holds a
+    rank's channels."""
+    out = dense(p.out_proj, y, compute)
+    return out if p.group is None else p.group.psum(out)
+
+
 def mamba_init_cache(batch: int, d_model: int, cfg, dtype=torch.float32,
-                     device=None) -> State:
+                     device=None, di: int = None) -> State:
     """Zero state ``h`` (B, di, N) float32 and conv window ``conv`` (B,
-    W - 1, di) in ``dtype`` (the compute dtype)."""
-    di = d_model * cfg.ssm_expand
+    W - 1, di) in ``dtype`` (the compute dtype); ``di``: a rank's share of
+    the inner width (default all of it)."""
+    di = d_model * cfg.ssm_expand if di is None else di
     return {"h": torch.zeros((batch, di, cfg.ssm_state_dim),
                              dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, cfg.ssm_conv_width - 1, di),
@@ -193,6 +243,8 @@ def mamba_decode(p: Mamba, x: torch.Tensor, cfg, cache: State
                  ) -> Tuple[torch.Tensor, State]:
     """One token, x: (B, 1, d_model) -> (y (B, 1, d_model), new cache)."""
     compute = x.dtype
+    if p.group is not None:
+        x = p.group.enter(x)
     u = dense(p.in_proj, x, compute)                      # (B, 1, di)
     z = dense(p.gate_proj, x, compute)
     win = torch.cat([cache["conv"], u], dim=1)            # (B, W, di)
@@ -204,4 +256,4 @@ def mamba_decode(p: Mamba, x: torch.Tensor, cfg, cache: State
     y = torch.einsum("bdn,bn->bd", h, c[:, 0])[:, None]   # (B, 1, di)
     y = y.to(compute) + u1 * p.d_skip.to(compute)
     y = y * F.silu(z)
-    return dense(p.out_proj, y, compute), {"h": h, "conv": win[:, 1:]}
+    return _out(p, y, compute), {"h": h, "conv": win[:, 1:]}

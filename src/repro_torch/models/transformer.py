@@ -81,8 +81,13 @@ gathers the weight whole on that dim over the data ranks where it is used
 and decode at every call, and again in the backward; its gradient is
 reduce-scattered back to the block.  A 2-D block is held by one data
 rank (of each pod) only; the norms and the router's replicas stay whole.
-Not sharded (they raise): the ssm and hybrid families over more than one
-rank (``ROADMAP.md Queue 1 item 15 (b)``).
+The ssm and hybrid families follow the reference's "ssm_inner" rules
+(``models/xlstm.py``, ``models/ssm.py``): an mLSTM keeps whole heads as
+attention does (a rank with none adds a zero-width product to the sum),
+an sLSTM and a Mamba hold the rank's share of the inner channels, the
+sLSTM gathering its whole ``h`` each step and the Mamba summing its B, C
+and dt projections once a call; a hybrid period's attention, MoE and
+MLP run as the other families'.  Every family runs over ranks.
 
 The cache keeps the reference's layout: ``{"attn": {"k", "v"}}`` with
 shape (n_layers, B, max_seq, Hkv, D) in the compute dtype for the
@@ -116,11 +121,11 @@ from .layers import (MLP, Embed, Norm, dtype_of, embed_apply, full_shape,
                      mlp_apply, norm_apply, unembed_apply)
 
 __all__ = ["Transformer", "n_scan_steps", "REMAT", "param_blocks",
-           "head_cols", "model_ranges", "model_holders", "grad_members"]
+           "head_cols", "model_cols", "model_dim", "model_ranges",
+           "model_holders", "grad_members"]
 
 Cache = Dict[str, Dict[str, torch.Tensor]]
 _FAMILIES = ("dense", "moe", "ssm", "audio", "vlm", "hybrid")
-SHARDED_FAMILIES = ("dense", "moe", "audio", "vlm")
 _STACKED = ("layers.", "enc.layers.")   # stacked on a leading axis
 _INNER = ("mamba.", "moe.", "mlp.")     # a hybrid period's inner stacks
 ITEM = "ROADMAP.md Queue 1 item 15"
@@ -245,7 +250,7 @@ def n_scan_steps(cfg) -> int:
     return cfg.n_layers
 
 
-def _check_supported(cfg, grid) -> None:
+def _check_supported(cfg) -> None:
     if cfg.family == "graph":
         raise NotImplementedError(
             f"{cfg.name}: family 'graph' is not a model but a cost cell of "
@@ -254,11 +259,6 @@ def _check_supported(cfg, grid) -> None:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: "
                                   f"{ITEM}")
-    if grid is not None and grid.size > 1 and \
-            cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} has no sharded forward yet "
-            f"({grid.data.d} x {grid.model.d} ranks): {ITEM} (b)")
 
 
 @dataclass(frozen=True)
@@ -269,6 +269,7 @@ class _Widths:
     kv_heads: int
     ff: int
     vocab: int
+    inner: int = 0          # the rank's share of "ssm_inner"
     vocab_lo: int = 0
     group: Any = None
     experts: Optional[moe_mod.ExpertShard] = None
@@ -276,12 +277,16 @@ class _Widths:
 
 
 def _widths(cfg, grid, rules) -> _Widths:
+    inner = cfg.d_model * cfg.ssm_expand
     if grid is None:
-        return _Widths(cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size)
+        return _Widths(cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size,
+                       inner)
     m, r = grid.model.d, grid.model.rank
     qlo, qhi = attn.head_range(cfg.n_heads, m, r)
     lo, hi = attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads, m, r)
-    for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+    recurrent = cfg.family in ("ssm", "hybrid")
+    for what, n in (("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size),
+                    ("ssm_inner", inner if recurrent else 0)):
         if n % m:
             raise ValueError(f"{cfg.name}: {what} {n} does not split over "
                              f"{m} ranks")
@@ -296,7 +301,7 @@ def _widths(cfg, grid, rules) -> _Widths:
             grid, r * n if on_model else 0, n, on_model,
             rules.mapping.get("batch") is not None)
     v = cfg.vocab_size // m
-    return _Widths(qhi - qlo, hi - lo, cfg.d_ff // m, v, r * v,
+    return _Widths(qhi - qlo, hi - lo, cfg.d_ff // m, v, inner // m, r * v,
                    grid.model if m > 1 else None, experts,
                    attn.kv_index(cfg.n_heads, cfg.n_kv_heads, m, r))
 
@@ -356,17 +361,22 @@ class Block(nn.Module):
 class XlstmPeriod(nn.Module):
     """One xLSTM period: ``ln``, the stacked pre-norms (len(pattern), d),
     and ``b<i>_mlstm`` / ``b<i>_slstm`` for block i of
-    ``cfg.block_pattern``."""
+    ``cfg.block_pattern`` (over a group: an mLSTM's whole heads, an
+    sLSTM's share of the channels)."""
 
-    def __init__(self, cfg, *, device, dtype):
+    def __init__(self, cfg, w: _Widths, *, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.ln = Norm(cfg.d_model, cfg.norm, stack=len(cfg.block_pattern),
                        **kw)
         self.kinds = tuple(cfg.block_pattern)
         for i, kind in enumerate(self.kinds):
-            cls = xlstm_mod.mLSTM if kind == "mlstm" else xlstm_mod.sLSTM
-            self.add_module(f"b{i}_{kind}", cls(cfg.d_model, cfg, **kw))
+            mixer = xlstm_mod.mLSTM(cfg.d_model, cfg, heads=w.heads,
+                                    group=w.group, **kw) \
+                if kind == "mlstm" else \
+                xlstm_mod.sLSTM(cfg.d_model, cfg, di=w.inner, group=w.group,
+                                **kw)
+            self.add_module(f"b{i}_{kind}", mixer)
 
     def mixer(self, i: int) -> nn.Module:
         return getattr(self, f"b{i}_{self.kinds[i]}")
@@ -391,12 +401,14 @@ class HybridPeriod(nn.Module):
         self.moe_at = tuple(i % cfg.moe_every == 1 for i in range(n))
         self.mix_ln = Norm(cfg.d_model, cfg.norm, stack=n, **kw)
         self.ffn_ln = Norm(cfg.d_model, cfg.norm, stack=n, **kw)
-        self.mamba = nn.ModuleList(ssm_mod.Mamba(cfg.d_model, cfg, **kw)
-                                   for _ in range(n - 1))
+        self.mamba = nn.ModuleList(
+            ssm_mod.Mamba(cfg.d_model, cfg, di=w.inner, group=w.group, **kw)
+            for _ in range(n - 1))
         self.attn = _attention(cfg, w, kw)
         self.moe = nn.ModuleList(_moe(cfg, w, kw)
                                  for _ in range(sum(self.moe_at)))
-        self.mlp = nn.ModuleList(MLP(cfg.d_model, cfg.d_ff, cfg.act, **kw)
+        self.mlp = nn.ModuleList(MLP(cfg.d_model, w.ff, cfg.act,
+                                     group=w.group, **kw)
                                  for _ in range(n - sum(self.moe_at)))
 
     def sublayers(self):
@@ -446,7 +458,7 @@ class Transformer(nn.Module):
     def __init__(self, cfg, *, device: DeviceLike = None, dtype=None,
                  group=None, rules: Optional[sharding.LogicalRules] = None):
         super().__init__()
-        _check_supported(cfg, group)
+        _check_supported(cfg)
         dev = resolve(device)
         dt = dtype or dtype_of(cfg.param_dtype)
         kw = dict(device=dev, dtype=dt)
@@ -463,7 +475,8 @@ class Transformer(nn.Module):
         self.lm_head = None if cfg.tie_embeddings else \
             Embed(w.vocab, cfg.d_model, group=w.group, lo=w.vocab_lo, **kw)
         if cfg.family == "ssm":
-            layers = (XlstmPeriod(cfg, **kw) for _ in range(n_scan_steps(cfg)))
+            layers = (XlstmPeriod(cfg, w, **kw)
+                      for _ in range(n_scan_steps(cfg)))
         elif cfg.family == "hybrid":
             layers = (HybridPeriod(cfg, w, **kw)
                       for _ in range(n_scan_steps(cfg)))
@@ -746,16 +759,24 @@ class Transformer(nn.Module):
         (sharded: the rank's KV heads);
         for xLSTM each block's zero state (m = -1e30), float32, with a
         leading period axis; for the hybrid the period's K/V and its
-        Mambas' zero states, (periods, attn_every - 1, ...)."""
+        Mambas' zero states, (periods, attn_every - 1, ...).  Sharded, a
+        recurrent state holds the rank's mLSTM heads or share of the
+        channels."""
         cfg = self.cfg
         n = n_scan_steps(cfg)
         if cfg.family == "ssm":
             cache = {}
+            period = self.layers[0]
             for i, kind in enumerate(cfg.block_pattern):
-                init = xlstm_mod.mlstm_init_cache if kind == "mlstm" \
-                    else xlstm_mod.slstm_init_cache
-                per = init(n * batch_size, cfg.d_model, cfg,
-                           device=self.device)
+                mixer = period.mixer(i)
+                if kind == "mlstm":
+                    per = xlstm_mod.mlstm_init_cache(
+                        n * batch_size, cfg.d_model, cfg, device=self.device,
+                        heads=mixer.n_heads)
+                else:
+                    per = xlstm_mod.slstm_init_cache(
+                        n * batch_size, cfg.d_model, cfg, device=self.device,
+                        di=mixer.r_h.w.shape[1])
                 cache[f"b{i}"] = {k: t.view(n, batch_size, *t.shape[1:])
                                   for k, t in per.items()}
             return cache
@@ -766,8 +787,9 @@ class Transformer(nn.Module):
                           for k, t in per.items()}}
         if cfg.family == "hybrid":
             m = cfg.attn_every - 1
-            per = ssm_mod.mamba_init_cache(n * m * batch_size, cfg.d_model,
-                                           cfg, compute, self.device)
+            per = ssm_mod.mamba_init_cache(
+                n * m * batch_size, cfg.d_model, cfg, compute, self.device,
+                di=self.layers[0].mamba[0].d_skip.shape[0])
             cache["mamba"] = {k: t.view(n, m, batch_size, *t.shape[1:])
                               for k, t in per.items()}
         return cache
@@ -887,25 +909,61 @@ class Transformer(nn.Module):
         return x
 
 
-def _keep(t: torch.Tensor, spec: tuple, coords, heads) -> torch.Tensor:
-    """A rank's block of a full parameter: by ``spec``, but for an
-    attention leaf (``heads``: (dim, lo, hi)) the rows or columns
-    [lo, hi) of its whole heads on that dim."""
-    if heads is not None:
-        dim, lo, hi = heads
+def _keep(t: torch.Tensor, spec: tuple, coords, cols) -> torch.Tensor:
+    """A rank's block of a full parameter: by ``spec``, but where
+    :func:`model_cols` gives (dim, lo, hi) the rows or columns [lo, hi)
+    on that dim in place of the spec's "model" split (whole heads, a
+    Mamba's channels of ``a_log``)."""
+    if cols is not None:
+        dim, lo, hi = cols
         t = t.narrow(dim, lo, hi - lo)
-        spec = list((None,) * (t.dim() - len(spec)) + tuple(spec))
-        spec[dim] = None
+        spec = tuple(_without_model(e) for e in
+                     (None,) * (t.dim() - len(spec)) + tuple(spec))
     return sharding.local_block(t, tuple(spec), coords)
+
+
+def _without_model(entry):
+    """A spec entry with "model" taken out of it."""
+    axes = tuple(a for a in sharding._axes(entry) if a != "model")
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def _a_log(name: str) -> bool:
+    return re.search(r"mamba\.(\d+\.)?a_log$", name) is not None
+
+
+def model_dim(name: str, spec: tuple) -> Optional[int]:
+    """The dim of parameter ``name`` that the port splits over "model":
+    the spec's, but a Mamba's ``a_log`` (channels, state) on its channels,
+    where the reference's rule (its one entry right-aligned) puts "model"
+    on the state: the scan needs each channel's whole row.  None where the
+    spec names no "model"."""
+    mdim = next((i for i, e in enumerate(spec)
+                 if "model" in sharding._axes(e)), None)
+    return 0 if mdim is not None and _a_log(name) else mdim
+
+
+def model_cols(cfg, name: str, m: int, r: int
+               ) -> Optional[Tuple[int, int, int]]:
+    """(dim, lo, hi) of the block rank ``r`` of ``m`` holds of parameter
+    ``name`` where it is not the spec's even block of "model": whole
+    heads (:func:`head_cols`), and a Mamba's ``a_log`` rows of the rank's
+    channels; None for any other leaf or at ``m == 1``."""
+    if m > 1 and _a_log(name):
+        n = cfg.d_model * cfg.ssm_expand // m
+        return 0, r * n, (r + 1) * n
+    return head_cols(cfg, name, m, r)
 
 
 def head_cols(cfg, name: str, m: int, r: int
               ) -> Optional[Tuple[int, int, int]]:
     """(dim, lo, hi) of the whole heads rank ``r`` of ``m`` holds of
-    attention leaf ``name`` (:func:`_head_leaf`): the columns of its query
-    heads for ``wq``'s weight and bias, the rows for ``wo``'s weight, the
-    columns of the KV heads those read for ``wk`` / ``wv``; None for any
-    other leaf or at ``m == 1``."""
+    attention or mLSTM leaf ``name`` (:func:`_head_leaf`): the columns of
+    its query heads for ``wq``'s weight and bias (an mLSTM's heads for its
+    ``wq``, ``wk``, ``wv``, ``wi``, ``wf``, ``wz`` and their biases), the
+    rows for ``wo``'s (``proj_out``'s) weight, the columns of the KV heads
+    those read for ``wk`` / ``wv``; None for any other leaf or at ``m ==
+    1``."""
     kind = _head_leaf(name)
     if kind is None or m == 1:
         return None
@@ -914,7 +972,9 @@ def head_cols(cfg, name: str, m: int, r: int
         lo, hi = attn.kv_head_range(cfg.n_heads, cfg.n_kv_heads, m, r)
     else:
         lo, hi = attn.head_range(cfg.n_heads, m, r)
-    dim = 0 if name.endswith("wo.w") else -1
+    if kind == "mlstm":
+        hd = cfg.d_model * cfg.ssm_expand // cfg.n_heads
+    dim = 0 if name.endswith(("wo.w", "proj_out.w")) else -1
     return dim, lo * hd, hi * hd
 
 
@@ -925,8 +985,9 @@ def param_blocks(cfg, coords, rules: sharding.LogicalRules
     (index, size)}``) under ``rules``: ``keep`` cuts a full tensor to the
     rank's block.  The block is ``local_block`` by the spec
     (``launch.sharding.param_specs``, the reference's), but on attention's
-    head dim the rank's whole heads (:func:`head_cols`), whether or not
-    the heads split evenly over "model"."""
+    head dim the rank's whole heads (:func:`head_cols`, attention's and
+    the mLSTM's), whether or not the heads split evenly over "model", and
+    a Mamba's ``a_log`` by its channels (:func:`model_cols`)."""
     full = {k: p.detach() for k, p in
             Transformer(cfg, device="meta").named_parameters()}
     specs = sharding.param_specs(full, rules)
@@ -935,14 +996,16 @@ def param_blocks(cfg, coords, rules: sharding.LogicalRules
     for name, p in full.items():
         out[name] = (p, specs[name], functools.partial(
             _keep, spec=specs[name], coords=coords,
-            heads=head_cols(cfg, name, m, r)))
+            cols=model_cols(cfg, name, m, r)))
     return out
 
 
 def _head_leaf(name: str) -> Optional[str]:
-    """"q" for ``wq``'s weight and bias and ``wo``'s weight, "kv" for
-    ``wk`` / ``wv``'s, None for any other leaf (``wo``'s bias is on
-    d_model)."""
+    """"q" for attention's ``wq`` weight and bias and ``wo``'s weight,
+    "kv" for ``wk`` / ``wv``'s, "mlstm" for an mLSTM's head leaves, None
+    for any other leaf (``wo``'s bias is on d_model)."""
+    if re.search(r"b\d+_mlstm\.(wq|wk|wv|wi|wf|wz|proj_out)\.[wb]$", name):
+        return "mlstm"
     hit = re.search(r"attn\.w([qkvo])\.([wb])$", name)
     if hit is None or hit.group(1) == "o" and hit.group(2) == "b":
         return None
@@ -956,18 +1019,19 @@ def _kv_leaf(name: str) -> bool:
 def model_ranges(cfg, name: str, spec: tuple, shape: Tuple[int, ...],
                  m: int) -> Optional[Tuple[Tuple[int, int], ...]]:
     """Each model rank's (start, size) on the dim of parameter ``name``
-    (full shape ``shape``) that "model" splits, or None where the spec
-    names no "model" (whole on every rank): the rank's whole heads for an
-    attention leaf (:func:`head_cols`), else the spec's even blocks."""
-    mdim = next((i for i, e in enumerate(spec)
-                 if "model" in sharding._axes(e)), None)
+    (full shape ``shape``) that the port splits over "model"
+    (:func:`model_dim`), or None where the spec names no "model" (whole
+    on every rank): the rank's whole heads for an attention or mLSTM leaf
+    and its channels of a Mamba's ``a_log`` (:func:`model_cols`), else
+    the spec's even blocks."""
+    mdim = model_dim(name, spec)
     if mdim is None:
         return None
     out = []
     for q in range(m):
-        heads = head_cols(cfg, name, m, q)
-        if heads is not None:
-            out.append((heads[1], heads[2] - heads[1]))
+        cols = model_cols(cfg, name, m, q)
+        if cols is not None:
+            out.append((cols[1], cols[2] - cols[1]))
         else:
             n = shape[mdim] // m
             out.append((q * n, n))

@@ -11,6 +11,11 @@
   :func:`slstm_train` is a Python loop of :func:`slstm_step`, one token at
   a time, as the reference's ``lax.scan``.
 
+Both loops run through ``launch/hlo_cost.loop``: every trip, except under
+a ``launch/hlo_cost.CostCounter`` on the meta device (the dry run's
+counted cells), where the middle trips, which run the same ops on the
+same shapes with the same collectives, run once and count for all.
+
 Both use the reference's numerics: gates and states in float32, the
 stabiliser m starting at -1e30, the intra-chunk log-weights masked to -inf
 before their max and exp, ``F.logsigmoid`` for the forget gate, and the
@@ -22,6 +27,25 @@ a prompt compound, so on the card it needs TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default):
 with it on, each step rounds h and r_h to 10 mantissa bits.  The module
 has no kernel of its own; the reference has no Pallas kernel here either.
+
+Over model ranks (a block built with ``group``, a
+``launch.mesh.ModelGroup``): each input projection's input passes
+``group.enter`` and ``proj_out``'s output ``group.psum``.
+
+* **mLSTM: whole heads**, as attention keeps them
+  (``models/attention.head_range``, rank 0 the most): rank r holds the
+  ``wq``, ``wk``, ``wv``, ``wi``, ``wf`` and ``wz`` columns of its heads
+  and the matching ``proj_out`` rows.  The per-head gates are means over
+  the head's own channels, so everything between the entry and the sum
+  is the rank's alone.  A rank with no head (xlstm-350m's 4 heads over
+  more than 4 ranks) runs no chunk and adds ``proj_out``'s zero-width
+  product to the sum, which keeps its input's gradient path, so its
+  backward joins the group's collectives; counted in :data:`NO_HEAD`.
+* **sLSTM: channels split evenly.**  The gates and ``proj_out``'s rows
+  hold the rank's di / m channels; ``r_h`` holds every row of the rank's
+  output columns, so each step gathers the whole ``h`` (B, di) float32
+  over the group (``all_gather_dim``, a reduce-scatter in the backward):
+  one collective a step a block, in prefill, decode and training.
 """
 
 from __future__ import annotations
@@ -32,26 +56,33 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..launch import hlo_cost
 from .layers import Dense, dense
 
 __all__ = ["mLSTM", "sLSTM", "mlstm_train", "mlstm_init_cache",
            "mlstm_decode", "slstm_step", "slstm_train", "slstm_init_cache",
-           "slstm_decode", "CHUNK"]
+           "slstm_decode", "CHUNK", "NO_HEAD"]
 
 State = Dict[str, torch.Tensor]
 CHUNK = 128          # mlstm_train's chunk, as the reference's default
 M_INIT = -1e30       # the stabiliser's start
+#: mLSTM calls on a rank that holds no head
+NO_HEAD = {"calls": 0}
 
 
 class mLSTM(nn.Module):    # noqa: N801 -- the paper's name
     """``wq``, ``wk``, ``wv``, ``wz`` (the output gate), ``proj_out``, and
     the gates ``wi`` and ``wf`` with biases; inner width
-    ``d_model * cfg.ssm_expand``."""
+    ``d_model * cfg.ssm_expand`` over ``cfg.n_heads`` heads of ``dk``
+    channels.  With ``group``, ``heads`` of them: the rank's."""
 
-    def __init__(self, d_model: int, cfg, *, device=None,
-                 dtype=torch.float32):
+    def __init__(self, d_model: int, cfg, *, heads: int = None, group=None,
+                 device=None, dtype=torch.float32):
         super().__init__()
-        di = d_model * cfg.ssm_expand
+        self.dk = d_model * cfg.ssm_expand // cfg.n_heads
+        self.n_heads = cfg.n_heads if heads is None else heads
+        self.group = group
+        di = self.n_heads * self.dk
         kw = dict(device=device, dtype=dtype)
         self.wq = Dense(d_model, di, **kw)
         self.wk = Dense(d_model, di, **kw)
@@ -69,18 +100,22 @@ class mLSTM(nn.Module):    # noqa: N801 -- the paper's name
 
 class sLSTM(nn.Module):    # noqa: N801 -- the paper's name
     """The gates ``wz`` (cell input), ``wi``, ``wf`` and ``wo_gate`` with
-    biases, the recurrent ``r_h`` (di, di) and ``proj_out``."""
+    biases, the recurrent ``r_h`` (di, di) and ``proj_out``.  With
+    ``group``, ``di`` is the rank's share of the channels and ``r_h``
+    (d_model · ssm_expand, di) every row of its columns."""
 
-    def __init__(self, d_model: int, cfg, *, device=None,
-                 dtype=torch.float32):
+    def __init__(self, d_model: int, cfg, *, di: int = None, group=None,
+                 device=None, dtype=torch.float32):
         super().__init__()
-        di = d_model * cfg.ssm_expand
+        width = d_model * cfg.ssm_expand
+        di = width if di is None else di
+        self.group = group
         kw = dict(device=device, dtype=dtype)
         self.wz = Dense(d_model, di, bias=True, **kw)
         self.wi = Dense(d_model, di, bias=True, **kw)
         self.wf = Dense(d_model, di, bias=True, **kw)
         self.wo_gate = Dense(d_model, di, bias=True, **kw)
-        self.r_h = Dense(di, di, **kw)
+        self.r_h = Dense(width, di, **kw)
         self.proj_out = Dense(di, d_model, **kw)
 
     def reset(self, generator: torch.Generator) -> None:
@@ -94,8 +129,16 @@ class sLSTM(nn.Module):    # noqa: N801 -- the paper's name
 # ---------------------------------------------------------------------------
 
 
-def _mlstm_heads(cfg, di: int) -> Tuple[int, int]:
-    return cfg.n_heads, di // cfg.n_heads
+def _enter(p, x: torch.Tensor) -> torch.Tensor:
+    """A block's input: over a group, the column-parallel entry."""
+    return x if p.group is None else p.group.enter(x)
+
+
+def _out(p, y: torch.Tensor, compute) -> torch.Tensor:
+    """``proj_out`` of ``y``; summed over the group when ``p`` holds a
+    rank's share."""
+    out = dense(p.proj_out, y, compute)
+    return out if p.group is None else p.group.psum(out)
 
 
 def _mlstm_chunk(state, q, k, v, i_, f_, scale):
@@ -140,35 +183,52 @@ def mlstm_train(p: mLSTM, x: torch.Tensor, cfg, chunk: int = CHUNK,
     prefill hands to decode."""
     compute = x.dtype
     b, s, _ = x.shape
-    q = dense(p.wq, x, compute)
-    k = dense(p.wk, x, compute)
-    v = dense(p.wv, x, compute)
-    ig = dense(p.wi, x, compute).float()                  # log-space gates
-    fg = dense(p.wf, x, compute).float()
-    og = torch.sigmoid(dense(p.wz, x, compute))
-    h, dk = _mlstm_heads(cfg, q.shape[-1])
-    q, k, v = (t.reshape(b, s, h, dk).float() for t in (q, k, v))
-    ig = ig.reshape(b, s, h, dk).mean(-1)                 # per-head gates
-    fg = F.logsigmoid(fg.reshape(b, s, h, dk).mean(-1))
-
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"mlstm_train: the sequence length {s} must be a "
                          f"multiple of the chunk min({chunk}, S); padding "
                          f"would change the state")
-    state = _mlstm_zero_state(b, h, dk, x.device)
+    x = _enter(p, x)
+    h, dk = p.n_heads, p.dk
+    q = dense(p.wq, x, compute)
+    if h == 0:
+        out = _no_head(p, q, compute)
+        if return_state:
+            return out, dict(zip(("c", "n", "m"),
+                                 _mlstm_zero_state(b, 0, dk, x.device)))
+        return out
+    k = dense(p.wk, x, compute)
+    v = dense(p.wv, x, compute)
+    ig = dense(p.wi, x, compute).float()                  # log-space gates
+    fg = dense(p.wf, x, compute).float()
+    og = torch.sigmoid(dense(p.wz, x, compute))
+    q, k, v = (t.reshape(b, s, h, dk).float() for t in (q, k, v))
+    ig = ig.reshape(b, s, h, dk).mean(-1)                 # per-head gates
+    fg = F.logsigmoid(fg.reshape(b, s, h, dk).mean(-1))
+
     scale = 1.0 / (dk ** 0.5)
-    ys = []
-    for c0 in range(0, s, chunk):
-        sl = slice(c0, c0 + chunk)
+
+    def fold(state, i):
+        sl = slice(i * chunk, (i + 1) * chunk)
         state, y = _mlstm_chunk(state, q[:, sl], k[:, sl], v[:, sl],
                                 ig[:, sl], fg[:, sl], scale)
-        ys.append(y.to(compute))
+        return state, y.to(compute)
+
+    state, ys = hlo_cost.loop(x, s // chunk, fold,
+                              _mlstm_zero_state(b, h, dk, x.device))
     y = torch.cat(ys, dim=1).reshape(b, s, -1) * og
-    out = dense(p.proj_out, y, compute)
+    out = _out(p, y, compute)
     if return_state:
         return out, dict(zip(("c", "n", "m"), state))
     return out
+
+
+def _no_head(p: mLSTM, q: torch.Tensor, compute) -> torch.Tensor:
+    """A rank that holds no head: ``proj_out``'s zero-width product of
+    ``q`` (B, S, 0) adds zeros to the group's sum and keeps the input's
+    gradient path, so the backward's collectives run on this rank too."""
+    NO_HEAD["calls"] += 1
+    return _out(p, q, compute)
 
 
 def _mlstm_zero_state(b, h, dk, device):
@@ -177,10 +237,12 @@ def _mlstm_zero_state(b, h, dk, device):
             torch.full((b, h), M_INIT, dtype=torch.float32, device=device))
 
 
-def mlstm_init_cache(batch: int, d_model: int, cfg, device=None) -> State:
-    """Zero (C, n) and m = -1e30, float32."""
-    di = d_model * cfg.ssm_expand
-    h, dk = _mlstm_heads(cfg, di)
+def mlstm_init_cache(batch: int, d_model: int, cfg, device=None,
+                     heads: int = None) -> State:
+    """Zero (C, n) and m = -1e30, float32; ``heads``: a rank's (default
+    ``cfg.n_heads``)."""
+    dk = d_model * cfg.ssm_expand // cfg.n_heads
+    h = cfg.n_heads if heads is None else heads
     return dict(zip(("c", "n", "m"), _mlstm_zero_state(batch, h, dk,
                                                        device)))
 
@@ -190,13 +252,16 @@ def mlstm_decode(p: mLSTM, x: torch.Tensor, cfg, cache: State
     """One token, x: (B, 1, d_model) -> (y (B, 1, d_model), new state)."""
     compute = x.dtype
     b = x.shape[0]
+    x = _enter(p, x)
+    h, dk = p.n_heads, p.dk
+    if h == 0:
+        return _no_head(p, dense(p.wq, x, compute), compute), cache
     q = dense(p.wq, x, compute)[:, 0]
     k = dense(p.wk, x, compute)[:, 0]
     v = dense(p.wv, x, compute)[:, 0]
     ig = dense(p.wi, x, compute).float()[:, 0]
     fg = dense(p.wf, x, compute).float()[:, 0]
     og = torch.sigmoid(dense(p.wz, x, compute))[:, 0]
-    h, dk = _mlstm_heads(cfg, q.shape[-1])
     q, k, v = (t.float().reshape(b, h, dk) for t in (q, k, v))
     i_t = ig.reshape(b, h, dk).mean(-1)
     f_t = F.logsigmoid(fg.reshape(b, h, dk).mean(-1))
@@ -211,7 +276,7 @@ def mlstm_decode(p: mLSTM, x: torch.Tensor, cfg, cache: State
     den = torch.abs(torch.einsum("bhd,bhd->bh", q, n)) * scale
     y = num / torch.clamp(den, min=1.0)[..., None]
     y = y.reshape(b, 1, -1).to(compute) * og[:, None]
-    return dense(p.proj_out, y, compute), {"c": c, "n": n, "m": m_new}
+    return _out(p, y, compute), {"c": c, "n": n, "m": m_new}
 
 
 # ---------------------------------------------------------------------------
@@ -221,8 +286,11 @@ def mlstm_decode(p: mLSTM, x: torch.Tensor, cfg, cache: State
 
 def slstm_step(p: sLSTM, state, zi, ii, fi, oi):
     """One sLSTM timestep: ``state`` = (c, n, h, m), each (B, di) float32;
-    the gate pre-activations (B, di) float32."""
+    the gate pre-activations (B, di) float32.  Over a group, ``h`` is
+    gathered whole for the recurrence (module docstring)."""
     c, n, h, m = state
+    if p.group is not None:
+        h = p.group.all_gather_dim(h, -1, own_loss=True)
     rh = torch.matmul(h, p.r_h.w.float())
     z = torch.tanh(zi + rh)
     i_log = ii + rh
@@ -244,18 +312,21 @@ def _slstm_gates(p: sLSTM, x: torch.Tensor):
 
 def slstm_train(p: sLSTM, x: torch.Tensor, cfg, return_state: bool = False):
     """x: (B, S, d_model) -> (B, S, d_model): S steps of :func:`slstm_step`
-    in order.  ``return_state`` also returns ``{"c", "n", "h", "m"}``."""
+    in order.  ``return_state`` also returns ``{"c", "n", "h", "m"}``.
+    Counted on the meta device, the middle trips run once (module
+    docstring)."""
     compute = x.dtype
     b, s, _ = x.shape
-    zi, ii, fi, oi = _slstm_gates(p, x)
-    di = zi.shape[-1]
-    state = _slstm_zero_state(b, di, x.device)
-    hs = []
-    for t in range(s):
-        state = slstm_step(p, state, zi[:, t], ii[:, t], fi[:, t], oi[:, t])
-        hs.append(state[2])
+    gates = _slstm_gates(p, _enter(p, x))
+    state = _slstm_zero_state(b, gates[0].shape[-1], x.device)
+
+    def step(state, t):
+        state = slstm_step(p, state, *(g[:, t] for g in gates))
+        return state, state[2]
+
+    state, hs = hlo_cost.loop(x, s, step, state)
     y = torch.stack(hs, dim=1).to(compute)
-    out = dense(p.proj_out, y, compute)
+    out = _out(p, y, compute)
     if return_state:
         return out, dict(zip(("c", "n", "h", "m"), state))
     return out
@@ -268,9 +339,11 @@ def _slstm_zero_state(b, di, device):
                                       device=device),)
 
 
-def slstm_init_cache(batch: int, d_model: int, cfg, device=None) -> State:
-    """Zero (c, n, h) and m = -1e30, float32."""
-    di = d_model * cfg.ssm_expand
+def slstm_init_cache(batch: int, d_model: int, cfg, device=None,
+                     di: int = None) -> State:
+    """Zero (c, n, h) and m = -1e30, float32; ``di``: a rank's share of
+    the channels (default all of them)."""
+    di = d_model * cfg.ssm_expand if di is None else di
     return dict(zip(("c", "n", "h", "m"), _slstm_zero_state(batch, di,
                                                             device)))
 
@@ -279,8 +352,8 @@ def slstm_decode(p: sLSTM, x: torch.Tensor, cfg, cache: State
                  ) -> Tuple[torch.Tensor, State]:
     """One token, x: (B, 1, d_model) -> (y (B, 1, d_model), new state)."""
     compute = x.dtype
-    zi, ii, fi, oi = (g[:, 0] for g in _slstm_gates(p, x))
+    zi, ii, fi, oi = (g[:, 0] for g in _slstm_gates(p, _enter(p, x)))
     state = (cache["c"], cache["n"], cache["h"], cache["m"])
     c, n, h, m = slstm_step(p, state, zi, ii, fi, oi)
     y = h[:, None].to(compute)
-    return dense(p.proj_out, y, compute), {"c": c, "n": n, "h": h, "m": m}
+    return _out(p, y, compute), {"c": c, "n": n, "h": h, "m": m}

@@ -208,10 +208,17 @@ class Means:
         """The whole parameter's shape."""
         return tuple(p.shape)
 
+    def part(self, k: str, t: torch.Tensor, dim: int,
+             pdim: int) -> torch.Tensor:
+        """``t`` on its dim ``dim``, which is the parameter's dim ``pdim``,
+        cut to the positions this piece counts in a sum over that dim:
+        here all of them."""
+        return t
+
     def total(self, k: str, part: torch.Tensor, dims) -> torch.Tensor:
         """``part``, the held block's sum over the parameter's ``dims``
-        (with any leading dims), summed over every piece of the
-        parameter."""
+        (with any leading dims; taken of :meth:`part` on each of them),
+        summed over every piece of the parameter."""
         return part
 
 
@@ -243,14 +250,14 @@ def _stacked_update(ps, gs, s, stack, full, means: Means, key: str, rho,
         cols = torch.empty(flat(s["vc"], k).shape, device=gs[0].device)
         for a, b in spans:
             g2 = layers(gs, a, b) ** 2 + h.epsilon1
-            rows[a:b] = g2.sum(-1)
-            cols[a:b] = g2.sum(-2)
+            rows[a:b] = means.part(key, g2, -1, nl - 1).sum(-1)
+            cols[a:b] = means.part(key, g2, -2, nl - 2).sum(-2)
         vr = rho * flat(s["vr"], k) + (1 - rho) * means.total(
             key, rows, (nl - 1,)) / full[-1]
         vc = rho * flat(s["vc"], k) + (1 - rho) * means.total(
             key, cols, (nl - 2,)) / full[-2]
-        rmean = means.total(key, vr.sum(-1, keepdim=True), (nl - 2,)) \
-            / full[-2]
+        rmean = means.total(key, means.part(key, vr, -1, nl - 2).sum(
+            -1, keepdim=True), (nl - 2,)) / full[-2]
         r_sqrt = torch.sqrt(vr / torch.clamp(rmean, min=h.epsilon1))
         c_sqrt = torch.sqrt(vc)
 
@@ -266,7 +273,8 @@ def _stacked_update(ps, gs, s, stack, full, means: Means, key: str, rho,
                                       f"parameter of the port is one")
         g2 = torch.stack(gs) ** 2 + h.epsilon1                  # (n, b)
         vr = rho * s["vr"] + (1 - rho) * means.total(
-            key, g2.sum(-1).view(stack), (0,)) / full[0]
+            key, means.part(key, g2, -1, 0).sum(-1).view(stack), (0,)) \
+            / full[0]
         vc = rho * s["vc"] + (1 - rho) * g2.view(stack + gs[0].shape) \
             .sum(k - 1) / stack[-1]
         rfac = vr / torch.clamp(vr.mean(-1, keepdim=True), min=h.epsilon1)
@@ -287,8 +295,14 @@ def _stacked_update(ps, gs, s, stack, full, means: Means, key: str, rho,
 
         def update(a, b):
             return layers(gs, a, b) / (torch.sqrt(v[a:b]) + h.epsilon2)
+    def counted(u):     # the positions this piece counts, on every dim
+        for j in range(nl):
+            u = means.part(key, u, j - nl, j)
+        return u
+
     # the update's RMS over every layer at once
-    sq = sum(torch.sum(torch.square(update(a, b))) for a, b in spans)
+    sq = sum(torch.sum(torch.square(counted(update(a, b))))
+             for a, b in spans)
     rms = torch.sqrt(means.total(key, sq, tuple(range(nl)))
                      / math.prod(shape) + h.epsilon1)
     scale = torch.clamp(rms, min=1.0)

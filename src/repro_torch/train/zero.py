@@ -21,10 +21,12 @@ only, ZeRO-1.  Each parameter's layout is a :class:`Leaf`:
   arrives reduced over the data ranks by the forward's weight gather
   (``launch/mesh.ModelGrid.weight``), in float32 in
   ``reduced_grad``;
-* ``mdim``: the dim split over "model" (None: whole on every model rank);
-  ``mranges``: every model rank's (start, size) on it, which differ where
-  attention's heads do not split evenly (``models/transformer.
-  model_ranges``: whole heads, a rank with none holding zero width);
+* ``mdim``: the dim split over "model" (None: whole on every model rank;
+  ``models/transformer.model_dim``: the spec's, a Mamba's ``a_log`` on
+  its channels); ``mranges``: every model rank's (start, size) on it,
+  which differ where attention's or an mLSTM's heads do not split evenly
+  (``models/transformer.model_ranges``: whole heads, a rank with none
+  holding zero width);
   ``holders``: the model ranks holding the same block (all of them for a
   whole parameter, the ranks reading the same KV heads for a ``wk`` /
   ``wv`` leaf); ``members``: the model ranks whose gradients add up to the
@@ -52,7 +54,9 @@ only, ZeRO-1.  Each parameter's layout is a :class:`Leaf`:
    stacked parameters (``train/optimizer.stack_groups``: a group's layers
    are all on the rank), its row, column and RMS means over the whole
    stacked parameter, from partial sums over its layers and over the
-   ranks that hold its pieces, in rank order (:class:`BlockMeans`); the
+   ranks that hold its pieces, each position counted by its first holder
+   (a KV head that straddles ranks too), in rank order
+   (:class:`BlockMeans`); the
    reference's formulas, float32 scalars included
    (``train/optimizer.py``);
 5. the updated blocks all-gathered over "data" (a ``ddim`` block is the
@@ -78,8 +82,8 @@ import torch
 
 from ..launch.mesh import MeshShape, collective_phase, pad_to
 from ..launch.sharding import _axes
-from ..models.transformer import (grad_members, model_holders, model_ranges,
-                                  param_blocks)
+from ..models.transformer import (grad_members, model_dim, model_holders,
+                                  model_ranges, param_blocks)
 from .optimizer import (Means, OptHyper, _factored, adafactor_leaf,
                         adafactor_update, adamw_init, adamw_update,
                         clip_by_global_norm, stack_groups, zero1_extend_spec)
@@ -131,6 +135,8 @@ class Leaf:
         if self.mdim is None:
             return t if self.m_owner else t.narrow(0, 0, 0)
         lo, n = self.owned(self.m_rank)
+        if n == self.mrange[1]:     # all of it (a ZeRO block may split it)
+            return t
         return t.narrow(self.mdim, lo - self.mrange[0], n)
 
     @property
@@ -169,8 +175,7 @@ def layout_for(cfg, coords: Dict[str, Tuple[int, int]], rules,
     dmesh = MeshShape(("data",), (d,))
     out = {}
     for name, (full, spec, keep) in param_blocks(cfg, coords, rules).items():
-        mdim = next((i for i, e in enumerate(spec)
-                     if "model" in _axes(e)), None)
+        mdim = model_dim(name, spec)
         ddim = next((i for i, e in enumerate(spec)
                      if "data" in _axes(e)), None) if wd > 1 else None
         zdim = None
@@ -252,11 +257,12 @@ def state_dims(name: str, nd: int, k: int = 0) -> Tuple[int, ...]:
 
 class BlockMeans(Means):
     """Adafactor's sums over a whole parameter from a rank's ZeRO block:
-    the block's partial sums, added over the model ranks that hold the
-    other pieces of a reduced dim (a shared block counted by its first
-    holder), over the data ranks when the dim is the ZeRO one, and over
-    the weights' data ranks when it is the one the spec splits over
-    "data", in rank order."""
+    the block's partial sums over the positions it counts (on the model
+    dim, its :meth:`Leaf.owned` range: a position that several ranks hold,
+    a KV head shared by ranks whose query heads straddle it, counted by
+    its first holder), added over the model ranks, over the data ranks
+    when the dim is the ZeRO one, and over the weights' data ranks when
+    it is the one the spec splits over "data", in rank order."""
 
     def __init__(self, lay: Dict[str, Leaf], grid):
         self.lay, self.grid = lay, grid
@@ -264,15 +270,19 @@ class BlockMeans(Means):
     def shape(self, k, p):
         return self.lay[k].full
 
+    def part(self, k, t, dim, pdim):
+        leaf = self.lay[k]
+        if self.grid.model.d == 1 or pdim != leaf.mdim:
+            return t
+        lo, n = leaf.owned(leaf.m_rank)
+        if n == leaf.mrange[1]:     # all of it (a ZeRO block may split it)
+            return t
+        return t.narrow(dim, lo - leaf.mrange[0], n)
+
     def total(self, k, part, dims):
         leaf, grid = self.lay[k], self.grid
         if grid.model.d > 1 and leaf.mdim in dims:
-            n = leaf.owned(leaf.m_rank)[1]
-            if 0 < n < leaf.mrange[1]:
-                raise NotImplementedError(
-                    f"{k}: Adafactor's sums over a block that other ranks "
-                    f"hold in part (KV heads that straddle ranks)")
-            part = grid.model._sum(part if n else torch.zeros_like(part))
+            part = grid.model._sum(part)
         if grid.data.d > 1 and leaf.zdim in dims:
             part = grid.data._sum(part)
         if leaf.ddim in dims:

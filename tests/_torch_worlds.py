@@ -800,6 +800,150 @@ def heads_job(data: int, model: int, cases) -> dict:
     return out
 
 
+def recurrent_job(data: int, model: int, cases) -> dict:
+    """Each of ``cases`` ((tag, config overrides, arrays, batch, prompt,
+    teacher, grads)) of the ssm or hybrid family over a (``data``,
+    ``model``) grid: on this data shard's rows, ``forward`` of ``batch``;
+    ``loss_fn`` of it and the whole gradient (each block summed over the
+    model ranks that hold it, reduced over "data", gathered as a
+    checkpoint gathers state); ``prefill`` of ``prompt`` and a
+    teacher-forced ``decode_step`` per column of ``teacher``, with the
+    model group's collective calls in the prefill and in each step; the
+    mLSTM calls that found no head on this rank
+    (``models/xlstm.NO_HEAD``); the parameters and cache beside
+    ``launch.specs.input_specs``' meta shapes (rank 0's); from ``arrays``,
+    one ``zero.apply_gradients`` of the whole gradients ``grads`` (a
+    position several model ranks hold given to the first of them), and
+    one ``make_train_step`` on ``batch``: the whole parameters after
+    each; ``init_params`` from seed 0 over the grid, gathered whole; and
+    the serving and the gradient again with every weight's d_model dim
+    split over "data" too (``default_rules(two_d_weights=True)``: each use
+    gathers it over the data ranks).  Returns numpy."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import sharding, specs
+    from repro_torch.launch.mesh import model_grid
+    from repro_torch.models import xlstm
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import zero
+    from repro_torch.train.optimizer import OptHyper
+    from repro_torch.train.step import make_train_step
+    grid = model_grid(data, model)
+    di = grid.data.rank
+
+    def rows(a):
+        n = a.shape[0] // data
+        return torch.from_numpy(np.ascontiguousarray(a[di * n:(di + 1) * n]))
+
+    def given_grads(m, grads):
+        """Each rank's part of the whole gradients, which the model-axis
+        sums add up to them: a shared position on its first holder, a
+        router's gradient divided among the ranks."""
+        lay = zero.layout(m)
+        for k, p in m.named_parameters():
+            g = p.keep(torch.from_numpy(grads[k])).clone()
+            if lay[k].msum and lay[k].mdim is None:
+                g = g / len(lay[k].members)
+            elif lay[k].msum:
+                lo, n = lay[k].owned(lay[k].m_rank)
+                keep = torch.zeros_like(g)
+                keep.narrow(lay[k].mdim, lo - lay[k].mrange[0], n).fill_(1)
+                g = g * keep
+            p.grad = g
+
+    def whole_params(m, state):
+        tree = zero.full_tree(m, state)["params"]
+        return {k: f().numpy() for k, f in tree.items()}
+
+    def run(m, mine, prompt, teacher):
+        """``forward``, ``loss_fn`` and the whole gradient, ``prefill`` and
+        the teacher-forced steps of ``m``, with the model group's calls;
+        the cache."""
+        logits, _ = m({k: v for k, v in mine.items() if k != "targets"})
+        res = {"forward": logits.numpy()}
+        loss, _ = m.loss_fn(mine)
+        loss.backward()
+        lay = zero.layout(m)
+        taken = {k: zero._taken_grad(p, lay[k])
+                 for k, p in m.named_parameters()}
+        with torch.no_grad():
+            res["loss"] = float(grid.data._sum(loss.detach()) / data
+                                if data > 1 else loss)
+            res["grads"] = {
+                k: zero._gather_full(zero._reduce(g, lay[k], grid), lay[k],
+                                     tuple(range(len(lay[k].full))), grid,
+                                     zsplit=True).numpy()
+                for k, g in taken.items()}
+            p_mine = rows(prompt)
+            max_seq = p_mine.shape[1] + teacher.shape[1] + 2
+            calls = grid.model.stats["calls"]
+            pre, cache = m.prefill({"tokens": p_mine}, max_seq)
+            res["prefill_calls"] = grid.model.stats["calls"] - calls
+            steps = [pre.numpy()[:, -1]]
+            t = rows(teacher)
+            res["decode_calls"] = []
+            for j in range(t.shape[1]):
+                calls = grid.model.stats["calls"]
+                dec, cache = m.decode_step(cache, t[:, j:j + 1],
+                                           p_mine.shape[1] + j)
+                res["decode_calls"].append(grid.model.stats["calls"]
+                                           - calls)
+                steps.append(dec.numpy()[:, 0])
+        res["steps"] = np.stack(steps, 1)
+        return res, cache, max_seq
+
+    out = {"coords": grid.coords}
+    for tag, over, arrays, batch, prompt, teacher, grads in cases:
+        cfg = _train_cfg(over)
+        m = Transformer.from_arrays(cfg, arrays, device="cpu", group=grid)
+        mine = {k: rows(v) for k, v in batch.items()}
+        xlstm.NO_HEAD["calls"] = 0
+        res, cache, max_seq = run(m, mine, prompt, teacher)
+        res["no_head_calls"] = xlstm.NO_HEAD["calls"]
+        b = batch["tokens"].shape[0]
+        shape = ShapeSpec("t", max_seq, b, "decode")
+        _, structs, _ = specs.input_specs(cfg, shape, grid)
+        res["param_shapes"] = {k: tuple(p.shape)
+                               for k, p in m.named_parameters()}
+        res["param_meta"] = {k: tuple(t.shape) for k, t in structs[0].items()}
+        res["cache_shapes"] = {(g, k): tuple(t.shape)
+                               for g, leaves in cache.items()
+                               for k, t in leaves.items()}
+        res["cache_meta"] = {(g, k): tuple(t.shape)
+                             for g, leaves in structs[1].items()
+                             for k, t in leaves.items()}
+        given = Transformer.from_arrays(cfg, arrays, device="cpu", group=grid)
+        state = zero.init_state(cfg.optimizer, given)
+        given_grads(given, grads)
+        res["grad_norm"] = float(zero.apply_gradients(given, state, 0,
+                                                      OptHyper()))
+        res["params_1"] = whole_params(given, state)
+        stepped = Transformer.from_arrays(cfg, arrays, device="cpu",
+                                          group=grid)
+        state = zero.init_state(cfg.optimizer, stepped)
+        step = make_train_step(cfg, OptHyper(), attn_chunk=16)
+        _, state, met = step(stepped, state, mine, 0)
+        res["step_metrics"] = {k: float(v) for k, v in met.items()}
+        res["params_step"] = whole_params(stepped, state)
+        drawn = Transformer.init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu", group=grid)
+        lay = zero.layout(drawn)
+        res["init_params"] = {
+            k: zero._gather_full(p, lay[k], tuple(range(len(lay[k].full))),
+                                 grid, zsplit=False).numpy()
+            for k, p in drawn.named_parameters()}
+        # every weight's d_model dim split over "data" too
+        res["two_d"] = run(Transformer.from_arrays(
+            cfg, arrays, device="cpu", group=grid,
+            rules=sharding.default_rules(
+                two_d_weights=True,
+                expert_axis_parallel=cfg.n_experts % model == 0)),
+            mine, prompt, teacher)[0]
+        out[tag] = res
+    return out
+
+
 def two_d_job(cases, ckpt=None, memory=None, prompts=()) -> dict:
     """Each of ``cases`` ((tag, data, model, config overrides, expert axis
     parallel, arrays, tokens, batches, grads)) with its weights 2-D

@@ -8,7 +8,8 @@ cells' outputs are not the target.  Held instead:
 * ``--list`` byte for byte (the reference in a subprocess: importing
   ``repro.launch.dryrun`` sets ``XLA_FLAGS`` in its process);
 * the single- and two-pod sweeps: which cells are ``ok``, ``skipped`` and
-  ``"error"`` (the last exactly ``ERROR_CELLS``, each naming ``ROADMAP.md``
+  ``"error"`` (none: ``ERROR_CELLS`` is empty since the ssm and hybrid
+  families run over model ranks; a failing cell would name ``ROADMAP.md``
   Queue 1 item 15 (b)), ``params`` / ``active_params`` against the
   reference's ``param_count`` / ``active_param_count``, argument bytes
   against the sum of ``launch.specs.input_specs``' meta tensors;
@@ -62,19 +63,20 @@ META = torch.device("meta")
 LM_ARCHS = [a for a in list_archs() if a != "ringo-graph"]
 ITEM = "ROADMAP.md Queue 1 item 15 (b)"
 
-# the cells the port cannot run yet, each for item 15 (b): (arch, shape)
-# on both meshes, the families without a sharded forward (ssm, hybrid).
-# The dense archs train (the sharded train step), qwen1.5-4b with its 20
-# heads over 16 model ranks as whole heads, whisper-small and internvl2-26b
-# sharded, and the giant models run with their weights 2-D
-# (``two_d_weights``).
-_FAMILIES = ["jamba-1.5-large-398b", "xlstm-350m"]
+# every cell runs: the dense archs train (the sharded train step),
+# qwen1.5-4b with its 20 heads over 16 model ranks as whole heads,
+# whisper-small and internvl2-26b sharded, the giant models with their
+# weights 2-D (``two_d_weights``), and the recurrent families (ssm,
+# hybrid) in every shape, long_500k too; jamba's weights are 2-D as well.
+# No cell is an error (item 15 (b) is done).
+RECURRENT = ["jamba-1.5-large-398b", "xlstm-350m"]
 _TRAINED = ["internvl2-26b", "mistral-nemo-12b", "qwen1.5-4b", "qwen2.5-3b",
             "starcoder2-15b", "whisper-small"]
 GIANT = ["grok-1-314b", "qwen3-moe-235b-a22b"]
-ERROR_CELLS = sorted((a, s) for a in _FAMILIES for s in SHAPES)
-OK_CELLS = sorted((a, s) for a in _TRAINED + GIANT
-                  for s in ("train_4k", "prefill_32k", "decode_32k"))
+ERROR_CELLS = []
+OK_CELLS = sorted([(a, s) for a in _TRAINED + GIANT
+                   for s in ("train_4k", "prefill_32k", "decode_32k")]
+                  + [(a, s) for a in RECURRENT for s in SHAPES])
 
 
 def count_cost(fn, *args, ledger=None):
@@ -122,14 +124,15 @@ def sweep(tmp_path_factory):
 def test_sweep_cells_ok_skipped_and_error(sweep):
     rc, cells, log = sweep
     assert len(cells) == len(LM_ARCHS) * len(SHAPES) * 2 == 80
-    assert rc == 1      # the reference's exit code when a cell fails
+    assert rc == (1 if ERROR_CELLS else 0)   # the reference's: 1 on a failure
     status = {}
     for (arch, shape, _), r in cells.items():
         status.setdefault(r["status"], set()).add((arch, shape))
-    assert sorted(status["error"]) == ERROR_CELLS
+    assert sorted(status.get("error", ())) == ERROR_CELLS
     assert sorted(status["ok"]) == OK_CELLS
     assert status["skipped"] == {(a, "long_500k") for a in LM_ARCHS} - \
-        set(ERROR_CELLS)
+        set(OK_CELLS)
+    assert sum(r["status"] == "ok" for r in cells.values()) == 64
     for r in cells.values():
         if r["status"] == "error":
             assert ITEM in r["error"], r["error"]
@@ -197,12 +200,40 @@ def test_ok_cell_counts(sweep, cell, multi_pod):
         # the gradients' reduce-scatter over "data": (d - 1) / d of each;
         # a 2-D weight's over a pod's 16, its gradient in the dtype of the
         # gathered weight
+        # an sLSTM's gathers of h reduce-scatter their gradient over the
+        # 16 model ranks (15 of 16 blocks received)
         rs = r["collective_bytes_per_device"]["reduce-scatter"]
+        mrs = _slstm_gathers(arch, data, backward=True)
         assert wire["reduce-scatter"] == pytest.approx(
-            (data - 1) * (rs - two_d[0]) + two_d[1])
+            (data - 1) * (rs - two_d[0] - mrs) + two_d[1] + 15 * mrs)
     else:
         assert wire["all-reduce"] == 15 * ar
+    if shape == "prefill_32k" and arch == "xlstm-350m":
+        # one gather of h a step in each sLSTM block, and the last
+        # token's logits
+        cfg = get_config(arch)
+        b = SHAPES[shape].global_batch // (32 if multi_pod else 16)
+        assert r["collective_bytes_per_device"]["all-gather"] == \
+            _slstm_gathers(arch, 32 if multi_pod else 16) + \
+            b * cfg.vocab_size * 2
     assert "xla_flops_per_device" not in r
+
+
+def _slstm_gathers(arch, data: int, backward: bool = False) -> int:
+    """Rank 0's bytes of the sLSTM's per-step collectives in a cell of
+    ``arch`` over ``data`` data ranks: a prefill_32k's all-gathers of
+    ``h``, (B, di) float32 a step a block; with ``backward``, a train_4k
+    backward's reduce-scatters of their gradients, (B, di / 16) a step
+    past the first.  0 for an arch with no sLSTM."""
+    cfg = get_config(arch)
+    blocks = cfg.n_layers // 2 if cfg.family == "ssm" else 0
+    di = cfg.d_model * cfg.ssm_expand
+    if backward:
+        shape = SHAPES["train_4k"]
+        return blocks * (shape.seq_len - 1) * \
+            (shape.global_batch // data) * (di // 16) * 4
+    shape = SHAPES["prefill_32k"]
+    return blocks * shape.seq_len * (shape.global_batch // data) * di * 4
 
 
 def _two_d_grad_bytes(arch, params):
@@ -228,9 +259,9 @@ def _two_d_grad_bytes(arch, params):
 
 
 def test_the_failing_reference_cell_counterpart():
-    """The port's counterpart of ``test_dryrun_cell_machinery_subprocess``
-    (whose xlstm-350m has no sharded forward in the port yet)."""
-    r = dryrun.run_cell("qwen2.5-3b", "decode_32k", False)
+    """The port's counterpart of ``test_dryrun_cell_machinery_subprocess``:
+    its cell, xlstm-350m × decode_32k on the single-pod mesh."""
+    r = dryrun.run_cell("xlstm-350m", "decode_32k", False)
     assert r["status"] == "ok"
     assert r["flops_per_device"] > 0
     assert r["n_chips"] == 256

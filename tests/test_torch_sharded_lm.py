@@ -280,36 +280,45 @@ def _abstract(data, model):
 @pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-small",
                                   "internvl2-26b", "jamba-1.5-large-398b"])
 def test_unported_families_raise_over_model_ranks(arch):
-    """The ssm and hybrid families have no sharded forward yet and raise
-    over model ranks, model and cache alike; the audio and vlm families
-    build over (1, 2) (``tests/test_torch_sharded_heads.py`` holds their
-    numbers), each rank holding its query heads and the KV heads they
-    read, in its model and in ``cache_structs``."""
+    """Every family builds over model ranks now (the name is kept from when
+    the ssm and hybrid families raised): over (1, 2) each rank holds its
+    query heads and the KV heads they read, an xLSTM rank its mLSTM heads
+    and half of the sLSTM's channels, a jamba rank half of each Mamba's,
+    in its model, its ``init_cache`` and ``cache_structs``
+    (``tests/test_torch_sharded_heads.py`` and
+    ``tests/test_torch_sharded_ssm.py`` hold their numbers)."""
     cfg = reduced(get_config(arch))
     mesh = _abstract(1, 2)
     from repro_torch.configs.base import ShapeSpec
     shape = ShapeSpec("d", 8, 2, "decode")
-    if arch in ("xlstm-350m", "jamba-1.5-large-398b"):
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1 item 15 \\(b\\)"):
-            Transformer(cfg, device="cpu", group=_abstract(1, 2))
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1 item 15 \\(b\\)"):
-            specs.cache_structs(cfg, shape, mesh,
-                                specs.rules_for(cfg, mesh, "decode"))
-    else:
-        for r in range(2):
-            grid = ModelGrid(ModelGroup(1, 0), ModelGroup(2, r))
-            m = Transformer(cfg, device="cpu", group=grid)
+    cache, _ = specs.cache_structs(cfg, shape, mesh,
+                                   specs.rules_for(cfg, mesh, "decode"))
+    inner = cfg.d_model * cfg.ssm_expand
+    for r in range(2):
+        grid = ModelGrid(ModelGroup(1, 0), ModelGroup(2, r))
+        m = Transformer(cfg, device="cpu", group=grid)
+        held = m.init_cache(2, 8)
+        if cfg.family == "ssm":
+            period = m.layers[0]
+            assert period.mixer(0).n_heads == cfg.n_heads // 2
+            assert period.mixer(1).r_h.w.shape == (inner, inner // 2)
+            assert held["b0"]["c"].shape[2] == cfg.n_heads // 2
+            assert held["b1"]["h"].shape[-1] == inner // 2
+        else:
             layers = list(m.layers) + (list(m.enc["layers"]) if m.enc
                                        else [])
             assert all(blk.attn.n_heads == cfg.n_heads // 2 for blk in
                        layers)
             assert m.kv_heads == cfg.n_kv_heads // 2 == \
-                m.init_cache(2, 8)["attn"]["k"].shape[3]
-        cache, _ = specs.cache_structs(cfg, shape, mesh,
-                                       specs.rules_for(cfg, mesh, "decode"))
-        assert cache["attn"]["k"].shape[3] == cfg.n_kv_heads // 2
+                held["attn"]["k"].shape[3]
+        if cfg.family == "hybrid":
+            assert m.layers[0].mamba[0].a_log.shape == \
+                (inner // 2, cfg.ssm_state_dim)
+            assert held["mamba"]["h"].shape[3] == inner // 2
+        assert {(g, k): t.shape for g, leaves in held.items()
+                for k, t in leaves.items()} == \
+            {(g, k): t.shape for g, leaves in cache.items()
+             for k, t in leaves.items()}
     # one rank: the unsharded model, through the grid
     Transformer(cfg, device="cpu", group=_abstract(1, 1))
 
