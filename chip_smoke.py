@@ -285,8 +285,9 @@ Phases (each prints one JSON line with its seconds):
    one step each on the card over random edges of the shard's shape
    (seed 0), within 1e-6 of the largest value of the same step on the
    CPU; ms a step and counted bytes / ms print.
-4b. training, kernel K4 under autograd: ``qwen2.5-3b`` at full width and
-   depth (f32 parameters, bf16 compute, ``remat="full"``, AdamW), seeded
+4b. training, kernel K4 under autograd: ``qwen2.5-3b`` at full width cut
+   to ``TRAIN_LAYERS`` = 12 of 36 layers (f32 parameters, bf16 compute,
+   ``remat="full"``, AdamW), seeded
    random weights, on batches of 2 x 1024 random walks
    (``RandomWalkCorpus``, seed 0) over an R-MAT scale-17 graph (edge
    factor 16, seed 0, self loops dropped) built by the engine: five
@@ -295,8 +296,8 @@ Phases (each prints one JSON line with its seconds):
    gradient norm must be finite, step 4's loss below step 0's; a
    checkpoint after steps 0-2 (``build/phase4b/``, removed after), loaded
    in place after step 4, must give step 3's loss again within 1e-3.  K4
-   must launch 72 times a step (36 in the forward, 36 in ``remat``'s
-   recompute) plus 36 for the serving forward.  Its line prints the step
+   must launch 24 times a step (12 in the forward, 12 in ``remat``'s
+   recompute) plus 12 for the serving forward.  Its line prints the step
    seconds, tokens/s and ``max_memory_allocated``; with ``--profile`` one
    more step runs under ``torch.profiler``: its device-busy share and
    K4's part of it.  (K1-K3's rows of phase 5 are measured before 4b, and
@@ -307,10 +308,10 @@ Phases (each prints one JSON line with its seconds):
    from seed 0 as there.  Before each run the parent prints the
    reckoning of a rank's bytes (parameter blocks, gradients, float32
    reduced gradients, ZeRO state, logits), which must stay under 72 GB
-   over the ranks.  (a) qwen2.5-3b at full width and depth over (1, 2),
+   over the ranks.  (a) phase 4b's qwen2.5-3b (12 layers) over (1, 2),
    3 steps: each step's loss within 1e-2 and gradient norm within 5% of
-   phase 4b's, step 2's loss below step 0's, and on each rank K4 72
-   times a step (36 forward, 36 recompute), all ``"sm90_wgmma"``, at
+   phase 4b's, step 2's loss below step 0's, and on each rank K4 24
+   times a step (12 forward, 12 recompute), all ``"sm90_wgmma"``, at
    (2, 1024, 8, 128).  (b) The same cut to 12 layers over (2, 2), ZeRO-1
    over two data ranks, 3 steps, within 1e-2 of a one-rank run of the cut
    model in the parent first: each rank's optimizer state holds half of
@@ -337,8 +338,8 @@ Phases (each prints one JSON line with its seconds):
    (2-D blocks, one layer's gathered weights, float32 reduced gradients,
    Adafactor state, logits), which must stay under 72 GB over the ranks.
    (a) qwen3-moe: cut to 1 layer, ``Engine.generate`` of phase 4's
-   prompts (left-padded to 2048, two a data rank) with 4 new tokens, then
-   the yardstick (the prefill and 4 teacher-forced decode steps), held to
+   prompts (left-padded to 2048, two a data rank) with 2 new tokens, then
+   the yardstick (the prefill and 2 teacher-forced decode steps), held to
    a d = 1 run of the same cut model in the parent first, per data
    shard's half (``expert_tp`` routes each shard alone): every (row,
    position) within ``DECODE_TOL`` of the largest logit,
@@ -350,9 +351,9 @@ Phases (each prints one JSON line with its seconds):
    ``TWO_D_NORM_TOL`` of its and step 1's loss within
    ``TWO_D_STEP1_TOL``, every value finite, each leaf split over both
    axes a quarter, the norms the same bits on every rank.  (b) grok-1 cut to
-   1 layer: the yardstick with 2 teacher steps, the same limits.  Every
+   1 layer: the yardstick with 1 teacher step, the same limits.  Every
    call gathers the rank's blocks through the host, ~3 GB, so the
-   serving is cut to one layer to keep the phase near 150 s.  K4 runs on
+   serving is cut to one layer and to 2 and 1 decode steps.  K4 runs on
    each rank's heads, ``"sm90_wgmma"``: at (2, 2048, 32, 128) serving and
    (1, 1024, 32, 128) training for (a), (2, 2048, 24, 128) for (b); rank
    0's layer-0 q, k, v at each of these shapes go to K4's row
@@ -410,6 +411,37 @@ Phases (each prints one JSON line with its seconds):
    prints the prefill seconds and ms a token, seconds a decode token,
    collectives by count and bytes sent and received, each rank's peak
    memory and the largest gap against d = 1 over the largest logit.
+4l. the xLSTM, whisper, VLM and hybrid families trained over model
+   ranks: one world of 16 gloo ranks sharing the card, each run of
+   ``FAMILY_TRAIN_RUNS`` on ranks 0..m-1 over (1, m), two sharded train
+   steps (``remat="full"``): (a) xlstm-350m whole in float32 compute over
+   (1, 8), 2 x 16 tokens, AdamW (mLSTM heads on ranks 0-3, none on 4-7);
+   (b) whisper-small whole over (1, 16), 2 x 64 tokens behind (2, 1536,
+   768) stub frames (12 heads on ranks 0-11, none on 12-15); (c)
+   internvl2-26b at full width cut to 4 of 48 layers over (1, 2), 2 x 128
+   tokens behind 256 patches; (d) jamba-1.5-large at full width in one
+   period of ``attn_every = 2`` (a Mamba with its MLP, then attention with
+   the MoE) with 4 of 16 experts, ``expert_tp``, capacity factor 1.25,
+   Adafactor, bf16, over (1, 2), 2 x 512 tokens; weights from seed 0,
+   batches from numpy seeds 0 and 1.  The d = 1 run of each goes first in
+   this process and is freed; each run's reckoning (parameters,
+   gradients, state, logits, and the larger of the backward's activations
+   and the update's temporaries, ``family_train_reckoning``) over its
+   ranks, the 16 CUDA contexts and what this process holds must stay
+   under 72 GB.  Then on every rank: each step's loss within
+   ``FAMILY_TRAIN_LOSS_TOL`` and step 0's gradient norm within
+   ``FAMILY_TRAIN_NORM_TOL`` of d = 1's, every value finite; the same
+   bits of what ranks share; each step's collectives by phase (forward,
+   recompute, backward, gradients, optimizer) equal to
+   ``family_train_collectives``; the headless calls of attention and of
+   the mLSTM in every call of the forward and the recompute on the ranks
+   with no head, none elsewhere; K4's calls by shape
+   (``family_train_want_k4``: 72 a step on whisper's ranks 0-11, 8 on
+   internvl2's, 2 on jamba's, none on xLSTM's), each a ``"sm90_wgmma"``
+   launch; the peak memory under the reckoning.  Rank 0 and the last rank
+   with a head hold K4 to its plain version on step 0's layer-0 inputs
+   (``family_train_path_inputs`` in K4's row).  Its line prints each
+   run's step seconds, collectives by phase, peaks and gaps.
 5. every kernel against its plain PyTorch version at the shapes phases 2-4
    gave it, with its time, the plain version's, a library call's where one
    computes the same function, and the card's lower bound.  Printed as one
@@ -421,7 +453,10 @@ Phases (each prints one JSON line with its seconds):
    backward must give dq, dk, dv within the same rule against autograd
    through the plain version (its row's ``backward``, timed beside SDPA's
    backward as a yardstick only), and the same at a rank's heads of phase
-   4h (a), (2, 1024, 8, 128) (``backward_rank_heads``); the CUDA-core
+   4h (a), (2, 1024, 8, 128) (``backward_rank_heads``), and at a whisper
+   rank's three shapes of phase 4l (``backward_whisper``: the encoder's
+   (2, 1536, 1, 64) and cross-attention's 64 x 1536 non-causal, the
+   decoder's (2, 64, 1, 64) causal); the CUDA-core
    variant at
    the same shape (the "before" time) must match its plain version within
    one bf16 ulp per element (``|got - want| <= 2^-7·|want| + 1e-6``), and
@@ -439,15 +474,16 @@ Phases (each prints one JSON line with its seconds):
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
 path's, and phases 3b's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's, 4b's, 4h's,
-4i's, 4j's and 4k's are their own (3d's to 3g's, 4c's, 4f's, 4d's, 4e's,
-4g's, 4b's, 4h's, 4i's, 4j's and 4k's print in each kernel row as
+4i's, 4j's, 4k's and 4l's are their own (3d's to 3g's, 4c's, 4f's, 4d's,
+4e's, 4g's, 4b's, 4h's, 4i's, 4j's, 4k's and 4l's print in each kernel row
+as
 ``launches_phase_3d`` ... ``_3g``, ``launches_phase_moe``,
 ``launches_phase_sharded_lm``, ``launches_phase_families``,
 ``launches_phase_hybrid``, ``launches_phase_dryrun``,
 ``launches_phase_train``, ``launches_phase_sharded_train``,
-``launches_phase_two_d``, ``launches_phase_heads`` and
-``launches_phase_recurrent``; the ranks of 4f, 4h, 4i, 4j and 4k count
-their own): each window's
+``launches_phase_two_d``, ``launches_phase_heads``,
+``launches_phase_recurrent`` and ``launches_phase_family_train``; the
+ranks of 4f, 4h, 4i, 4j, 4k and 4l count their own): each window's
 counts are zeroed just before it and read just after it.  Any failed
 check raises, and the script exits non-zero without its last line, which
 on success is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -461,6 +497,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import io
 import json
 import math
@@ -2706,7 +2743,8 @@ def k4_calls():
     """Record each call of the models' attention through K4
     (``models.attention.flash_attention``) as (q shape, k shape, dtype,
     causal), and clone the q, k, v of the first call of each such key
-    into the yielded dict (layer 0's, after RoPE and the GQA repeat)."""
+    into the yielded dict (layer 0's, after RoPE and the GQA repeat;
+    detached, so a train step's graph does not grow a branch)."""
     from repro_torch.models import attention as attn
     real, seen, first = attn.flash_attention, [], {}
 
@@ -2715,7 +2753,7 @@ def k4_calls():
         key = (tuple(q.shape), tuple(k.shape), str(q.dtype), bool(causal))
         seen.append(key)
         if key not in first:
-            first[key] = tuple(t.clone() for t in (q, k, v))
+            first[key] = tuple(t.detach().clone() for t in (q, k, v))
         return real(q, k, v, *args, **kwargs)
 
     attn.flash_attention = spy
@@ -2723,6 +2761,12 @@ def k4_calls():
         yield seen, first
     finally:
         attn.flash_attention = real
+
+
+def k4_tally(seen) -> list:
+    """:func:`k4_calls`' keys as [q shape, k shape, dtype, causal, calls]."""
+    return sorted([list(k[0]), list(k[1]), k[2], k[3], seen.count(k)]
+                  for k in set(seen))
 
 
 @contextlib.contextmanager
@@ -4135,16 +4179,29 @@ def phase_dryrun(dev, kernels):
 
 TRAIN_BATCH, TRAIN_SEQ = 2, 1024   # phase 4b: sequences of the random-walk corpus
 TRAIN_STEPS = 5
+# qwen2.5-3b's depth in phases 4b and 4h (a), of 36: the checkpoint's round
+# trip through the host (~0.5 GB/s) took 178-207 s of 4b at 36 layers and
+# 121-125 s at 18, and phase 4l takes 149-178 s
+TRAIN_LAYERS = 12
 TRAIN_RMAT = (17, 16)   # phase 4b: R-MAT scale and edge factor of the corpus graph
 TRAIN_CE_TOL = 1e-2     # step 0's ce vs the serving forward's, relative (bf16)
 TRAIN_RESUME_TOL = 1e-3   # the resumed step's loss vs the uninterrupted one
 TRAIN_SAVE_AFTER = 3    # checkpoint after this many steps, then resume from it
 
 
+def train_config():
+    """Phase 4b's model: qwen2.5-3b at full width, ``TRAIN_LAYERS``
+    deep."""
+    from repro_torch.configs.base import get_config
+    return dataclasses.replace(get_config("qwen2.5-3b"),
+                               n_layers=TRAIN_LAYERS)
+
+
 def phase_train(dev, kernels, profile):
-    """Phase 4b: train qwen2.5-3b at full width and depth on random walks
-    over an R-MAT graph built by the engine (``remat="full"``, AdamW), with
-    a checkpoint and a resume; K4 in every forward and recompute."""
+    """Phase 4b: train qwen2.5-3b at full width cut to ``TRAIN_LAYERS``
+    on random walks over an R-MAT graph built by the engine
+    (``remat="full"``, AdamW), with a checkpoint and a resume; K4 in every
+    forward and recompute."""
     from repro_torch.checkpoint.store import config_hash, save_checkpoint
     from repro_torch.configs.base import get_config
     from repro_torch.core.graph import Graph
@@ -4156,7 +4213,7 @@ def phase_train(dev, kernels, profile):
     from repro_torch.train.step import init_train_state, make_train_step
     import shutil
     t0 = time.perf_counter()
-    cfg = get_config("qwen2.5-3b")          # full width and depth
+    cfg = train_config()
     check(cfg.remat == "full" and cfg.optimizer == "adamw" and
           cfg.param_dtype == "float32" and cfg.compute_dtype == "bfloat16",
           f"qwen2.5-3b trains with remat {cfg.remat}, {cfg.optimizer}")
@@ -4176,8 +4233,9 @@ def phase_train(dev, kernels, profile):
     gen = torch.Generator(device=dev).manual_seed(0)
     (model, opt_state), t_init = timed(
         lambda: init_train_state(cfg, gen, device=dev))
-    check(len(model.layers) == cfg.n_layers == 36 and cfg.d_model == 2048 and
-          cfg.vocab_size == 151936, "qwen2.5-3b at full depth and width")
+    check(len(model.layers) == cfg.n_layers == TRAIN_LAYERS and
+          cfg.d_model == 2048 and cfg.vocab_size == 151936,
+          f"qwen2.5-3b at full width, {TRAIN_LAYERS} layers")
     step_fn = make_train_step(cfg, OptHyper(), attn_chunk=TRAIN_SEQ)
 
     for k in kernels:
@@ -4276,7 +4334,7 @@ def phase_train(dev, kernels, profile):
 SHARDED_TRAIN_JOIN_SECONDS = 600.0
 SHARDED_TRAIN_RUNS = (
     # (run, arch, layers kept (None: all), (data, model), steps, overrides)
-    ("a", "qwen2.5-3b", None, (1, 2), 3, {}),
+    ("a", "qwen2.5-3b", TRAIN_LAYERS, (1, 2), 3, {}),
     ("b", "qwen2.5-3b", 12, (2, 2), 3, {}),
     ("c", "qwen3-moe-235b-a22b", 2, (1, 2), 2,
      {"moe_impl": "expert_tp", "capacity_factor": 1.25}),
@@ -4294,17 +4352,20 @@ def sharded_train_config(arch, n_layers, over):
     return dataclasses.replace(cfg, **over)
 
 
-def sharded_train_reckoning(cfg, data: int, model: int,
-                            arch=None) -> dict:
-    """The bytes one rank of a (data, model) grid should hold at its peak:
-    its parameter blocks; their gradients in the parameters' dtype and
-    reduced to float32 ZeRO blocks; its ZeRO optimizer state; the logits
-    of its rows (the gathered compute-dtype logits, then float32 twice in
-    the loss and its gradient).  Counted on the meta device.  With
-    ``arch``, phase 4i's 2-D rules (:func:`two_d_rules`): a 2-D block's
-    gradient is its float32 reduced block alone (the gather's backward
-    writes no ``grad``), and one layer's weights gathered whole over
-    "data" add to the peak."""
+def sharded_train_reckoning(cfg, data: int, model: int, arch=None,
+                            batch: int = TRAIN_BATCH,
+                            seq: int = TRAIN_SEQ) -> dict:
+    """The bytes one rank of a (data, model) grid should hold at its peak
+    in a step on ``batch`` rows of ``seq`` tokens: its parameter blocks;
+    their gradients in the parameters' dtype and reduced to float32 ZeRO
+    blocks; its ZeRO optimizer state; the logits of its rows (the
+    gathered compute-dtype logits, a VLM's patch rows too, as the head
+    computes them before ``_forward`` slices them off, then the tokens'
+    float32 twice in the loss and its gradient).  Counted on the meta
+    device.  With ``arch``, phase 4i's 2-D rules (:func:`two_d_rules`): a
+    2-D block's gradient is its float32 reduced block alone (the gather's
+    backward writes no ``grad``), and one layer's weights gathered whole
+    over "data" add to the peak."""
     from repro_torch.launch.mesh import ModelGrid, ModelGroup
     from repro_torch.models.layers import dtype_of
     from repro_torch.models.transformer import Transformer
@@ -4321,8 +4382,9 @@ def sharded_train_reckoning(cfg, data: int, model: int,
                   len(lay[k].members) > 1)
     state = nbytes(*(t for *_, t in zero._state_leaves(
         zero.init_state(cfg.optimizer, m))))
-    rows = TRAIN_BATCH // data * TRAIN_SEQ * cfg.vocab_size
-    logits = rows * (dtype_of(cfg.compute_dtype).itemsize + 4 + 4)
+    rows = batch // data * cfg.vocab_size
+    logits = rows * ((seq + cfg.n_patches) *
+                     dtype_of(cfg.compute_dtype).itemsize + seq * (4 + 4))
     gathered = gathered_bytes(m, data)
     rank = params + grads + reduced + state + logits + gathered
     return {"params": params, "grads": grads, "grads_reduced_f32": reduced,
@@ -4490,7 +4552,7 @@ def _same_checksums(ranks, leaf_filter) -> bool:
 def phase_sharded_train(dev, kernels, baseline):
     """Phase 4h: the sharded train step (``train/zero.py``) over gloo ranks
     sharing the card, each run held to its one-rank yardstick: (a)
-    qwen2.5-3b at full width and depth over (1, 2) against phase 4b's
+    phase 4b's qwen2.5-3b (``TRAIN_LAYERS``) over (1, 2) against its
     steps (``baseline``: its metrics and batches); (b) the same cut to 12
     layers over (2, 2), ZeRO-1 over two data ranks, against a one-rank run
     in this process first; (c) qwen3-moe at full width cut to 2 layers,
@@ -4612,12 +4674,13 @@ TWO_D_GRID = (2, 2)
 TWO_D_JOIN_SECONDS = 900.0
 TWO_D_RUNS = (
     # (run, arch, layers kept serving, new tokens, Engine.generate,
-    #  layers kept training, train steps): the serving cut to one layer
-    # keeps the phase near 150 s (every call gathers the rank's blocks
-    # through the host); training stays at phase 4h (c)'s 2 layers, whose
-    # one-rank losses it is held to
-    ("a", "qwen3-moe-235b-a22b", 1, 4, True, 2, 2),
-    ("b", "grok-1-314b", 1, 2, False, 0, 0),
+    #  layers kept training, train steps): the serving cut to one layer,
+    # and with phase 4l to 2 and 1 new tokens (7-9 s a token: every call
+    # gathers the rank's blocks through the host), keeps the smoke under
+    # its limit; training stays at phase 4h (c)'s 2 layers, whose one-rank
+    # losses it is held to
+    ("a", "qwen3-moe-235b-a22b", 1, 2, True, 2, 2),
+    ("b", "grok-1-314b", 1, 1, False, 0, 0),
 )
 TWO_D_OVER = {"moe_impl": "expert_tp", "capacity_factor": 1.25}
 # (a)'s training vs phase 4h (c)'s one-rank run (PERF.md section 6):
@@ -4865,9 +4928,9 @@ def phase_two_d(dev, kernels, train_d1, batches):
     """Phase 4i: grok-1 and qwen3-moe with every weight's d_model dim on
     "data" (``two_d_weights``, ``rules_for``'s decision for both) over
     four gloo ranks sharing the card as the (2, 2) grid (``TWO_D_RUNS``).
-    (a) qwen3-moe at full width, cut to 1 layer, serves 4 new tokens
+    (a) qwen3-moe at full width, cut to 1 layer, serves 2 new tokens
     through ``Engine.generate`` and cut to 2 trains 2 Adafactor steps;
-    (b) grok-1 cut to 1 layer serves 2 (the yardstick alone).  Each is
+    (b) grok-1 cut to 1 layer serves 1 (the yardstick alone).  Each is
     held to a d = 1 run of the same cut model in this process first (per
     data shard's half: ``expert_tp`` routes each shard alone), within
     phase 4f's limits; (a)'s losses to phase 4h (c)'s one-rank run
@@ -5231,8 +5294,7 @@ def lm_rank(rank: int, d: int, workdir: str, jobs, device: str):
                     "seconds_init": t_init, "yardstick": rec,
                     "launches": {k.__name__: k.launches for k in kernels},
                     "k4_launches_by_variant": dict(by_variant),
-                    "k4_calls": [[list(key[0]), list(key[1]), key[2], key[3],
-                                  seen.count(key)] for key in set(seen)]}
+                    "k4_calls": k4_tally(seen)}
             if on_card:
                 info["max_memory_allocated"] = \
                     torch.cuda.max_memory_allocated()
@@ -5584,6 +5646,565 @@ def phase_recurrent(dev, kernels):
     return {"flash_attention_fwd": total}, k4_rows
 
 
+# phase 4l: the xLSTM, whisper, VLM and hybrid families trained over model
+# ranks
+FAMILY_TRAIN_RANKS = 16        # gloo ranks on the one card: (b) over (1, 16)
+FAMILY_TRAIN_JOIN_SECONDS = 600.0
+FAMILY_TRAIN_STEPS = 2         # step 1 takes step 0's optimizer state
+FAMILY_TRAIN_RUNS = (
+    # (run, arch, model ranks m, batch, tokens, layers kept (None: all),
+    #  overrides); each over (1, m) on ranks 0..m-1
+    ("a", "xlstm-350m", 8, 2, 16, None, {"compute_dtype": "float32"}),
+    ("b", "whisper-small", 16, 2, 64, None, {}),
+    ("c", "internvl2-26b", 2, 2, 128, 4, {}),
+    ("d", HYBRID_ARCH, 2, 2, 512, 2,
+     {"attn_every": 2, "n_experts": 4, "moe_impl": "expert_tp",
+      "capacity_factor": 1.25}),
+)
+# against d = 1: phase 4h's limits in bf16 compute (2e-2 for the routed
+# MoE, as 4h (c)); 1e-4 relative in (a)'s float32 compute
+FAMILY_TRAIN_LOSS_TOL = {"a": 1e-4, "b": 1e-2, "c": 1e-2, "d": 2e-2}
+FAMILY_TRAIN_NORM_TOL = {"a": 1e-4, "b": 5e-2, "c": 5e-2, "d": 5e-2}
+FAMILY_TRAIN_MEMORY = 72e9     # the reckoning's ceiling over the ranks
+CUDA_CONTEXT_BYTES = 0.5e9     # a rank's CUDA context, outside the allocator
+# the products' library workspaces (cuBLAS, cuBLASLt), a set for each
+# thread that runs them (the caller's and autograd's device thread): an
+# allowance of 64 MiB a thread (a rank's peak read 23 MB over the
+# reckoning without it on an H100)
+WORKSPACE_BYTES = 2 * 64 * 2 ** 20
+SCAN_SAVED = 17   # (B, 256, di, N) float32 tensors a Mamba chunk saves
+
+
+def family_train_batches(cfg, batch: int, seq: int, steps: int) -> list:
+    """``steps`` batches on the host, batch ``i`` from numpy seed ``i``:
+    ``batch`` rows of ``seq`` token and target ids, with whisper's stub
+    frames ``enc_embeds`` or the VLM's ``patch_embeds`` (float32
+    normals)."""
+    vocab = min(getattr(cfg, "vocab_unpadded", 0) or cfg.vocab_size,
+                cfg.vocab_size)
+    out = []
+    for i in range(steps):
+        rng = np.random.default_rng(i)
+        b = {k: torch.from_numpy(rng.integers(0, vocab, (batch, seq)).astype(
+            np.int32)) for k in ("tokens", "targets")}
+        if cfg.is_encoder_decoder:
+            b["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+                (batch, cfg.enc_seq_len, cfg.d_model), dtype=np.float32))
+        if cfg.n_patches:
+            b["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+                (batch, cfg.n_patches, cfg.d_model), dtype=np.float32))
+        out.append(b)
+    return out
+
+
+def family_train_one_rank(dev, cfg, batches, arrays: bool = False) -> dict:
+    """The d = 1 run of phase 4l: seed-0 weights over the one-rank grid
+    (so jamba's ``expert_tp`` keeps its own capacity rule, as its ranks
+    do), one train step a batch -> each step's metrics, seconds and K4
+    calls, and the peak memory; with ``arrays`` also the weights before
+    each step (``Transformer.to_arrays``).  Freed after."""
+    from repro_torch.launch.mesh import model_grid
+    from repro_torch.train.optimizer import OptHyper
+    from repro_torch.train.step import init_train_state, make_train_step
+    on_card = torch.device(dev).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    (model, state), t_init = timed(lambda: init_train_state(
+        cfg, gen, device=dev, grid=model_grid(1, 1)))
+    step_fn = make_train_step(cfg, OptHyper(), attn_chunk=TRAIN_SEQ)
+    rows, before = [], []
+    for i, batch in enumerate(batches):
+        if arrays:      # copies: a CPU model's arrays share its storage
+            before.append(copy.deepcopy(model.to_arrays()))
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with k4_calls() as (seen, _):
+            (_, _, met), t = timed(lambda: step_fn(model, state, b, i))
+            row = {k: float(v) for k, v in met.items()}
+        rows.append({**row, "seconds": t, "k4_calls": k4_tally(seen)})
+    out = {"steps": rows, "seconds_init": t_init,
+           "param_bytes": nbytes(*model.parameters())}
+    if arrays:
+        out["arrays"] = before
+    del model, state
+    if on_card:
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_train_want_k4(cfg, heads: int, batch: int, seq: int) -> dict:
+    """{(q shape, k shape, dtype, causal): calls} of a train step under
+    ``remat="full"`` on a rank holding ``heads`` query heads: each
+    attention layer once in the forward and once in the recompute
+    (whisper's encoder non-causal, its decoder's self-attention causal and
+    cross-attention non-causal; a VLM's queries behind its patches; a
+    hybrid's one attention layer a period); none without a head, none in
+    the xLSTM."""
+    from repro_torch.models.layers import dtype_of
+    if heads == 0 or cfg.family == "ssm":
+        return {}
+    dt, d = str(dtype_of(cfg.compute_dtype)), cfg.resolved_head_dim
+    q = (batch, seq + cfg.n_patches, heads, d)
+    if cfg.is_encoder_decoder:
+        e = (batch, cfg.enc_seq_len, heads, d)
+        return {(e, e, dt, False): 2 * cfg.n_enc_layers,
+                (q, q, dt, True): 2 * cfg.n_layers,
+                (q, e, dt, False): 2 * cfg.n_layers}
+    n = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" \
+        else cfg.n_layers
+    return {(q, q, dt, True): 2 * n}
+
+
+def family_train_no_head(cfg, heads: int) -> int:
+    """The headless calls of a train step on a rank holding ``heads``
+    attention or mLSTM heads: on a rank with none, every such call, in the
+    forward and again in the recompute; 0 on a rank with a head."""
+    if heads:
+        return 0
+    if cfg.family == "ssm":
+        n = cfg.n_layers // len(cfg.block_pattern) * \
+            cfg.block_pattern.count("mlstm")
+    elif cfg.family == "hybrid":
+        n = cfg.n_layers // cfg.attn_every
+    else:
+        n = cfg.n_layers + (cfg.n_layers + cfg.n_enc_layers
+                            if cfg.is_encoder_decoder else 0)
+    return 2 * n
+
+
+def family_train_collectives(cfg, seq: int, lay) -> dict:
+    """The model group's calls in a train step of ``seq`` tokens over
+    (1, m), m > 1, ``remat="full"``, by phase.  Each block (a layer, an
+    encoder layer, an xLSTM or hybrid period) makes L calls in the
+    forward, calls E in the backward and makes L - T again in its
+    recompute, which stops after the last tensor the block saves, before
+    its T trailing sums (``torch.utils.checkpoint``'s early stop).  A
+    layer's attention, MLP or Mamba output sum, its MoE's output sum and
+    aux mean, a Mamba's B, C, dt sum and an sLSTM's gather of ``h`` a step
+    are calls of the forward; the backward sums each entry's input
+    gradient (an attention's, also cross-attention's encoder states', an
+    MLP's, a Mamba's and its B, C, dt's, an xLSTM block's, an MoE's) and
+    reduce-scatters each gather of a tracked ``h`` (every step but the
+    first).  Outside the blocks: the embedding's sum and the logits'
+    gather in the forward, the head's entry in the backward.  Then from
+    the layout ``lay`` (``train/zero.layout``): a model-axis sum a leaf
+    whose gradient ranks hold in part ("gradients"), and the norm's sum
+    and Adafactor's sums over a model dim ("optimizer")."""
+    from repro_torch.train.optimizer import _factored, stack_groups
+    blocks = []                 # (L, E, T)
+    if cfg.family == "ssm":
+        per = [(1, 1) if k == "mlstm" else (seq + 1, seq)
+               for k in cfg.block_pattern]
+        blocks = [(sum(a for a, _ in per), sum(b for _, b in per), 1)] * (
+            cfg.n_layers // len(cfg.block_pattern))
+    elif cfg.family == "hybrid":
+        n = cfg.attn_every
+        moe = [i % cfg.moe_every == 1 and cfg.n_experts > 0
+               for i in range(n)]
+        tp = cfg.moe_impl == "expert_tp"
+        ffn = [(2, 1) if m and tp else (1, 1) for m in moe]
+        calls = 2 * (n - 1) + 1 + sum(a for a, _ in ffn)
+        back = 2 * (n - 1) + 1 + sum(b for _, b in ffn)
+        blocks = [(calls, back, ffn[-1][0])] * (cfg.n_layers // n)
+    else:
+        if cfg.is_encoder_decoder:
+            blocks = [(2, 2, 1)] * cfg.n_enc_layers + [(3, 4, 1)] * \
+                cfg.n_layers
+        else:
+            blocks = [(2, 2, 1)] * cfg.n_layers
+    out = {"forward": 2 + sum(L for L, _, _ in blocks),
+           "recompute": sum(L - T for L, _, T in blocks),
+           "backward": 1 + sum(E for _, E, _ in blocks),
+           "gradients": sum(leaf.msum for leaf in lay.values())}
+    opt = 1                     # the global norm's sum
+    if cfg.optimizer == "adafactor":
+        for key, (stack, members) in stack_groups(lay).items():
+            leaf = lay[members[0][1]]
+            if leaf.mdim is None:
+                continue
+            nl, shape = len(leaf.full), tuple(stack) + leaf.full
+            if _factored(shape) and nl >= 2:    # rows, cols, row mean
+                opt += (leaf.mdim == nl - 1) + 2 * (leaf.mdim == nl - 2)
+            elif _factored(shape):              # a stacked vector's rows
+                opt += leaf.mdim == 0
+            opt += 1                            # the update's RMS
+    out["optimizer"] = opt
+    return out
+
+
+def family_train_activations(cfg, model: int, batch: int, seq: int) -> dict:
+    """Bytes of a rank's activations at the peak of a train step under
+    ``remat="full"`` over (1, ``model``): each layer's saved input (the
+    encoder's over its frames), and the period the backward recomputes:
+    a Mamba's chunks, ``SCAN_SAVED`` float32 (B, 256, di / m, N) tensors
+    each (``saved_tensors_hooks`` on the CPU), or a layer's widest rows,
+    four float32 (B, S, width) tensors, and that again for the gradients
+    flowing back; and K4's PyTorch backward at the longest attention, four
+    float32 (B, H / m, query block, Sk) score blocks."""
+    from repro_torch.models.layers import dtype_of
+    item = dtype_of(cfg.compute_dtype).itemsize
+    s = seq + cfg.n_patches
+    inputs = cfg.n_layers * batch * s * cfg.d_model * item
+    width = max(cfg.d_model, cfg.d_ff // model if cfg.d_ff else 0,
+                cfg.d_model * cfg.ssm_expand // model)
+    rows = batch * s
+    if cfg.is_encoder_decoder:
+        inputs += cfg.n_enc_layers * batch * cfg.enc_seq_len * \
+            cfg.d_model * item
+        rows = max(rows, batch * cfg.enc_seq_len)
+    period = 2 * 4 * rows * width * 4
+    if cfg.family == "hybrid":
+        chunk = min(256, seq)
+        di = cfg.d_model * cfg.ssm_expand // model
+        scan = SCAN_SAVED * batch * chunk * di * cfg.ssm_state_dim * 4
+        period += (cfg.attn_every - 1) * seq // chunk * scan
+    scores = 0      # K4's PyTorch backward: four float32 score blocks
+    if cfg.family != "ssm":
+        sk = cfg.enc_seq_len if cfg.is_encoder_decoder else s
+        heads = -(-cfg.n_heads // model)
+        scores = 4 * batch * heads * min(TRAIN_SEQ, sk) * sk * 4
+    return {"layer_inputs": inputs, "recomputed": period,
+            "attention_backward": scores,
+            "activations": inputs + period + scores}
+
+
+def family_train_reckoning(cfg, model: int, batch: int, seq: int) -> dict:
+    """:func:`sharded_train_reckoning` of rank 0 (the most heads) over
+    (1, ``model``) at ``batch`` x ``seq``, with the larger of the
+    backward's :func:`family_train_activations` and the update's
+    temporaries (four float32 copies of the rank's largest block) added to
+    the rank, the backward freeing its activations before the update
+    starts, and the products' workspaces (``WORKSPACE_BYTES``)."""
+    from repro_torch.launch.mesh import ModelGrid, ModelGroup
+    from repro_torch.models.transformer import Transformer
+    reck = sharded_train_reckoning(cfg, 1, model, batch=batch, seq=seq)
+    reck.update(family_train_activations(cfg, model, batch, seq))
+    m = Transformer(cfg, device="meta", group=ModelGrid(
+        ModelGroup(1, 0), ModelGroup(model, 0)))
+    reck["optimizer_temporaries"] = 4 * 4 * max(
+        p.numel() for p in m.parameters())
+    reck["workspaces"] = WORKSPACE_BYTES
+    reck["rank"] += max(reck["activations"], reck["optimizer_temporaries"]) \
+        + WORKSPACE_BYTES
+    reck["all_ranks"] = reck["rank"] * model
+    return reck
+
+
+def family_train_rank(rank: int, d: int, workdir: str, jobs, device: str):
+    """Phase 4l, one rank: one intra-op thread (16 ranks share 8 cores),
+    join a gloo world of ``d`` ranks on ``device`` (card 0), then
+    :func:`family_train_world`."""
+    import datetime
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{Path(workdir) / 'store'}", rank=rank,
+        world_size=d, timeout=datetime.timedelta(seconds=300))
+    try:
+        family_train_world(workdir, jobs, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def family_train_world(workdir: str, jobs, device: str) -> list:
+    """Phase 4l's jobs on this rank of an initialized gloo world: each of
+    ``jobs`` ((label, config, model ranks m, batches)) in turn on ranks
+    0..m-1 over a (1, m) grid, one model on the card at a time
+    (:func:`family_train_job`).  Returns this rank's records."""
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    subs = {m: dist.new_group(list(range(m)))      # every rank calls it
+            for m in sorted({job[2] for job in jobs})}
+    out = []
+    for label, cfg, m, batches in jobs:
+        if rank < m:
+            out.append(family_train_job(Path(workdir), label, cfg, subs[m],
+                                        m, batches, device))
+        dist.barrier()
+    return out
+
+
+def family_train_job(work: Path, label: str, cfg, sub, m: int, batches,
+                     device: str) -> dict:
+    """One run of phase 4l on this rank of ranks 0..m-1 (process group
+    ``sub``): the weights from seed 0, this rank's blocks kept (the ranks'
+    draws one after another, so two full-size draws never overlap on the
+    card), then a sharded train step a batch.  Records each step's
+    metrics, seconds, K4 launches by variant and calls by shape, headless
+    calls and the model group's collectives by phase; what the rank holds
+    (heads, parameter, gradient and state bytes) and the checksums of what
+    ranks share; on the card its peak memory, and on rank 0 and the last
+    rank with a head K4 held to its plain version on step 0's layer-0
+    inputs.  Writes the record as ``rank<r>_<label>.json``."""
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch.mesh import ModelGrid, ModelGroup
+    from repro_torch.models import attention as attn
+    from repro_torch.models import xlstm
+    from repro_torch.train import zero
+    from repro_torch.train.optimizer import OptHyper
+    from repro_torch.train.step import init_train_state, make_train_step
+    on_card = device == "cuda"
+    rank = dist.get_rank()
+    grid = ModelGrid(ModelGroup(1, 0), ModelGroup(m, rank, sub))
+    by_variant = flash_attention_fwd.launches_by_variant
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for turn in range(m):
+        if turn == rank:
+            gen = torch.Generator(device=device).manual_seed(0)
+            (model, state), t_init = timed(lambda: init_train_state(
+                cfg, gen, device=device, grid=grid))
+            if on_card:
+                torch.cuda.empty_cache()
+        dist.barrier(group=sub)
+    step_fn = make_train_step(cfg, OptHyper(), attn_chunk=TRAIN_SEQ)
+    lay = zero.layout(model)
+    grads = {}
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, k=k: grads.__setitem__(k, nbytes(p.grad)))
+        for k, p in model.named_parameters()]
+    rows, first = [], {}
+    for i, batch in enumerate(batches):
+        mine = {k: v.to(device) for k, v in batch.items()}
+        flash_attention_fwd.launches = 0
+        for v in by_variant:
+            by_variant[v] = 0
+        attn.NO_HEAD["calls"] = xlstm.NO_HEAD["calls"] = 0
+        before = copy.deepcopy(grid.model.phase_stats)
+        sync()
+        t = time.perf_counter()
+        with k4_calls() as (seen, firsts):
+            _, _, met = step_fn(model, state, mine, i)
+            row = {k: float(v) for k, v in met.items()}
+        sync()
+        row["seconds"] = time.perf_counter() - t
+        first = first or firsts
+        row.update(
+            k4_launches=flash_attention_fwd.launches,
+            k4_by_variant=dict(by_variant), k4_calls=k4_tally(seen),
+            no_head_calls=attn.NO_HEAD["calls"] + xlstm.NO_HEAD["calls"],
+            collectives={ph: {k: v - before.get(ph, {}).get(k, 0)
+                              for k, v in st.items()}
+                         for ph, st in grid.model.phase_stats.items()})
+        rows.append(row)
+    for h in hooks:
+        h.remove()
+    params = dict(model.named_parameters())
+    shared = [k for k in params if len(lay[k].holders) > 1]
+    info = {"rank": rank, "label": label, "arch": cfg.name,
+            "grid": [1, m], "coords": grid.coords,
+            "n_layers": cfg.n_layers, **rank_widths(model), "steps": rows,
+            "seconds_init": t_init,
+            "params_held": sum(p.numel() for p in params.values()),
+            "param_bytes_held": nbytes(*params.values()),
+            "grad_bytes": sum(grads.values()), "grad_leaves": len(grads),
+            "state_bytes": nbytes(*(t for *_, t in
+                                    zero._state_leaves(state))),
+            "holders": {k: lay[k].holders for k in shared},
+            "checksums": {k: checksum(params[k]) for k in shared}}
+    del model, state, params
+    if on_card:
+        info["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        if first and rank in (0, min(m, cfg.n_heads) - 1):
+            info["k4_on_path_inputs"] = [
+                {"rank": rank, "heads": info["heads"],
+                 **k4_on_path_inputs(*first[key], key[3])}
+                for key in sorted(first, key=str)]
+    del first
+    info["seconds"] = time.perf_counter() - t0
+    (work / f"rank{rank}_{label}.json").write_text(json.dumps(info))
+    return info
+
+
+def family_train_check(label, cfg, m: int, batch: int, seq: int, per, want,
+                       tol: float, norm_tol: float, on_card: bool) -> dict:
+    """Phase 4l's checks of one run: ``per`` the records of ranks 0..m-1
+    (:func:`family_train_job`), ``want`` the d = 1 run's steps.  Each
+    step's loss within ``tol`` and step 0's gradient norm within
+    ``norm_tol`` of d = 1's, relative, every value finite; the heads each
+    rank holds; each step's collectives by phase equal to
+    :func:`family_train_collectives` on rank 0's layout (on the meta
+    device); the headless calls (:func:`family_train_no_head`) and K4's
+    calls by shape (:func:`family_train_want_k4`), on the card each a
+    ``"sm90_wgmma"`` launch; every rank the same bits of what ranks
+    share.  Returns the gaps against d = 1 and the predicted calls."""
+    from repro_torch.launch.mesh import ModelGrid, ModelGroup
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import zero
+    meta = Transformer(cfg, device="meta", group=ModelGrid(
+        ModelGroup(1, 0), ModelGroup(m, 0)))
+    calls = family_train_collectives(cfg, seq, zero.layout(meta))
+    want_calls = {ph: n for ph, n in calls.items() if n}
+    gaps = []
+    for r, info in enumerate(per):
+        what = f"phase 4l ({label}) {cfg.name} rank {r}"
+        got = info["steps"]
+        check(len(got) == len(want) and all(
+            np.isfinite(g["loss"]) and np.isfinite(g["grad_norm"])
+            for g in got), f"{what}: steps {got}")
+        gaps.append([abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                     for g, w in zip(got, want)])
+        check(all(gap <= tol for gap in gaps[-1]),
+              f"{what}: losses {[g['loss'] for g in got]} vs one rank's "
+              f"{[w['loss'] for w in want]} (limit {tol} relative)")
+        norm = abs(got[0]["grad_norm"] - want[0]["grad_norm"])
+        check(norm <= norm_tol * want[0]["grad_norm"],
+              f"{what}: step 0's gradient norm {got[0]['grad_norm']} vs "
+              f"{want[0]['grad_norm']} (limit {norm_tol} relative)")
+        lo, hi = attn.head_range(cfg.n_heads, m, r)
+        check(info["heads"] == hi - lo,
+              f"{what}: holds {info['heads']} heads, want {hi - lo}")
+        want_k4 = family_train_want_k4(cfg, hi - lo, batch, seq)
+        n_k4 = sum(want_k4.values())
+        for i, g in enumerate(got):
+            ph = {k: v["calls"] for k, v in g["collectives"].items()}
+            check(ph == want_calls, f"{what} step {i}: collectives "
+                  f"{ph}, want {want_calls}")
+            check(g["no_head_calls"] == family_train_no_head(cfg, hi - lo),
+                  f"{what} step {i}: {g['no_head_calls']} headless calls, "
+                  f"want {family_train_no_head(cfg, hi - lo)}")
+            k4 = {(tuple(c[0]), tuple(c[1]), c[2], c[3]): c[4]
+                  for c in g["k4_calls"]}
+            check(k4 == want_k4, f"{what} step {i}: K4 calls {k4}, want "
+                  f"{want_k4}")
+            check(not on_card or (
+                g["k4_launches"] == n_k4 and
+                g["k4_by_variant"].get("sm90_wgmma", 0) == n_k4),
+                f"{what} step {i}: K4 {g['k4_launches']} launches "
+                f"{g['k4_by_variant']}, want {n_k4} sm90_wgmma")
+    check(_same_checksums(per, lambda k: True),
+          f"phase 4l ({label}): ranks differ in the bits they share")
+    return {"loss_gap_over_one_rank": max(max(g) for g in gaps),
+            "norm_gap_over_one_rank": abs(
+                per[0]["steps"][0]["grad_norm"] - want[0]["grad_norm"])
+            / want[0]["grad_norm"],
+            "collectives_predicted": calls}
+
+
+def phase_family_train(dev, kernels):
+    """Phase 4l: the xLSTM, whisper, VLM and hybrid families trained over
+    model ranks, 16 gloo ranks sharing the card, each run of
+    ``FAMILY_TRAIN_RUNS`` on ranks 0..m-1 over (1, m),
+    ``FAMILY_TRAIN_STEPS`` sharded train steps (``remat="full"``) held to
+    the d = 1 run of the same weights and batches, run here first and
+    freed before the ranks spawn: (a) xlstm-350m whole, float32 compute,
+    over (1, 8) (mLSTM heads on ranks 0-3, none on 4-7); (b) whisper-small
+    whole over (1, 16) (12 heads on ranks 0-11, none on 12-15); (c)
+    internvl2-26b at full width cut to 4 layers over (1, 2); (d)
+    jamba-1.5-large at full width in one period of ``attn_every = 2`` with
+    4 experts, ``expert_tp``, Adafactor, over (1, 2).  Before the ranks
+    spawn each run's reckoning (:func:`family_train_reckoning`) over its
+    ranks, the CUDA contexts and what this process holds must stay under
+    ``FAMILY_TRAIN_MEMORY``; after, each rank's peak under its reckoning,
+    and :func:`family_train_check`.  Returns K4's launches in the phase
+    (the d = 1 runs' and the ranks') and the ranks' K4 rows."""
+    import shutil
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    t0 = time.perf_counter()
+    work = ROOT / "build" / "phase4l"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    for k in kernels:
+        k.launches = 0
+    runs, one, reck = {}, {}, {}
+    for run, arch, m, b, s, n_layers, over in FAMILY_TRAIN_RUNS:
+        cfg = sharded_train_config(arch, n_layers, over)
+        runs[run] = (cfg, m, b, s, family_train_batches(
+            cfg, b, s, FAMILY_TRAIN_STEPS))
+        one[run] = family_train_one_rank(dev, cfg, runs[run][4])
+        print(json.dumps({"phase4l_one_rank": run, **one[run]}), flush=True)
+        n = sum(c[4] for st in one[run]["steps"] for c in st["k4_calls"])
+        want_k4 = family_train_want_k4(cfg, cfg.n_heads, b, s)
+        check(all({(tuple(c[0]), tuple(c[1]), c[2], c[3]): c[4]
+                   for c in st["k4_calls"]} == want_k4
+                  for st in one[run]["steps"]),
+              f"phase 4l ({run}): the d = 1 run's K4 calls "
+              f"{[st['k4_calls'] for st in one[run]['steps']]}, want "
+              f"{want_k4} a step")
+    total = flash_attention_fwd.launches
+    check(total == sum(c[4] for o in one.values() for st in o["steps"]
+                       for c in st["k4_calls"]),
+          f"phase 4l: the d = 1 runs launched K4 {total} times")
+    held = torch.cuda.memory_allocated()
+    for run, (cfg, m, b, s, _) in runs.items():
+        reck[run] = family_train_reckoning(cfg, m, b, s)
+        need = reck[run]["all_ranks"] + FAMILY_TRAIN_RANKS * \
+            CUDA_CONTEXT_BYTES + held
+        print(json.dumps({"phase4l_reckoning": run, "grid": [1, m],
+                          "parent_memory_allocated": held,
+                          "with_contexts": need, **reck[run]}), flush=True)
+        check(need <= FAMILY_TRAIN_MEMORY,
+              f"phase 4l ({run}): {need} bytes reckoned over the ranks")
+    lines, k4_rows = [], []
+    try:
+        jobs = [(run, cfg, m, batches)
+                for run, (cfg, m, _, _, batches) in runs.items()]
+        _, t_ranks = timed(lambda: run_ranks(
+            family_train_rank, FAMILY_TRAIN_RANKS, FAMILY_TRAIN_JOIN_SECONDS,
+            "phase 4l", str(work), jobs, dev.type))
+        pers = {run: [json.loads((work / f"rank{r}_{run}.json")
+                                 .read_text()) for r in range(m)]
+                for run, (_, m, _, _, _) in runs.items()}
+        for run, per in pers.items():       # every record before a check
+            print(json.dumps({"phase4l_run": run, "per_rank": [
+                {k: v for k, v in i.items()
+                 if k not in ("checksums", "holders")} for i in per]}),
+                flush=True)
+        for run, (cfg, m, b, s, _) in runs.items():
+            per = pers[run]
+            line = {
+                "run": run, "arch": cfg.name, "n_layers": cfg.n_layers,
+                "n_layers_published": get_config_layers(cfg.name),
+                "grid": [1, m], "batch": b, "tokens": s,
+                "compute_dtype": cfg.compute_dtype,
+                "param_dtype": cfg.param_dtype, "optimizer": cfg.optimizer,
+                "remat": cfg.remat, "heads_per_rank":
+                [i["heads"] for i in per], "one_rank": one[run],
+                "reckoning": reck[run],
+                "step_seconds": [[g["seconds"] for g in i["steps"]]
+                                 for i in per],
+                "collectives": [{ph: dict(c) for ph, c in
+                                 g["collectives"].items()}
+                                for g in per[0]["steps"]],
+                "max_memory_allocated": [i["max_memory_allocated"]
+                                         for i in per]}
+            line.update(family_train_check(
+                run, cfg, m, b, s, per, one[run]["steps"],
+                FAMILY_TRAIN_LOSS_TOL[run], FAMILY_TRAIN_NORM_TOL[run],
+                True))
+            for info in per:
+                check(info["max_memory_allocated"] <= reck[run]["rank"],
+                      f"phase 4l ({run}) rank {info['rank']}: peak "
+                      f"{info['max_memory_allocated']} bytes over the "
+                      f"reckoning's {reck[run]['rank']}")
+                total += sum(g["k4_launches"] for g in info["steps"])
+                for row in info.get("k4_on_path_inputs", []):
+                    k4_rows.append({"arch": cfg.name, **row})
+            lines.append(line)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {k.__name__: k.launches for k in kernels}
+    emit({"phase": "family_train", "ranks": FAMILY_TRAIN_RANKS,
+          "backend": "gloo", "runs": lines, "seconds_ranks": t_ranks,
+          "k4_launches": total, "launches_parent": launches,
+          "k4_on_path_inputs": k4_rows,
+          "seconds": time.perf_counter() - t0})
+    check(not any(c for k, c in launches.items()
+                  if k != "flash_attention_fwd"),
+          f"phase 4l launched graph kernels: {launches}")
+    return {"flash_attention_fwd": total}, k4_rows
+
+
 def get_config_layers(arch) -> int:
     """``arch``'s published depth."""
     from repro_torch.configs.base import get_config
@@ -5661,7 +6282,7 @@ def k4_on_path_inputs(q, k, v, causal=True) -> dict:
 
 def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
               hybrid_rows=(), sharded_rows=(), dryrun_rows=(), two_d_rows=(),
-              heads_rows=(), recurrent_rows=()):
+              heads_rows=(), recurrent_rows=(), family_train_rows=()):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
         attention_error_ratios, flash_attention_fwd, flash_attention_fwd_plain)
@@ -5721,6 +6342,9 @@ def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
     row["f32"] = f32
     row["backward"] = kernel_k4_backward(qkv)
     row["backward_rank_heads"] = kernel_k4_backward(qkv, heads=8)
+    row["backward_whisper"] = [kernel_k4_backward(qkv, shape=q, sk=sk,
+                                                  causal=c)
+                               for q, sk, c in WHISPER_K4_BACKWARD]
     row["moe_path_inputs"] = list(moe_rows)   # phase 4c's layer-0 inputs
     row["families_path_inputs"] = list(family_rows)   # phase 4d's
     row["hybrid_path_inputs"] = list(hybrid_rows)     # phase 4e's
@@ -5729,52 +6353,67 @@ def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
     row["two_d_path_inputs"] = list(two_d_rows)     # phase 4i's rank 0
     row["heads_path_inputs"] = list(heads_rows)     # phase 4j's ranks 0, m-1
     row["recurrent_path_inputs"] = list(recurrent_rows)   # phase 4k's jamba
+    row["family_train_path_inputs"] = list(family_train_rows)   # 4l's
     return row
 
 
-def kernel_k4_backward(qkv, heads: int = 16):
+# whisper's three attentions a rank of phase 4l (b) trains, (q shape, key
+# length, causal): the encoder's, the decoder's self- and cross-attention
+WHISPER_K4_BACKWARD = (((2, 1536, 1, 64), 1536, False),
+                       ((2, 64, 1, 64), 64, True),
+                       ((2, 64, 1, 64), 1536, False))
+
+
+def kernel_k4_backward(qkv, heads: int = 16, shape=None, sk=None,
+                       causal: bool = True):
     """K4 under autograd at phase 4b's shape (``heads`` 16; 8: a rank's of
-    phase 4h (a)): the autograd function's dq, dk, dv (K4 forward, the
+    phase 4h (a)), or at ``shape`` (B, Sq, H, D) against ``sk`` keys,
+    causal or not: the autograd function's dq, dk, dv (K4 forward, the
     PyTorch backward) against autograd through the plain version, and the
     backward's time beside SDPA's backward."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    shape = (TRAIN_BATCH, TRAIN_SEQ, heads, 128)
-    q, k, v = qkv(shape, torch.bfloat16)
+    shape = shape or (TRAIN_BATCH, TRAIN_SEQ, heads, 128)
+    b, sq, h, d = shape
+    sk = sk or sq
+    q, k, v = qkv(shape, torch.bfloat16) if sk == sq else (
+        qkv(shape, torch.bfloat16)[0], *qkv((b, sk, h, d), torch.bfloat16)[:2])
     dout = qkv(shape, torch.bfloat16)[0]
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     before = fa.flash_attention_fwd.launches
-    out = fa.flash_attention(*leaves, causal=True, q_chunk=TRAIN_SEQ)
+    out = fa.flash_attention(*leaves, causal=causal, q_chunk=TRAIN_SEQ)
     got = torch.autograd.grad(out, leaves, dout)
     check(fa.flash_attention_fwd.launches == before + 1,
           "the autograd function's forward did not launch K4")
-    ref = fa.plain_grads(q.float(), k.float(), v.float(), dout.float())
-    base = fa.plain_grads(q, k, v, dout, round_p=True)
+    ref = fa.plain_grads(q.float(), k.float(), v.float(), dout.float(),
+                         causal)
+    base = fa.plain_grads(q, k, v, dout, causal, round_p=True)
     rule = fa.grad_error_ratios(got, ref, base)
-    check(rule["ok"], f"K4 backward {shape}: error ratios {rule}")
-    b, s_, h, d = shape
-    # causal q·kᵀ, p·v recomputed, and dv, dp, dq, dk: 6 products
-    flops = 6 * d * s_ * (s_ + 1) * b * h
+    check(rule["ok"], f"K4 backward {shape} x {sk} keys causal={causal}: "
+          f"error ratios {rule}")
+    # q·kᵀ, p·v recomputed, and dv, dp, dq, dk: 6 products, 2·D a pair
+    flops = 12 * d * b * h * attention_pairs(sq, sk, causal)
     bnd, by = bound_ms(nbytes(q, k, v, dout, *got), flops, q.dtype)
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
                   for x in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dlib = dout.transpose(1, 2)
     lib_grads = torch.autograd.grad(lib, (qt, kt, vt), dlib,
                                     retain_graph=True)
-    return {"shape": list(shape), "dtype": "torch.bfloat16",
+    return {"shape": list(shape), "k_shape": [b, sk, h, d],
+            "causal": causal, "dtype": "torch.bfloat16",
             "route": "torch", "source":
                 "src/repro_torch/kernels/flash_attention.py "
                 "(flash_attention_bwd)",
             "ms": cuda_ms(lambda: fa.flash_attention_bwd(
-                q, k, v, dout, True, TRAIN_SEQ, True), 5),
+                q, k, v, dout, causal, TRAIN_SEQ, True), 5),
             "plain_ms": cuda_ms(lambda: fa.plain_grads(
-                q, k, v, dout, round_p=True), 3),
-            "bound_ms": bnd, "bound_by": by,
+                q, k, v, dout, causal, round_p=True), 3),
+            "bound_ms": bnd, "bound_by": by, "gflop": flops / 1e9,
             "library_ms": cuda_ms(lambda: torch.autograd.grad(
                 lib, (qt, kt, vt), dlib, retain_graph=True), 5),
-            "library": "scaled_dot_product_attention(is_causal=True) "
-                       "backward, as a yardstick only",
+            "library": f"scaled_dot_product_attention(is_causal={causal}) "
+                       f"backward, as a yardstick only",
             "library_max_abs_diff": max(
                 max_abs(a.transpose(1, 2), r)
                 for a, r in zip(lib_grads, ref)),
@@ -6103,6 +6742,7 @@ def main() -> int:
     for g in (g22, g14, u14):
         g.plan().evict_all()
     del g22, g14, u14
+    gc.collect()        # the graphs' arrays sit in reference cycles
     torch.cuda.empty_cache()
     train, baseline = phase_train(dev, kernels, args.profile)
     torch.cuda.empty_cache()
@@ -6118,11 +6758,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     recurrent, k4_recurrent = phase_recurrent(dev, kernels)
     torch.cuda.empty_cache()
+    family_train, k4_family_train = phase_family_train(dev, kernels)
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter() - t_graph_rows
     rows.append(kernel_k4(path["flash_attention_fwd"], k4_variants, k4_moe,
                           k4_families, k4_hybrid, k4_sharded, k4_dry,
-                          k4_two_d, k4_heads, k4_recurrent))
+                          k4_two_d, k4_heads, k4_recurrent,
+                          k4_family_train))
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
@@ -6140,7 +6783,9 @@ def main() -> int:
                                                                 0),
                  launches_phase_two_d=two_d.get(r["name"], 0),
                  launches_phase_heads=heads.get(r["name"], 0),
-                 launches_phase_recurrent=recurrent.get(r["name"], 0))
+                 launches_phase_recurrent=recurrent.get(r["name"], 0),
+                 launches_phase_family_train=family_train.get(r["name"],
+                                                              0))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(smi, flush=True)

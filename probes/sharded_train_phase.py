@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 Prints the card's name and power limit, the Python / torch / CUDA
 versions, then builds phase 4b's batches (2 x 1024 random walks over an
 R-MAT graph, seed 0), takes phase 4b's first three steps of qwen2.5-3b at
-full width and depth on one rank as run (a)'s yardstick, and runs
-``phase_sharded_train``: (a) qwen2.5-3b over (1, 2), (b) cut to 12
+full width cut to ``TRAIN_LAYERS`` on one rank as run (a)'s yardstick,
+and runs ``phase_sharded_train``: (a) that model over (1, 2), (b) cut to 12
 layers over (2, 2), (c) qwen3-moe cut to 2 layers over (1, 2), gloo
 ranks sharing the card.  Then K4's backward at a rank's heads, (2, 1024,
 8, 128) bf16, against the plain version and SDPA's backward.
@@ -24,7 +24,6 @@ sys.path.insert(0, ".")
 import torch                                              # noqa: E402
 
 import chip_smoke as cs                                   # noqa: E402
-from repro_torch.configs.base import get_config           # noqa: E402
 from repro_torch.core.graph import Graph                  # noqa: E402
 from repro_torch.data.graph_corpus import RandomWalkCorpus  # noqa: E402
 from repro_torch.data.rmat import rmat_edges              # noqa: E402
@@ -54,7 +53,7 @@ def main() -> None:
     batches = [{k: torch.from_numpy(v) for k, v in corpus.batch_at(i).items()}
                for i in range(3)]
     del g, corpus
-    steps = cs.train_one_rank(dev, get_config("qwen2.5-3b"), batches, 3)
+    steps = cs.train_one_rank(dev, cs.train_config(), batches, 3)
     print(json.dumps({"one_rank_steps": steps}), flush=True)
     cs.phase_sharded_train(dev, kernels, {"steps": steps,
                                           "batches": batches})

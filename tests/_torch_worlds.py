@@ -1131,3 +1131,15 @@ if __name__ == "__main__":         # by hand: cd tests && python _torch_worlds.p
         t0 = time.perf_counter()
         res = run_world(corpus_job, d, os.path.join(tmp, f"w{d}"))
         print(len(res), time.perf_counter() - t0)
+
+
+def family_train_job(workdir: str, jobs) -> list:
+    """Phase 4l's rank function on the CPU: ``chip_smoke.py``'s
+    ``family_train_world`` (it imports only torch, numpy and
+    ``repro_torch``), each job over (1, m) on ranks 0..m-1 -> this rank's
+    records."""
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.append(root)
+    import chip_smoke
+    return chip_smoke.family_train_world(workdir, jobs, "cpu")

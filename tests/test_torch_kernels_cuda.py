@@ -21,7 +21,8 @@ autograd (its forward, the PyTorch backward) gives gradients within
 qwen3-moe MoE layer at full width holds to ``chip_smoke.py``'s per-token
 oracle (phase 4c), its routing to a float64 recomputation.  K4 at
 whisper's shapes, scaled down (D = 64, non-causal, Sq != Sk, ragged last
-tiles), holds to that rule; sLSTM's float32 recurrence on the card, TF32
+tiles), holds to that rule, and so does its backward at a whisper
+rank's three shapes of phase 4l; sLSTM's float32 recurrence on the card, TF32
 off, to the CPU's.  Reduced jamba (Mamba, attention and MoE sub-layers)
 on the card equals its CPU run, and a full-width Mamba mixer's chunked
 train scan equals its decode steps on the card.
@@ -417,17 +418,20 @@ def test_flash_attention_wgmma_is_deterministic_and_strided(dev):
     assert attention_error_ratios(a, ref, base)["ok"]
 
 
-def _backward_under_autograd(dev, shape, seed):
+def _backward_under_autograd(dev, shape, seed, sk=None, causal=True):
     rng = np.random.default_rng(seed)
-    q, k, v, dout = (torch.from_numpy(rng.normal(size=shape).astype(
-        np.float32)).to(dev, torch.bfloat16) for _ in range(4))
+    b, sq, h, d = shape
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=s).astype(
+        np.float32)).to(dev, torch.bfloat16)
+        for s in (shape, (b, sk or sq, h, d), (b, sk or sq, h, d), shape))
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     before = flash_attention_fwd.launches
-    out = fa.flash_attention(*leaves, causal=True, q_chunk=1024)
+    out = fa.flash_attention(*leaves, causal=causal, q_chunk=1024)
     assert flash_attention_fwd.launches == before + 1
     got = torch.autograd.grad(out, leaves, dout)
-    ref = fa.plain_grads(q.float(), k.float(), v.float(), dout.float())
-    base = fa.plain_grads(q, k, v, dout, round_p=True)
+    ref = fa.plain_grads(q.float(), k.float(), v.float(), dout.float(),
+                         causal)
+    base = fa.plain_grads(q, k, v, dout, causal, round_p=True)
     r = fa.grad_error_ratios(got, ref, base)
     assert r["ok"], r
 
@@ -444,6 +448,19 @@ def test_flash_attention_backward_at_a_ranks_heads(dev):
     # phase 4h's shape: a rank's 8 of qwen2.5-3b's 16 heads over two model
     # ranks, the same rule
     _backward_under_autograd(dev, (2, 1024, 8, 128), 12)
+
+
+# phase 4l (b)'s shapes: a rank's one of whisper's 12 heads over 16 model
+# ranks, D = 64: the encoder (non-causal), the decoder's self-attention
+# (causal) and its cross-attention (non-causal, 64 queries, 1536 keys)
+WHISPER_BACKWARD_CASES = [((2, 1536, 1, 64), 1536, False),
+                          ((2, 64, 1, 64), 64, True),
+                          ((2, 64, 1, 64), 1536, False)]
+
+
+@pytest.mark.parametrize("shape,sk,causal", WHISPER_BACKWARD_CASES)
+def test_flash_attention_backward_at_whisper_shapes(dev, shape, sk, causal):
+    _backward_under_autograd(dev, shape, 13 + sk, sk, causal)
 
 
 # whisper's attention, scaled down in batch and heads: D = 64; the encoder
