@@ -262,6 +262,25 @@ Phases (each prints one JSON line with its seconds):
    window, K4 runs on the attention layer's own q, k, v ((4, 2048, 64,
    128) bf16 causal), held by ``attention_error_ratios`` and timed, in
    the phase line and in K4's row (``hybrid_path_inputs``).
+4m. the two largest dense configs, in a launch window of its own (after
+   4e, before 4g): ``mistral-nemo-12b`` (d 5120, 32 heads of 128, GQA 8:
+   a query width of 4096, SwiGLU, RMSNorm, vocab 131072) and then
+   ``starcoder2-15b`` (d 6144, 48 heads, GQA 4, biased q, k, v, tanh GeLU,
+   LayerNorm, vocab 49152), each at its published 40 layers and width,
+   **bf16 weights** (``DENSE_CONFIGS_OVER``: the float32 weights, 49.0
+   and 63.8 GB, do not fit beside ``Engine``'s bf16 copy) from seed 0
+   through ``Transformer.init_params``, one on the card at a time (the
+   first deleted and collected before the second), behind ``Engine`` with
+   phase 4's batch and prompts, 32 new tokens, twice; phase 4's checks:
+   the engine serves the model itself, K4 40 times a ``generate``, all
+   ``"sm90_wgmma"``, each output its prompt plus the new tokens, ids
+   below the vocabulary, finite logits, the same tokens twice, decode
+   against ``forward`` within ``DECODE_TOL``.  The line prints the
+   parameters (counted on the meta device), bytes, peak memory, prefill
+   seconds and decode seconds per token.  After the window, K4 runs on
+   each model's layer-0 q, k, v ((4, 2048, 32, 128) and (4, 2048, 48,
+   128) bf16 causal), held by ``attention_error_ratios`` and timed beside
+   SDPA and its bound (``dense_configs_path_inputs`` in K4's row).
 4g. the dry run (``launch/dryrun.py``, after 4e, before 4b), in a launch
    window of its own.  (a) ``--list``, then every cell of the single-pod
    and two-pod sweeps counted on the meta device over counting groups (no
@@ -312,7 +331,7 @@ Phases (each prints one JSON line with its seconds):
    3 steps: each step's loss within 1e-2 and gradient norm within 5% of
    phase 4b's, step 2's loss below step 0's, and on each rank K4 24
    times a step (12 forward, 12 recompute), all ``"sm90_wgmma"``, at
-   (2, 1024, 8, 128).  (b) The same cut to 12 layers over (2, 2), ZeRO-1
+   (2, 1024, 8, 128).  (b) The same cut to 6 layers over (2, 2), ZeRO-1
    over two data ranks, 3 steps, within 1e-2 of a one-rank run of the cut
    model in the parent first: each rank's optimizer state holds half of
    each block it splits (only the qkv biases, split over "model" on their
@@ -350,7 +369,14 @@ Phases (each prints one JSON line with its seconds):
    (c)'s one-rank run, step 0's gradient norm within
    ``TWO_D_NORM_TOL`` of its and step 1's loss within
    ``TWO_D_STEP1_TOL``, every value finite, each leaf split over both
-   axes a quarter, the norms the same bits on every rank.  (b) grok-1 cut to
+   axes a quarter, the norms the same bits on every rank; and each rank's
+   step-0 gradient of each 2-D block (reduced, before clipping, kept in
+   bf16) within ``TWO_D_NORM_TOL`` relative L2 of the average of one
+   rank's gradients on the two data halves from seed 0, in the parent
+   after the ranks (``two_d_halves_grad``), each half routed alone to the
+   experts its data rank's ranks chose (``moe_choices``: without that, a
+   bf16 near tie rounded apart moves an expert's block by ~20%), every
+   leaf's gap printed.  (b) grok-1 cut to
    1 layer: the yardstick with 1 teacher step, the same limits.  Every
    call gathers the rank's blocks through the host, ~3 GB, so the
    serving is cut to one layer and to 2 and 1 decode steps.  K4 runs on
@@ -411,37 +437,46 @@ Phases (each prints one JSON line with its seconds):
    prints the prefill seconds and ms a token, seconds a decode token,
    collectives by count and bytes sent and received, each rank's peak
    memory and the largest gap against d = 1 over the largest logit.
-4l. the xLSTM, whisper, VLM and hybrid families trained over model
-   ranks: one world of 16 gloo ranks sharing the card, each run of
-   ``FAMILY_TRAIN_RUNS`` on ranks 0..m-1 over (1, m), two sharded train
-   steps (``remat="full"``): (a) xlstm-350m whole in float32 compute over
-   (1, 8), 2 x 16 tokens, AdamW (mLSTM heads on ranks 0-3, none on 4-7);
-   (b) whisper-small whole over (1, 16), 2 x 64 tokens behind (2, 1536,
-   768) stub frames (12 heads on ranks 0-11, none on 12-15); (c)
-   internvl2-26b at full width cut to 4 of 48 layers over (1, 2), 2 x 128
-   tokens behind 256 patches; (d) jamba-1.5-large at full width in one
-   period of ``attn_every = 2`` (a Mamba with its MLP, then attention with
-   the MoE) with 4 of 16 experts, ``expert_tp``, capacity factor 1.25,
-   Adafactor, bf16, over (1, 2), 2 x 512 tokens; weights from seed 0,
-   batches from numpy seeds 0 and 1.  The d = 1 run of each goes first in
-   this process and is freed; each run's reckoning (parameters,
-   gradients, state, logits, and the larger of the backward's activations
-   and the update's temporaries, ``family_train_reckoning``) over its
-   ranks, the 16 CUDA contexts and what this process holds must stay
-   under 72 GB.  Then on every rank: each step's loss within
-   ``FAMILY_TRAIN_LOSS_TOL`` and step 0's gradient norm within
-   ``FAMILY_TRAIN_NORM_TOL`` of d = 1's, every value finite; the same
-   bits of what ranks share; each step's collectives by phase (forward,
-   recompute, backward, gradients, optimizer) equal to
-   ``family_train_collectives``; the headless calls of attention and of
-   the mLSTM in every call of the forward and the recompute on the ranks
-   with no head, none elsewhere; K4's calls by shape
-   (``family_train_want_k4``: 72 a step on whisper's ranks 0-11, 8 on
-   internvl2's, 2 on jamba's, none on xLSTM's), each a ``"sm90_wgmma"``
-   launch; the peak memory under the reckoning.  Rank 0 and the last rank
-   with a head hold K4 to its plain version on step 0's layer-0 inputs
-   (``family_train_path_inputs`` in K4's row).  Its line prints each
-   run's step seconds, collectives by phase, peaks and gaps.
+4l. the xLSTM, whisper, VLM and hybrid families, and the two largest dense
+   configs, trained over model ranks: one world of 16 gloo ranks sharing
+   the card, each run of ``FAMILY_TRAIN_RUNS`` on ranks 0..m-1 over (1, m),
+   two sharded train steps (``remat="full"``): (a) xlstm-350m cut to 12
+   of 24 blocks in float32 compute over (1, 8), 2 x 16 tokens, AdamW (mLSTM heads on ranks
+   0-3, none on 4-7); (b) whisper-small at full width cut to 2 + 2 of its
+   12 + 12 layers over (1, 16), 2 x 64 tokens behind (2, 1536, 768) stub
+   frames (12 heads on ranks 0-11, none on
+   12-15); (c) internvl2-26b at full width cut to 4 of 48 layers over (1,
+   2), 2 x 128 tokens behind 256 patches; (d) jamba-1.5-large at full width
+   in one period of ``attn_every = 2`` (a Mamba with its MLP, then
+   attention with the MoE) with 4 of 16 experts, ``expert_tp``, capacity
+   factor 1.25, Adafactor, bf16, over (1, 2), 2 x 512 tokens; (e)
+   starcoder2-15b and (f) mistral-nemo-12b at full width cut to 2 of 40
+   layers over (1, 16), 2 x 128 tokens, AdamW: 3 and 2 query heads a rank,
+   each KV head read by 4 and 2 ranks, so its gradient is a model-axis sum
+   over them; weights from seed 0, batches from numpy seeds 0 and 1.  The d
+   = 1 run of each goes first in this process and is freed; each run's
+   reckoning (parameters, gradients, state, logits, and the larger of the
+   backward's activations and the update's temporaries,
+   ``family_train_reckoning``) over its ranks, the 16 CUDA contexts and
+   what this process holds must stay under 72 GB.  Then on every rank: each
+   step's loss within ``FAMILY_TRAIN_LOSS_TOL`` and step 0's gradient norm
+   within ``FAMILY_TRAIN_NORM_TOL`` of d = 1's, every value finite; the
+   same bits of what ranks share after each step (a KV head's block and its
+   AdamW m and v on its holders too); each step's collectives by phase
+   (forward, recompute, backward, gradients (a sum a shared KV leaf),
+   optimizer) equal to ``family_train_collectives``; the headless calls of
+   attention and of the mLSTM in every call of the forward and the
+   recompute on the ranks with no head, none elsewhere; K4's calls by shape
+   (``family_train_want_k4``: 12 a step on whisper's ranks 0-11, 8 on
+   internvl2's, 2 on jamba's, 4 on starcoder2's and mistral-nemo's, none on
+   xLSTM's), each a ``"sm90_wgmma"`` launch; the peak memory under the
+   reckoning; in (e) and (f), step 0's gradient of every KV leaf and of
+   layer 0's wq (the control no rank shares), after the model-axis sums and
+   before clipping, within ``FAMILY_TRAIN_GRAD_TOL`` relative L2 of d = 1's
+   cut to the rank's block on every rank (``leaf_grad_gaps``).  Rank 0 and
+   the last rank with a head hold K4 to its plain version on step 0's
+   layer-0 inputs (``family_train_path_inputs`` in K4's row).  Its line
+   prints each run's step seconds, collectives by phase, peaks and gaps.
 5. every kernel against its plain PyTorch version at the shapes phases 2-4
    gave it, with its time, the plain version's, a library call's where one
    computes the same function, and the card's lower bound.  Printed as one
@@ -473,13 +508,14 @@ Phases (each prints one JSON line with its seconds):
    ptxas report of K1's and K3's sources must show no spill.
 
 The launch counts of phases 2-3 and of phase 4's ``generate`` are the main
-path's, and phases 3b's to 3g's, 4c's, 4f's, 4d's, 4e's, 4g's, 4b's, 4h's,
-4i's, 4j's, 4k's and 4l's are their own (3d's to 3g's, 4c's, 4f's, 4d's,
-4e's, 4g's, 4b's, 4h's, 4i's, 4j's, 4k's and 4l's print in each kernel row
-as
+path's, and phases 3b's to 3g's, 4c's, 4f's, 4d's, 4e's, 4m's, 4g's, 4b's,
+4h's, 4i's, 4j's, 4k's and 4l's are their own (3d's to 3g's, 4c's, 4f's,
+4d's, 4e's, 4m's, 4g's, 4b's, 4h's, 4i's, 4j's, 4k's and 4l's print in
+each kernel row as
 ``launches_phase_3d`` ... ``_3g``, ``launches_phase_moe``,
 ``launches_phase_sharded_lm``, ``launches_phase_families``,
-``launches_phase_hybrid``, ``launches_phase_dryrun``,
+``launches_phase_hybrid``, ``launches_phase_dense_configs``,
+``launches_phase_dryrun``,
 ``launches_phase_train``, ``launches_phase_sharded_train``,
 ``launches_phase_two_d``, ``launches_phase_heads``,
 ``launches_phase_recurrent`` and ``launches_phase_family_train``; the
@@ -508,6 +544,7 @@ import subprocess
 import sys
 import threading
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -554,6 +591,16 @@ def emit(obj) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def expandable_segments() -> None:
+    """The card's allocator with expandable segments in this process and
+    the ranks it spawns (before its first allocation), so that what a
+    phase frees leaves the card at ``torch.cuda.empty_cache``: a library's
+    workspace carved from a large cached block kept the whole block
+    reserved, 1.23 GB a rank of phase 4l after a run and 7.2 GB in this
+    process before it on an H100 (PERF.md section 6)."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
 
 
 def sync() -> None:
@@ -2817,6 +2864,34 @@ def moe_routes():
         moe.route = real
 
 
+@contextlib.contextmanager
+def moe_choices(replay=None):
+    """Record each routing's experts (``models.moe.route``'s ``gate_idx``,
+    (T, k) best first) on the host, in the yielded list; with ``replay``
+    (such a list), route the i-th call to ``replay[i]``'s experts instead
+    of its own top k, at the call's own probabilities there
+    (``moe.assign``: the same gates, drops and buckets as the recorded
+    call's wherever the router agrees), and append to the list the count
+    of the call's own choices that differed."""
+    from repro_torch.models import moe
+    real, seen = moe.route, []
+
+    def spy(p, x, cfg, *args, **kwargs):
+        r = real(p, x, cfg, *args, **kwargs)
+        if replay is None:
+            seen.append(r.gate_idx.to("cpu", torch.int16, copy=True))
+            return r
+        idx = replay[len(seen)].to(r.probs.device, torch.long)
+        seen.append(int((idx != r.gate_idx).sum()))
+        return moe.assign(r.probs, idx, r.probs.gather(1, idx), r.capacity)
+
+    moe.route = spy
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
 def host_routes(seen) -> list:
     return [(e.cpu(), m.cpu()) for e, m in seen]
 
@@ -3977,6 +4052,160 @@ def phase_hybrid(dev, kernels, profile):
     return launches, [k4_row]
 
 
+# phase 4m: the two largest dense configs at full width and depth
+DENSE_CONFIGS = ("mistral-nemo-12b", "starcoder2-15b")
+# their float32 weights (49.0 and 63.8 GB) beside Engine's bf16 copy do not
+# fit the card: the weights are drawn in bf16, which Engine serves as they
+# are (PERF.md section 4)
+DENSE_CONFIGS_OVER = {"param_dtype": "bfloat16"}
+
+
+def serve_dense(dev, arch, profile) -> tuple:
+    """Phase 4m for one config: ``arch`` at its published width and depth,
+    bf16 weights from seed 0 (``DENSE_CONFIGS_OVER``), behind ``Engine``
+    with phase 4's batch and prompts; phase 4's checks.  Returns its line
+    and layer 0's K4 inputs of the first ``generate``; the model is freed
+    on return."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve.engine import Engine, ServeConfig
+    t0 = time.perf_counter()
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **DENSE_CONFIGS_OVER)
+    check(cfg.family == "dense" and cfg.n_layers == 40 and
+          cfg.compute_dtype == "bfloat16",
+          f"{arch}: 40 dense layers, bf16 compute")
+    n_params = sum(t.numel() for t in
+                   Transformer(cfg, device="meta").parameters())
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model, t_init = timed(lambda: Transformer.init_params(cfg, gen,
+                                                          device=dev))
+    check(len(model.layers) == cfg.n_layers and model.param_dtype ==
+          torch.bfloat16 and sum(t.numel() for t in model.parameters())
+          == n_params, f"{arch}: {cfg.n_layers} bf16 layers, the meta "
+          f"count's {n_params} parameters")
+    param_bytes = nbytes(*model.parameters())
+    max_seq = max(SERVE_PROMPTS) + SERVE_NEW
+    eng = Engine(cfg, model, ServeConfig(batch=4, max_seq=max_seq),
+                 device=dev)
+    check(eng.model is model, f"{arch}: the engine made a weight copy")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in SERVE_PROMPTS]
+    plen = max(SERVE_PROMPTS)
+    want_shape = (4, plen, cfg.n_heads, cfg.resolved_head_dim)
+    key = (want_shape, want_shape, "torch.bfloat16", True)
+    by_variant = flash_attention_fwd.launches_by_variant
+    k4_before, wgmma_before = (flash_attention_fwd.launches,
+                               by_variant["sm90_wgmma"])
+    with k4_calls() as (seen, first):
+        out, t_gen = timed(lambda: eng.generate(prompts, SERVE_NEW))
+    k4 = flash_attention_fwd.launches - k4_before
+    wgmma = by_variant["sm90_wgmma"] - wgmma_before
+    stats = dict(eng.stats)
+    check(k4 == wgmma == cfg.n_layers, f"{arch}: K4 launched {k4} times "
+          f"({wgmma} through sm90_wgmma) in one generate, not once per "
+          f"layer ({cfg.n_layers})")
+    check(seen == [key] * cfg.n_layers,
+          f"{arch}: K4 calls {set(seen)}, want {key} {cfg.n_layers} times")
+    k4_inputs = first.pop(key)
+    check(all(len(o) == len(p) + SERVE_NEW and o[:len(p)] == p
+              for o, p in zip(out, prompts)),
+          f"{arch}: each output is its prompt plus {SERVE_NEW} tokens")
+    check(all(0 <= tok < cfg.vocab_size for o in out for tok in o),
+          f"{arch}: token ids in [0, {cfg.vocab_size})")
+    check(bool(torch.isfinite(eng.last_logits).all()),
+          f"{arch}: finite logits")
+    again, t_again = timed(lambda: eng.generate(prompts, SERVE_NEW))
+    check(again == out, f"{arch}: a second generate gives the same tokens")
+    stats_again = dict(eng.stats)
+    b, s = DECODE_CHECK
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)
+                                         ).astype(np.int32)).to(dev)
+    dvf = decode_vs_forward(model, {"tokens": toks}, s - 1)
+    rec = {}
+    if profile:   # one prefill of the batch, one decode step
+        top = {"k4": ("flash_fwd",)}
+        batch = {"tokens": torch.from_numpy(left_padded(prompts)).to(dev)}
+        held = {}
+        rec["profile_prefill"] = device_busy(lambda: held.update(zip(
+            ("logits", "cache"), model.prefill(batch, max_seq))), top, top=8)
+        cur = torch.argmax(held["logits"][:, -1], dim=-1)[:, None]
+        rec["profile_decode_step"] = device_busy(
+            lambda: model.decode_step(held["cache"], cur, plen), top, top=8)
+        del held
+    peak = torch.cuda.max_memory_allocated()
+    new_tokens = len(prompts) * stats["decode_steps"]
+    del eng, model
+    line = {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+            "vocab_size": cfg.vocab_size, "act": cfg.act, "norm": cfg.norm,
+            "qkv_bias": cfg.qkv_bias, "params": n_params,
+            "param_bytes": param_bytes, "param_dtype": cfg.param_dtype,
+            "param_dtype_published": full.param_dtype,
+            "memory_allocated_before": mem_before,
+            "max_memory_allocated": peak, "seconds_init": t_init,
+            "k4_launches_generate": k4, "k4_shape": list(want_shape),
+            "seconds_generate": t_gen, "seconds_generate_again": t_again,
+            "prefill_seconds": stats["prefill_seconds"],
+            "decode_seconds_per_token": stats["decode_seconds"]
+            / stats["decode_steps"],
+            "decode_tokens_per_second": new_tokens / stats["decode_seconds"],
+            "prefill_seconds_again": stats_again["prefill_seconds"],
+            "decode_seconds_per_token_again": stats_again["decode_seconds"]
+            / stats_again["decode_steps"],
+            "decode_vs_forward": dvf, **rec,
+            "seconds": time.perf_counter() - t0}
+    return line, k4_inputs
+
+
+def phase_dense_configs(dev, kernels, profile):
+    """Phase 4m: each config of ``DENSE_CONFIGS`` served in turn at full
+    width and depth (:func:`serve_dense`), one model on the card at a time,
+    in one launch window; then, outside it, K4 held to its plain version on
+    the q, k, v that each model's layer 0 gave it.  Returns the window's
+    launches and K4's rows at those shapes."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    t0 = time.perf_counter()
+    for k in kernels:
+        k.launches = 0
+    wgmma_before = flash_attention_fwd.launches_by_variant["sm90_wgmma"]
+    lines, k4_inputs, n = [], [], 0
+    for arch in DENSE_CONFIGS:
+        gc.collect()        # graphs in reference cycles can hold the card
+        torch.cuda.empty_cache()
+        line, qkv = serve_dense(dev, arch, profile)
+        lines.append(line)
+        k4_inputs.append((arch, qkv))
+        n += line["n_layers"]
+        del qkv
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k.__name__: k.launches for k in kernels}
+    wgmma = flash_attention_fwd.launches_by_variant["sm90_wgmma"] - \
+        wgmma_before
+    # two generates, the check's forward and prefill (+ the profile's)
+    want = (4 + profile) * n
+    check(launches["flash_attention_fwd"] == want == wgmma,
+          f"phase 4m: K4 launched {launches['flash_attention_fwd']} times "
+          f"({wgmma} through sm90_wgmma), not {want}")
+    check(not any(c for name, c in launches.items()
+                  if name != "flash_attention_fwd"),
+          f"phase 4m launched graph kernels: {launches}")
+    k4_rows = []
+    for arch, (q, k, v) in k4_inputs:
+        k4_rows.append({"arch": arch, **k4_on_path_inputs(q, k, v)})
+        del q, k, v
+    del k4_inputs
+    emit({"phase": "dense_configs", "models": lines, "launches": launches,
+          "k4_on_path_inputs": k4_rows, "seconds": time.perf_counter() - t0})
+    return launches, k4_rows
+
+
 # phase 4g: the dry run, and rank 0 of one production-mesh cell on the card
 DRYRUN_CELL = ("qwen2.5-3b", "prefill_32k")
 DRYRUN_K4_SHAPE = (2, 32768, 1, 128)   # rank 0's heads after the GQA repeat
@@ -4181,7 +4410,8 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 1024   # phase 4b: sequences of the random-walk corp
 TRAIN_STEPS = 5
 # qwen2.5-3b's depth in phases 4b and 4h (a), of 36: the checkpoint's round
 # trip through the host (~0.5 GB/s) took 178-207 s of 4b at 36 layers and
-# 121-125 s at 18, and phase 4l takes 149-178 s
+# 121-125 s at 18, and phase 4l takes 149-178 s (at 6 layers 4h (a)'s step
+# 2 loss did not fall below step 0's on an H100)
 TRAIN_LAYERS = 12
 TRAIN_RMAT = (17, 16)   # phase 4b: R-MAT scale and edge factor of the corpus graph
 TRAIN_CE_TOL = 1e-2     # step 0's ce vs the serving forward's, relative (bf16)
@@ -4335,7 +4565,7 @@ SHARDED_TRAIN_JOIN_SECONDS = 600.0
 SHARDED_TRAIN_RUNS = (
     # (run, arch, layers kept (None: all), (data, model), steps, overrides)
     ("a", "qwen2.5-3b", TRAIN_LAYERS, (1, 2), 3, {}),
-    ("b", "qwen2.5-3b", 12, (2, 2), 3, {}),
+    ("b", "qwen2.5-3b", 6, (2, 2), 3, {}),
     ("c", "qwen3-moe-235b-a22b", 2, (1, 2), 2,
      {"moe_impl": "expert_tp", "capacity_factor": 1.25}),
 )
@@ -4549,6 +4779,76 @@ def _same_checksums(ranks, leaf_filter) -> bool:
     return True
 
 
+@contextlib.contextmanager
+def pre_clip_grads(keep, dtype=torch.float32):
+    """Record the gradients a train step clips, before it clips them:
+    ``train/step.py``'s one-rank step's, or ``train/zero.py``'s after its
+    model-axis sums and its reduction over "data" (the float32 gradient of
+    the rank's block).  The yielded dict gets, at each step taken inside,
+    a host copy in ``dtype`` of each leaf whose name ``keep`` accepts."""
+    from repro_torch.train import step as step_mod
+    from repro_torch.train import zero
+    real, got = zero.clip_by_global_norm, {}
+
+    def spy(grads, *args, **kwargs):
+        got.update({k: g.detach().to("cpu", dtype, copy=True)
+                    for k, g in grads.items() if keep(k)})
+        return real(grads, *args, **kwargs)
+
+    step_mod.clip_by_global_norm = zero.clip_by_global_norm = spy
+    try:
+        yield got
+    finally:
+        step_mod.clip_by_global_norm = zero.clip_by_global_norm = real
+
+
+def grad_block(leaf) -> list:
+    """[(dim, start, size)]: the narrows that cut a one-rank parameter to
+    the rank's block of it (``train/zero.Leaf``): its range on the model
+    dim, then on a 2-D weight's "data" dim.  A leaf whose ZeRO block
+    splits it over "data" has no such cut here."""
+    if leaf.zdim is not None:
+        raise ValueError("a ZeRO block's gradient is not the rank's block")
+    out = []
+    if leaf.mdim is not None:
+        out.append((leaf.mdim, *leaf.mrange))
+    if leaf.ddim is not None:
+        n = leaf.full[leaf.ddim] // leaf.wd
+        out.append((leaf.ddim, leaf.w_rank * n, n))
+    return out
+
+
+def leaf_grad_gaps(rec, want) -> dict:
+    """{leaf: ||g - g1|| / ||g1||} (float32, on ``g1``'s device) of a rank's
+    recorded gradients ``rec`` ({leaf: {"grad": g, "block":
+    :func:`grad_block`}}) against the yardstick's whole gradients ``want``
+    ({leaf: g1}) cut to the rank's block."""
+    out = {}
+    for k, r in sorted(rec.items()):
+        w = want[k]
+        for dim, start, size in r["block"]:
+            w = w.narrow(dim, start, size)
+        g = r["grad"].to(w.device, torch.float32)
+        check(g.shape == w.shape, f"{k}: a block of {tuple(g.shape)} beside "
+              f"the yardstick's cut {tuple(w.shape)}")
+        w = w.float()
+        out[k] = float(torch.linalg.vector_norm(g - w)
+                       / torch.linalg.vector_norm(w))
+    return out
+
+
+def leaf_grad_check(what: str, gaps, tol: float) -> None:
+    """Every rank's gap of every leaf (``gaps``: a :func:`leaf_grad_gaps`
+    a rank) within ``tol``, each printed first."""
+    print(json.dumps({"leaf_grad_gaps": what, "limit": tol,
+                      "per_rank": gaps}), flush=True)
+    bad = {r: {k: v for k, v in g.items() if not v <= tol}
+           for r, g in enumerate(gaps)}
+    bad = {r: b for r, b in bad.items() if b}
+    check(not bad, f"{what}: step 0's gradient per leaf over {tol} "
+          f"relative to the yardstick's: {bad}")
+
+
 def phase_sharded_train(dev, kernels, baseline):
     """Phase 4h: the sharded train step (``train/zero.py``) over gloo ranks
     sharing the card, each run held to its one-rank yardstick: (a)
@@ -4688,8 +4988,11 @@ TWO_D_OVER = {"moe_impl": "expert_tp", "capacity_factor": 1.25}
 # gradient norm read 8.3% low, and +83% with the 2-D gradients not
 # divided by d, -35% with each block keeping only its own data rank's
 # part; step 1's loss read 0.16% low (those two faults 0.14% and 0.12%:
-# the norm catches them, this limit only a step that goes astray)
-TWO_D_NORM_TOL = 0.2      # step 0's gradient norm, relative
+# the norm catches them, this limit only a step that goes astray).  The
+# same limit holds each rank's step-0 gradient of each 2-D block, relative
+# L2, to the average of one rank's gradients on the two data halves
+# (two_d_halves_grad): a block left undivided by d reads 1.0
+TWO_D_NORM_TOL = 0.2      # step 0's gradient norm, and per leaf, relative
 TWO_D_STEP1_TOL = 5e-3    # step 1's loss, relative
 TWO_D_MEMORY = 72e9       # the reckoning's ceiling over the ranks
 
@@ -4763,6 +5066,41 @@ def two_d_yardstick(dev, cfg, halves, new: int) -> dict:
     return out
 
 
+def two_d_halves_grad(dev, cfg, shards, keep, routes=None) -> tuple:
+    """Phase 4i's per-leaf yardstick in this process, freed after: the
+    model from seed 0 over the one-rank grid, step 0's gradient of the
+    loss on each data shard's rows ``shards`` alone (``expert_tp`` routes
+    them alone, as the shard's ranks do), each shard's routings replayed
+    from ``routes[i]`` where given (:func:`moe_choices`: what the shard's
+    ranks chose, so that a near tie the two computations round apart
+    routes alike), averaged over the shards in float32 -> ({leaf:
+    gradient} of the leaves ``keep`` accepts, each shard's count of
+    choices its own router made otherwise)."""
+    from repro_torch.launch.mesh import model_grid
+    from repro_torch.models.transformer import Transformer
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = Transformer.init_params(cfg, gen, device=dev,
+                                    group=model_grid(1, 1))
+    params = {k: p for k, p in model.named_parameters() if keep(k)}
+    out, differed = {}, []
+    for i, rows in enumerate(shards):
+        model.zero_grad(set_to_none=True)
+        with moe_choices(routes[i]) if routes else \
+                contextlib.nullcontext([]) as seen:
+            loss, _ = model.loss_fn({k: v.to(dev) for k, v in rows.items()},
+                                    chunk=TRAIN_SEQ)
+            loss.backward()
+        differed.append(sum(seen))
+        del loss
+        for k, p in params.items():
+            g = p.grad.float()
+            out[k] = g if k not in out else out[k].add_(g)
+            p.grad = None
+    del model, params
+    gc.collect()
+    return {k: g.div_(len(shards)) for k, g in out.items()}, differed
+
+
 def two_d_rank(rank: int, d: int, workdir: str, all_jobs, device: str):
     """Phase 4i, one rank: join a gloo world of ``d`` ranks on ``device``
     (card 0) as the (2, 2) grid, and for each of its ``all_jobs[rank]``
@@ -4774,18 +5112,22 @@ def two_d_rank(rank: int, d: int, workdir: str, all_jobs, device: str):
     Writes its logits and routings and a JSON record per run: seconds,
     K4's launches and shapes, the collectives by axis and phase (the
     "data" axis carries the weight gathers), peak memory; rank 0 also
-    K4's first q, k, v of the serving and of step 0 (layer 0's)."""
+    K4's first q, k, v of the serving and of step 0 (layer 0's); and
+    step 0's reduced gradient of each 2-D block before clipping (bf16,
+    with its :func:`grad_block`) and its routings (:func:`moe_choices`).
+    """
     import datetime
     import torch.distributed as dist
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.launch.mesh import model_grid
     from repro_torch.models.transformer import Transformer
     from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.train import zero
     from repro_torch.train.optimizer import OptHyper
     from repro_torch.train.step import init_train_state, make_train_step
     on_card = device == "cuda"
     if on_card:     # four ranks' caches share the card: keep few slack
-        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        expandable_segments()
         torch.cuda.set_device(0)
         torch.backends.cuda.matmul.allow_tf32 = False
     work = Path(workdir)
@@ -4872,14 +5214,22 @@ def two_d_rank(rank: int, d: int, workdir: str, all_jobs, device: str):
                     rules=two_d_rules(arch, grid, "train")))
                 step_fn = make_train_step(train_cfg, OptHyper(),
                                           attn_chunk=TRAIN_SEQ)
+                lay = zero.layout(m)
+                two_d = {k for k, leaf in lay.items()
+                         if leaf.ddim is not None}
                 info["train"] = []
                 for i in range(steps):
                     mine = {k: v.to(device) for k, v in rows[i].items()}
                     before = copy.deepcopy(axes(grid))
                     zero_counts()
+                    rec = pre_clip_grads(two_d.__contains__, torch.bfloat16) \
+                        if i == 0 else contextlib.nullcontext()
+                    choices = moe_choices() if i == 0 else \
+                        contextlib.nullcontext()
                     sync()
                     t = time.perf_counter()
-                    with k4_calls() as (seen, first):
+                    with k4_calls() as (seen, first), rec as got, \
+                            choices as chosen:
                         _, _, met = step_fn(m, state, mine, i)
                         row = {k: float(v) for k, v in met.items()}
                     if rank == 0 and i == 0:
@@ -4888,6 +5238,14 @@ def two_d_rank(rank: int, d: int, workdir: str, all_jobs, device: str):
                     del first
                     sync()
                     row["seconds"] = time.perf_counter() - t
+                    if got is not None:
+                        torch.save({k: {"grad": g, "block":
+                                        grad_block(lay[k])}
+                                    for k, g in got.items()},
+                                   work / f"rank{rank}_{run}_grads.pt")
+                        torch.save(chosen, work /
+                                   f"rank{rank}_{run}_train_routes.pt")
+                        del got, chosen
                     row["k4_launches"] = flash_attention_fwd.launches
                     row["k4_by_variant"] = dict(by_variant)
                     row["k4_shapes"] = sorted({str(list(k[0]))
@@ -5067,6 +5425,27 @@ def phase_two_d(dev, kernels, train_d1, batches):
                 check(all(r["train_norms_checksum"] ==
                           ranks[0]["train_norms_checksum"] for r in ranks),
                       f"phase 4i ({run}): the ranks' norms differ")
+                # step 0's 2-D blocks against the averaged halves' gradient
+                files = [work / f"rank{r}_{run}_grads.pt"
+                         for r in range(data * model)]
+                names = set().union(*(torch.load(f, mmap=True)
+                                      for f in files))
+                torch.cuda.empty_cache()
+                chosen = [torch.load(work / f"rank{h * model}_{run}_"
+                                     f"train_routes.pt")
+                          for h in range(data)]
+                (want, differed), t_halves = timed(
+                    lambda: two_d_halves_grad(
+                        dev, train_cfg, [{k: v[h:h + 1] for k, v in
+                                          batches[0].items()}
+                                         for h in range(data)],
+                        names.__contains__, chosen))
+                del chosen
+                gaps = [leaf_grad_gaps(torch.load(f, mmap=True), want)
+                        for f in files]
+                del want
+                torch.cuda.empty_cache()
+                leaf_grad_check(f"phase 4i ({run})", gaps, TWO_D_NORM_TOL)
             lines.append({
                 "run": run, "arch": cfg.name, "n_layers": cfg.n_layers,
                 "train_n_layers": train_cfg.n_layers if steps else None,
@@ -5088,6 +5467,9 @@ def phase_two_d(dev, kernels, train_d1, batches):
                                        for y in yards[run]],
                 "yardstick_per_row": errs, "flip_share": flips_all,
                 "train_one_rank": train_d1[:steps] if steps else None,
+                "leaf_grad_gaps": gaps if steps else None,
+                "halves_choices_differed": differed if steps else None,
+                "seconds_halves_yardstick": t_halves if steps else None,
                 "per_rank": [{k: v for k, v in r.items()
                               if k not in ("tokens",
                                            "train_norms_checksum")}
@@ -5654,17 +6036,33 @@ FAMILY_TRAIN_STEPS = 2         # step 1 takes step 0's optimizer state
 FAMILY_TRAIN_RUNS = (
     # (run, arch, model ranks m, batch, tokens, layers kept (None: all),
     #  overrides); each over (1, m) on ranks 0..m-1
-    ("a", "xlstm-350m", 8, 2, 16, None, {"compute_dtype": "float32"}),
-    ("b", "whisper-small", 16, 2, 64, None, {}),
+    # xlstm-350m cut to 12 of its 24 blocks and whisper-small to 2 + 2 of
+    # its 12 + 12 layers: whole, their two steps took 39 and 69-90 s on an
+    # H100, in host collectives (an sLSTM gather a token a block; psums of
+    # (2, 1536, 768) encoder states)
+    ("a", "xlstm-350m", 8, 2, 16, 12, {"compute_dtype": "float32"}),
+    ("b", "whisper-small", 16, 2, 64, 2, {"n_enc_layers": 2}),
     ("c", "internvl2-26b", 2, 2, 128, 4, {}),
     ("d", HYBRID_ARCH, 2, 2, 512, 2,
      {"attn_every": 2, "n_experts": 4, "moe_impl": "expert_tp",
       "capacity_factor": 1.25}),
+    # KV heads that several ranks share: starcoder2's 4 held by 4 ranks
+    # each (3 query heads a rank), mistral-nemo's 8 by 2 (2 a rank)
+    ("e", "starcoder2-15b", 16, 2, 128, 2, {}),
+    ("f", "mistral-nemo-12b", 16, 2, 128, 2, {}),
 )
 # against d = 1: phase 4h's limits in bf16 compute (2e-2 for the routed
 # MoE, as 4h (c)); 1e-4 relative in (a)'s float32 compute
-FAMILY_TRAIN_LOSS_TOL = {"a": 1e-4, "b": 1e-2, "c": 1e-2, "d": 2e-2}
-FAMILY_TRAIN_NORM_TOL = {"a": 1e-4, "b": 5e-2, "c": 5e-2, "d": 5e-2}
+FAMILY_TRAIN_LOSS_TOL = {"a": 1e-4, "b": 1e-2, "c": 1e-2, "d": 2e-2,
+                         "e": 1e-2, "f": 1e-2}
+FAMILY_TRAIN_NORM_TOL = {"a": 1e-4, "b": 5e-2, "c": 5e-2, "d": 5e-2,
+                         "e": 5e-2, "f": 5e-2}
+# step 0's gradient of each leaf that phase 4l records (a run whose KV
+# heads several ranks share: every KV leaf, and layer 0's wq as a control
+# no rank shares) against d = 1's cut to the rank's block, relative L2; a
+# rank that kept only its own part of a KV head's sum would read ~0.7
+# with 2 holders and ~0.87 with 4
+FAMILY_TRAIN_GRAD_TOL = 5e-2
 FAMILY_TRAIN_MEMORY = 72e9     # the reckoning's ceiling over the ranks
 CUDA_CONTEXT_BYTES = 0.5e9     # a rank's CUDA context, outside the allocator
 # the products' library workspaces (cuBLAS, cuBLASLt), a set for each
@@ -5697,12 +6095,30 @@ def family_train_batches(cfg, batch: int, seq: int, steps: int) -> list:
     return out
 
 
-def family_train_one_rank(dev, cfg, batches, arrays: bool = False) -> dict:
+def family_train_grad_leaf(name: str) -> bool:
+    """A leaf whose step-0 gradient phase 4l holds to d = 1's: a KV leaf
+    (``wk``, ``wv`` and their biases), or layer 0's ``wq`` (the control:
+    no rank shares it)."""
+    return bool(re.search(r"\.attn\.w[kv]\.[wb]$", name)) or \
+        name.startswith("layers.0.attn.wq.")
+
+
+def shares_kv(lay) -> bool:
+    """Some KV leaf of the layout (``train/zero.layout``) is a sum over
+    the ranks that share its heads."""
+    return any(leaf.msum for k, leaf in lay.items()
+               if family_train_grad_leaf(k) and ".attn.wq." not in k)
+
+
+def family_train_one_rank(dev, cfg, batches, arrays: bool = False,
+                          grads: bool = False) -> dict:
     """The d = 1 run of phase 4l: seed-0 weights over the one-rank grid
     (so jamba's ``expert_tp`` keeps its own capacity rule, as its ranks
     do), one train step a batch -> each step's metrics, seconds and K4
     calls, and the peak memory; with ``arrays`` also the weights before
-    each step (``Transformer.to_arrays``).  Freed after."""
+    each step (``Transformer.to_arrays``), with ``grads`` step 0's
+    gradient of each :func:`family_train_grad_leaf` before clipping
+    (float32, on the host).  Freed after."""
     from repro_torch.launch.mesh import model_grid
     from repro_torch.train.optimizer import OptHyper
     from repro_torch.train.step import init_train_state, make_train_step
@@ -5719,15 +6135,24 @@ def family_train_one_rank(dev, cfg, batches, arrays: bool = False) -> dict:
         if arrays:      # copies: a CPU model's arrays share its storage
             before.append(copy.deepcopy(model.to_arrays()))
         b = {k: v.to(dev) for k, v in batch.items()}
-        with k4_calls() as (seen, _):
+        rec = pre_clip_grads(family_train_grad_leaf) if grads and i == 0 \
+            else contextlib.nullcontext()
+        with k4_calls() as (seen, _), rec as got:
             (_, _, met), t = timed(lambda: step_fn(model, state, b, i))
             row = {k: float(v) for k, v in met.items()}
         rows.append({**row, "seconds": t, "k4_calls": k4_tally(seen)})
+        if got is not None:
+            step0 = got
     out = {"steps": rows, "seconds_init": t_init,
            "param_bytes": nbytes(*model.parameters())}
     if arrays:
         out["arrays"] = before
+    if grads:
+        out["grads"] = step0
     del model, state
+    # a process's first step under remat="full" leaves its model in a
+    # reference cycle
+    gc.collect()
     if on_card:
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
@@ -5876,7 +6301,9 @@ def family_train_reckoning(cfg, model: int, batch: int, seq: int) -> dict:
     backward's :func:`family_train_activations` and the update's
     temporaries (four float32 copies of the rank's largest block) added to
     the rank, the backward freeing its activations before the update
-    starts, and the products' workspaces (``WORKSPACE_BYTES``)."""
+    starts, and the products' workspaces (``WORKSPACE_BYTES``); or, if
+    more, its blocks beside the float32 draw of the largest whole leaf
+    (the weights' draw, before the state exists)."""
     from repro_torch.launch.mesh import ModelGrid, ModelGroup
     from repro_torch.models.transformer import Transformer
     reck = sharded_train_reckoning(cfg, 1, model, batch=batch, seq=seq)
@@ -5888,18 +6315,43 @@ def family_train_reckoning(cfg, model: int, batch: int, seq: int) -> dict:
     reck["workspaces"] = WORKSPACE_BYTES
     reck["rank"] += max(reck["activations"], reck["optimizer_temporaries"]) \
         + WORKSPACE_BYTES
+    # the draw of the weights: each whole leaf in float32 beside the rank's
+    # blocks (layers.fill_normal_), mistral-nemo's 2.68 GB table the largest
+    reck["init_draw"] = 4 * max(p.numel() for p in Transformer(
+        cfg, device="meta").parameters())
+    reck["rank"] = max(reck["rank"], reck["params"] + reck["init_draw"]
+                       + WORKSPACE_BYTES)
     reck["all_ranks"] = reck["rank"] * model
     return reck
+
+
+def shared_checksums(model, state, lay) -> tuple:
+    """What ranks share after a step: each parameter that several model
+    ranks hold (``Leaf.holders``: the norms, a KV head's columns) and, with
+    AdamW, its m and v -> ({key: :func:`checksum`}, {key: holders})."""
+    params = dict(model.named_parameters())
+    held = {k: leaf.holders for k, leaf in lay.items()
+            if len(leaf.holders) > 1}
+    sums = {k: checksum(params[k]) for k in held}
+    holders = dict(held)
+    for part in ("m", "v"):     # Adafactor's state is by stacked group
+        for k, t in state.get(part, {}).items():
+            if k in held:
+                sums[f"{k}:{part}"] = checksum(t)
+                holders[f"{k}:{part}"] = held[k]
+    return sums, holders
 
 
 def family_train_rank(rank: int, d: int, workdir: str, jobs, device: str):
     """Phase 4l, one rank: one intra-op thread (16 ranks share 8 cores),
     join a gloo world of ``d`` ranks on ``device`` (card 0), then
-    :func:`family_train_world`."""
+    :func:`family_train_world`, the allocator's segments expandable
+    (:func:`expandable_segments`)."""
     import datetime
     import torch.distributed as dist
     torch.set_num_threads(1)
     if device == "cuda":
+        expandable_segments()
         torch.cuda.set_device(0)
         torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group(
@@ -5937,10 +6389,15 @@ def family_train_job(work: Path, label: str, cfg, sub, m: int, batches,
     card), then a sharded train step a batch.  Records each step's
     metrics, seconds, K4 launches by variant and calls by shape, headless
     calls and the model group's collectives by phase; what the rank holds
-    (heads, parameter, gradient and state bytes) and the checksums of what
-    ranks share; on the card its peak memory, and on rank 0 and the last
-    rank with a head K4 held to its plain version on step 0's layer-0
-    inputs.  Writes the record as ``rank<r>_<label>.json``."""
+    (heads, parameter, gradient and state bytes) and, after each step, the
+    checksums of what ranks share (:func:`shared_checksums`); on the card
+    its peak memory, and on rank 0 and the last rank with a head K4 held
+    to its plain version on step 0's layer-0 inputs.  Writes the record
+    as ``rank<r>_<label>.json``; where KV heads are shared
+    (:func:`shares_kv`), step 0's gradient of each
+    :func:`family_train_grad_leaf` after the model-axis sums, before
+    clipping, with its :func:`grad_block`, as ``rank<r>_<label>_grads.pt``.
+    """
     import torch.distributed as dist
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.launch.mesh import ModelGrid, ModelGroup
@@ -5967,7 +6424,8 @@ def family_train_job(work: Path, label: str, cfg, sub, m: int, batches,
         dist.barrier(group=sub)
     step_fn = make_train_step(cfg, OptHyper(), attn_chunk=TRAIN_SEQ)
     lay = zero.layout(model)
-    grads = {}
+    record = shares_kv(lay)
+    grads, sums = {}, []
     hooks = [p.register_post_accumulate_grad_hook(
         lambda p, k=k: grads.__setitem__(k, nbytes(p.grad)))
         for k, p in model.named_parameters()]
@@ -5979,14 +6437,21 @@ def family_train_job(work: Path, label: str, cfg, sub, m: int, batches,
             by_variant[v] = 0
         attn.NO_HEAD["calls"] = xlstm.NO_HEAD["calls"] = 0
         before = copy.deepcopy(grid.model.phase_stats)
+        rec = pre_clip_grads(family_train_grad_leaf) \
+            if record and i == 0 else contextlib.nullcontext()
         sync()
         t = time.perf_counter()
-        with k4_calls() as (seen, firsts):
+        with k4_calls() as (seen, firsts), rec as got:
             _, _, met = step_fn(model, state, mine, i)
             row = {k: float(v) for k, v in met.items()}
         sync()
         row["seconds"] = time.perf_counter() - t
         first = first or firsts
+        if got is not None:
+            torch.save({k: {"grad": g, "block": grad_block(lay[k])}
+                        for k, g in got.items()},
+                       work / f"rank{rank}_{label}_grads.pt")
+        sums.append(shared_checksums(model, state, lay))
         row.update(
             k4_launches=flash_attention_fwd.launches,
             k4_by_variant=dict(by_variant), k4_calls=k4_tally(seen),
@@ -5998,7 +6463,6 @@ def family_train_job(work: Path, label: str, cfg, sub, m: int, batches,
     for h in hooks:
         h.remove()
     params = dict(model.named_parameters())
-    shared = [k for k in params if len(lay[k].holders) > 1]
     info = {"rank": rank, "label": label, "arch": cfg.name,
             "grid": [1, m], "coords": grid.coords,
             "n_layers": cfg.n_layers, **rank_widths(model), "steps": rows,
@@ -6008,9 +6472,14 @@ def family_train_job(work: Path, label: str, cfg, sub, m: int, batches,
             "grad_bytes": sum(grads.values()), "grad_leaves": len(grads),
             "state_bytes": nbytes(*(t for *_, t in
                                     zero._state_leaves(state))),
-            "holders": {k: lay[k].holders for k in shared},
-            "checksums": {k: checksum(params[k]) for k in shared}}
+            "shares_kv": record, "holders": sums[-1][1],
+            "step_checksums": [s for s, _ in sums]}
+    alive = weakref.ref(model)
     del model, state, params
+    # a process's first step under remat="full" leaves its model in a
+    # reference cycle
+    gc.collect()
+    info["model_freed"] = alive() is None
     if on_card:
         info["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         torch.cuda.empty_cache()
@@ -6035,8 +6504,10 @@ def family_train_check(label, cfg, m: int, batch: int, seq: int, per, want,
     :func:`family_train_collectives` on rank 0's layout (on the meta
     device); the headless calls (:func:`family_train_no_head`) and K4's
     calls by shape (:func:`family_train_want_k4`), on the card each a
-    ``"sm90_wgmma"`` launch; every rank the same bits of what ranks
-    share.  Returns the gaps against d = 1 and the predicted calls."""
+    ``"sm90_wgmma"`` launch; after each step, the ranks that hold a block
+    the same bits of it and of its AdamW state; each rank's model freed
+    before the next run draws its weights.  Returns the gaps against
+    d = 1 and the predicted calls."""
     from repro_torch.launch.mesh import ModelGrid, ModelGroup
     from repro_torch.models import attention as attn
     from repro_torch.models.transformer import Transformer
@@ -6064,6 +6535,7 @@ def family_train_check(label, cfg, m: int, batch: int, seq: int, per, want,
         lo, hi = attn.head_range(cfg.n_heads, m, r)
         check(info["heads"] == hi - lo,
               f"{what}: holds {info['heads']} heads, want {hi - lo}")
+        check(info["model_freed"], f"{what}: the model outlived its run")
         want_k4 = family_train_want_k4(cfg, hi - lo, batch, seq)
         n_k4 = sum(want_k4.values())
         for i, g in enumerate(got):
@@ -6082,8 +6554,12 @@ def family_train_check(label, cfg, m: int, batch: int, seq: int, per, want,
                 g["k4_by_variant"].get("sm90_wgmma", 0) == n_k4),
                 f"{what} step {i}: K4 {g['k4_launches']} launches "
                 f"{g['k4_by_variant']}, want {n_k4} sm90_wgmma")
-    check(_same_checksums(per, lambda k: True),
-          f"phase 4l ({label}): ranks differ in the bits they share")
+    for i in range(len(want)):
+        recs = [{"coords": p["coords"], "holders": p["holders"],
+                 "checksums": p["step_checksums"][i]} for p in per]
+        check(_same_checksums(recs, lambda k: True),
+              f"phase 4l ({label}) step {i}: ranks differ in the bits "
+              f"they share")
     return {"loss_gap_over_one_rank": max(max(g) for g in gaps),
             "norm_gap_over_one_rank": abs(
                 per[0]["steps"][0]["grad_norm"] - want[0]["grad_norm"])
@@ -6097,31 +6573,47 @@ def phase_family_train(dev, kernels):
     ``FAMILY_TRAIN_RUNS`` on ranks 0..m-1 over (1, m),
     ``FAMILY_TRAIN_STEPS`` sharded train steps (``remat="full"``) held to
     the d = 1 run of the same weights and batches, run here first and
-    freed before the ranks spawn: (a) xlstm-350m whole, float32 compute,
-    over (1, 8) (mLSTM heads on ranks 0-3, none on 4-7); (b) whisper-small
-    whole over (1, 16) (12 heads on ranks 0-11, none on 12-15); (c)
+    freed before the ranks spawn: (a) xlstm-350m cut to 12 blocks, float32
+    compute, over (1, 8) (mLSTM heads on ranks 0-3, none on 4-7); (b)
+    whisper-small cut to 2 + 2 layers over (1, 16) (12 heads on ranks 0-11, none on
+    12-15); (c)
     internvl2-26b at full width cut to 4 layers over (1, 2); (d)
     jamba-1.5-large at full width in one period of ``attn_every = 2`` with
-    4 experts, ``expert_tp``, Adafactor, over (1, 2).  Before the ranks
-    spawn each run's reckoning (:func:`family_train_reckoning`) over its
-    ranks, the CUDA contexts and what this process holds must stay under
-    ``FAMILY_TRAIN_MEMORY``; after, each rank's peak under its reckoning,
-    and :func:`family_train_check`.  Returns K4's launches in the phase
-    (the d = 1 runs' and the ranks') and the ranks' K4 rows."""
+    4 experts, ``expert_tp``, Adafactor, over (1, 2); (e) starcoder2-15b
+    and (f) mistral-nemo-12b at full width cut to 2 layers over (1, 16),
+    each KV head shared by 4 and 2 ranks.  Before the ranks spawn each
+    run's reckoning (:func:`family_train_reckoning`) over its ranks, the
+    CUDA contexts and what this process holds must stay under
+    ``FAMILY_TRAIN_MEMORY`` (this process's reserved memory counted);
+    after, each rank's peak under its reckoning,
+    :func:`family_train_check`, and where KV heads are shared step 0's
+    gradient of each :func:`family_train_grad_leaf` on every rank within
+    ``FAMILY_TRAIN_GRAD_TOL`` of d = 1's cut to its block.  Returns K4's
+    launches in the phase (the d = 1 runs' and the ranks') and the ranks'
+    K4 rows."""
     import shutil
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.launch.mesh import ModelGrid, ModelGroup
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.train import zero
     t0 = time.perf_counter()
     work = ROOT / "build" / "phase4l"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     for k in kernels:
         k.launches = 0
-    runs, one, reck = {}, {}, {}
+    runs, one, reck, want_grads = {}, {}, {}, {}
     for run, arch, m, b, s, n_layers, over in FAMILY_TRAIN_RUNS:
         cfg = sharded_train_config(arch, n_layers, over)
         runs[run] = (cfg, m, b, s, family_train_batches(
             cfg, b, s, FAMILY_TRAIN_STEPS))
-        one[run] = family_train_one_rank(dev, cfg, runs[run][4])
+        shared = shares_kv(zero.layout(Transformer(
+            cfg, device="meta", group=ModelGrid(ModelGroup(1, 0),
+                                                ModelGroup(m, 0)))))
+        one[run] = family_train_one_rank(dev, cfg, runs[run][4],
+                                         grads=shared)
+        if shared:
+            want_grads[run] = one[run].pop("grads")
         print(json.dumps({"phase4l_one_rank": run, **one[run]}), flush=True)
         n = sum(c[4] for st in one[run]["steps"] for c in st["k4_calls"])
         want_k4 = family_train_want_k4(cfg, cfg.n_heads, b, s)
@@ -6135,13 +6627,14 @@ def phase_family_train(dev, kernels):
     check(total == sum(c[4] for o in one.values() for st in o["steps"]
                        for c in st["k4_calls"]),
           f"phase 4l: the d = 1 runs launched K4 {total} times")
-    held = torch.cuda.memory_allocated()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()     # what this process keeps
     for run, (cfg, m, b, s, _) in runs.items():
         reck[run] = family_train_reckoning(cfg, m, b, s)
         need = reck[run]["all_ranks"] + FAMILY_TRAIN_RANKS * \
             CUDA_CONTEXT_BYTES + held
         print(json.dumps({"phase4l_reckoning": run, "grid": [1, m],
-                          "parent_memory_allocated": held,
+                          "parent_memory_reserved": held,
                           "with_contexts": need, **reck[run]}), flush=True)
         check(need <= FAMILY_TRAIN_MEMORY,
               f"phase 4l ({run}): {need} bytes reckoned over the ranks")
@@ -6158,7 +6651,8 @@ def phase_family_train(dev, kernels):
         for run, per in pers.items():       # every record before a check
             print(json.dumps({"phase4l_run": run, "per_rank": [
                 {k: v for k, v in i.items()
-                 if k not in ("checksums", "holders")} for i in per]}),
+                 if k not in ("step_checksums", "holders")}
+                for i in per]}),
                 flush=True)
         for run, (cfg, m, b, s, _) in runs.items():
             per = pers[run]
@@ -6182,6 +6676,13 @@ def phase_family_train(dev, kernels):
                 run, cfg, m, b, s, per, one[run]["steps"],
                 FAMILY_TRAIN_LOSS_TOL[run], FAMILY_TRAIN_NORM_TOL[run],
                 True))
+            if run in want_grads:
+                gaps = [leaf_grad_gaps(torch.load(
+                    work / f"rank{r}_{run}_grads.pt"), want_grads[run])
+                    for r in range(m)]
+                leaf_grad_check(f"phase 4l ({run})", gaps,
+                                FAMILY_TRAIN_GRAD_TOL)
+                line["leaf_grad_gaps"] = gaps
             for info in per:
                 check(info["max_memory_allocated"] <= reck[run]["rank"],
                       f"phase 4l ({run}) rank {info['rank']}: peak "
@@ -6282,7 +6783,8 @@ def k4_on_path_inputs(q, k, v, causal=True) -> dict:
 
 def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
               hybrid_rows=(), sharded_rows=(), dryrun_rows=(), two_d_rows=(),
-              heads_rows=(), recurrent_rows=(), family_train_rows=()):
+              heads_rows=(), recurrent_rows=(), family_train_rows=(),
+              dense_rows=()):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
         attention_error_ratios, flash_attention_fwd, flash_attention_fwd_plain)
@@ -6354,6 +6856,7 @@ def kernel_k4(launches, by_variant, moe_rows=(), family_rows=(),
     row["heads_path_inputs"] = list(heads_rows)     # phase 4j's ranks 0, m-1
     row["recurrent_path_inputs"] = list(recurrent_rows)   # phase 4k's jamba
     row["family_train_path_inputs"] = list(family_train_rows)   # 4l's
+    row["dense_configs_path_inputs"] = list(dense_rows)   # phase 4m's
     return row
 
 
@@ -6667,6 +7170,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    expandable_segments()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import resolve
     from repro_torch.kernels import _build
@@ -6728,6 +7232,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     hybrid, k4_hybrid = phase_hybrid(dev, kernels, args.profile)
     torch.cuda.empty_cache()
+    dense, k4_dense = phase_dense_configs(dev, kernels, args.profile)
     dry, k4_dry = phase_dryrun(dev, kernels)
     torch.cuda.empty_cache()
     # the graph kernels' rows now; then the graphs' derived arrays go (their
@@ -6765,7 +7270,7 @@ def main() -> int:
     rows.append(kernel_k4(path["flash_attention_fwd"], k4_variants, k4_moe,
                           k4_families, k4_hybrid, k4_sharded, k4_dry,
                           k4_two_d, k4_heads, k4_recurrent,
-                          k4_family_train))
+                          k4_family_train, k4_dense))
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
@@ -6777,6 +7282,7 @@ def main() -> int:
                  launches_phase_sharded_lm=sharded_lm.get(r["name"], 0),
                  launches_phase_families=families.get(r["name"], 0),
                  launches_phase_hybrid=hybrid.get(r["name"], 0),
+                 launches_phase_dense_configs=dense.get(r["name"], 0),
                  launches_phase_dryrun=dry.get(r["name"], 0),
                  launches_phase_train=train.get(r["name"], 0),
                  launches_phase_sharded_train=sharded_train.get(r["name"],

@@ -3,16 +3,17 @@ model ranks, as ``chip_smoke.py`` runs it, without phases 2-4k before it.
 
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
-    python3 probes/family_train_phase.py
+    python3 probes/family_train_phase.py [--runs e,f]
 
 Prints the card's name and power limit, the Python / torch / CUDA
 versions, then runs ``phase_family_train``: the d = 1 runs of (a)
-xlstm-350m, (b) whisper-small, (c) internvl2-26b cut to 4 layers and (d)
-jamba-1.5-large in one period of ``attn_every = 2`` with 4 experts, then
-all four in one world of 16 gloo ranks sharing the card, each over (1, m)
-and held to its d = 1 run.  Then K4's backward at whisper's three
-attention shapes of a rank, against the plain version and SDPA's
-backward (K4's row ``backward_whisper`` in the smoke).
+xlstm-350m, (b) whisper-small, (c) internvl2-26b cut to 4 layers, (d)
+jamba-1.5-large in one period of ``attn_every = 2`` with 4 experts, (e)
+starcoder2-15b and (f) mistral-nemo-12b cut to 2 layers, then all in one
+world of 16 gloo ranks sharing the card, each over (1, m) and held to its
+d = 1 run (``--runs``: only the runs named).  Then K4's backward at
+whisper's three attention shapes of a rank, against the plain version and
+SDPA's backward (K4's row ``backward_whisper`` in the smoke).
 
 On a machine without a card, ``tests/test_torch_family_train.py``
 rehearses the phase's rank function at reduced widths on the CPU.
@@ -40,9 +41,14 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     print(sys.version, torch.__version__, torch.version.cuda, flush=True)
+    cs.expandable_segments()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.load()
+    if "--runs" in sys.argv[1:]:
+        keep = sys.argv[sys.argv.index("--runs") + 1].split(",")
+        cs.FAMILY_TRAIN_RUNS = tuple(r for r in cs.FAMILY_TRAIN_RUNS
+                                     if r[0] in keep)
     t0 = time.perf_counter()
     launches, rows = cs.phase_family_train(
         torch.device("cuda"), (bsr_spmv, segment_sum_chunked, bsr_tricount,

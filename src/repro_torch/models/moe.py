@@ -83,7 +83,7 @@ from torch import nn
 from .layers import Dense, _empty, fill_normal_, full_shape, weight
 
 __all__ = ["MoE", "Routing", "ExpertShard", "capacity", "tp_capacity",
-           "route", "moe_apply", "moe_apply_sorted", "moe_apply_expert_tp",
+           "route", "assign", "moe_apply", "moe_apply_sorted", "moe_apply_expert_tp",
            "MOE_IMPLS"]
 
 MOE_IMPLS = ("sorted", "expert_tp")
@@ -171,16 +171,27 @@ def route(p: MoE, x: torch.Tensor, cfg, cap: Optional[int] = None
     """Route ``x`` (B, S, d) as the reference's ``moe_apply_sorted`` does
     (``cap``: another capacity than :func:`capacity`'s)."""
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.experts_per_token
+    k = cfg.experts_per_token
     t = b * s
     cap = capacity(t, cfg) if cap is None else cap
-    dev = x.device
     logits = torch.matmul(x.reshape(t, d).float(),
                           weight(p.router.w, torch.float32))      # (T, E)
     probs = torch.softmax(logits, dim=-1)
     # top-k as lax.top_k orders it: ties to the lower index
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, gate_idx = vals[:, :k], idx[:, :k]
+    return assign(probs, idx[:, :k], vals[:, :k], cap)
+
+
+def assign(probs: torch.Tensor, gate_idx: torch.Tensor,
+           gate_vals: torch.Tensor, cap: int) -> Routing:
+    """:func:`route`'s Routing from the router's ``probs`` (T, E) and each
+    token's chosen experts ``gate_idx`` (T, k), best first, with their
+    probabilities ``gate_vals``: the gates renormalised over the k, the
+    aux loss, the stable sort by expert, the places in each expert's group
+    and the capacity ``cap``'s buckets."""
+    t, e = probs.shape
+    k = gate_idx.shape[1]
+    dev = probs.device
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
 

@@ -1138,8 +1138,82 @@ def family_train_job(workdir: str, jobs) -> list:
     ``family_train_world`` (it imports only torch, numpy and
     ``repro_torch``), each job over (1, m) on ranks 0..m-1 -> this rank's
     records."""
+    import gc
     root = str(Path(__file__).resolve().parents[1])
     if root not in sys.path:
         sys.path.append(root)
     import chip_smoke
+    # the automatic collector off: a reference cycle then lives until a
+    # collection is asked for, as one promoted to the oldest generation
+    # does on the card (phase 4l's ranks collect after each run)
+    gc.disable()
     return chip_smoke.family_train_world(workdir, jobs, "cpu")
+
+
+def family_train_unsummed_job(workdir: str, jobs) -> list:
+    """:func:`family_train_job` with a fault planted in the sharded step:
+    the model-axis sum of the leaves whose gradient ranks hold in part
+    (``train/zero._reduce``'s ``msum``: a dense model's shared KV heads)
+    skipped, so each rank keeps its own part of a KV head's gradient."""
+    import dataclasses
+    from repro_torch.train import zero
+    real = zero._reduce
+
+    def unsummed(g, leaf, grid):
+        return real(g, dataclasses.replace(leaf, msum=False), grid)
+
+    zero._reduce = unsummed
+    return family_train_job(workdir, jobs)
+
+
+def two_d_grads_job(over, batch, plant) -> list:
+    """Phase 4i's step 0 on this rank of a (2, 2) world, weights 2-D
+    (``default_rules(two_d_weights=True)``: a reduced config is not
+    giant), from seed 0, this data shard's row of ``batch``: the metrics
+    and ``chip_smoke.py``'s record of each 2-D block's reduced gradient
+    (``pre_clip_grads`` in bf16, ``grad_block``) and of its routings
+    (``moe_choices``), as the phase's ranks write them.  Twice: as it is,
+    then with the fault ``plant`` planted, the 2-D gradient of that leaf
+    left undivided by d."""
+    import torch
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import model_grid
+    from repro_torch.train import zero
+    from repro_torch.train.optimizer import OptHyper
+    from repro_torch.train.step import init_train_state, make_train_step
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.append(root)
+    import chip_smoke
+    grid = model_grid(2, 2)
+    rows = {k: v[grid.data.rank:grid.data.rank + 1] for k, v in batch.items()}
+    cfg = _train_cfg(over)
+    real = zero._taken_grad
+    out = []
+    for fault in (None, plant):
+        gen = torch.Generator().manual_seed(0)
+        m, state = init_train_state(
+            cfg, gen, device="cpu", grid=grid,
+            rules=sharding.default_rules(two_d_weights=True))
+        lay = zero.layout(m)
+        target = dict(m.named_parameters()).get(fault)
+
+        def taken(p, leaf):
+            g = real(p, leaf)
+            return g * grid.data.d if p is target else g
+
+        zero._taken_grad = taken
+        two_d = {k for k, leaf in lay.items() if leaf.ddim is not None}
+        try:
+            with chip_smoke.pre_clip_grads(two_d.__contains__,
+                                           torch.bfloat16) as got, \
+                    chip_smoke.moe_choices() as chosen:
+                _, _, met = make_train_step(cfg, OptHyper())(m, state, rows,
+                                                             0)
+        finally:
+            zero._taken_grad = real
+        out.append({"metrics": {k: float(v) for k, v in met.items()},
+                    "grads": {k: {"grad": g, "block": chip_smoke.grad_block(
+                        lay[k])} for k, g in got.items()},
+                    "routes": chosen})
+    return out

@@ -55,7 +55,11 @@ MOE = ["grok-1-314b", "qwen3-moe-235b-a22b"]
 FAMILIES = ["xlstm-350m", "whisper-small", "internvl2-26b"]   # ssm, audio, vlm
 HYBRID = "jamba-1.5-large-398b"
 PERIODS = {"3:1": {}, "7:1": {"attn_every": 8, "n_layers": 8}}
-PARITY = ["qwen2.5-3b", "qwen1.5-4b", "starcoder2-15b"]
+PARITY = ["qwen2.5-3b", "qwen1.5-4b", "starcoder2-15b", "mistral-nemo-12b"]
+# reduced() squares mistral-nemo's width away (4 heads x 16 = d_model 64):
+# head_dim 32 keeps its query width (128) unlike d_model, as published
+# (32 x 128 = 4096 against 5120)
+PARITY_OVER = {"mistral-nemo-12b": {"head_dim": 32}}
 B, S = 2, 16
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -83,7 +87,7 @@ class Case:
 
 @pytest.fixture(scope="module", params=PARITY)
 def case(request):
-    return Case(request.param)
+    return Case(request.param, **PARITY_OVER.get(request.param, {}))
 
 
 @pytest.mark.parametrize("arch", DENSE + MOE + FAMILIES + [HYBRID])
@@ -111,6 +115,14 @@ def test_registry_holds_the_dense_configs_only():
         dataclasses.asdict(r_get_config("ringo-graph"))
     with pytest.raises(KeyError, match="unknown arch 'ghost'"):
         get_config("ghost")
+
+
+def test_parity_keeps_mistral_nemos_query_width_unlike_d_model():
+    cfg = reduced(get_config("mistral-nemo-12b"),
+                  **PARITY_OVER["mistral-nemo-12b"])
+    assert cfg.n_heads * cfg.resolved_head_dim == 128 != cfg.d_model == 64
+    full = get_config("mistral-nemo-12b")
+    assert full.n_heads * full.resolved_head_dim != full.d_model
 
 
 def test_round_trip_is_bit_identical(case):

@@ -33,9 +33,22 @@ and at one rank within 1e-6 of continuing; and with ``remat="none"`` at
 not the model's.  Also the stacked Adafactor at one rank (the fault the
 port had: a per-layer optimizer), and the grouping of every family's
 leaves against the reference's pytree.
+
+Phase 4i's per-leaf yardstick (``chip_smoke.py``): in a world of 4 ranks
+as (2, 2) (``_torch_worlds.two_d_grads_job``), reduced qwen3-moe with the
+phase's ``TWO_D_OVER`` records each 2-D block's step-0 gradient and its
+routings as the phase's ranks do, held to the average of one rank's
+gradients on the two data halves, each routed as its data shard's ranks
+routed it (``two_d_halves_grad``, ``moe_choices``), by
+``leaf_grad_gaps``; the same run with one leaf's 2-D gradient left
+undivided by d passes the phase's norm check and is refused by the
+per-leaf one.  Replaying a run's own routings changes no bit of its
+gradient.
 """
 
+import importlib.util
 import math
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +57,7 @@ import pytest
 import torch
 
 from _torch_oracles import lm_arrays
-from _torch_worlds import run_world, two_d_job
+from _torch_worlds import run_world, two_d_grads_job, two_d_job
 from repro.configs.base import get_config as r_get_config
 from repro.configs.base import list_archs as r_list_archs
 from repro.configs.base import reduced as r_reduced
@@ -59,6 +72,11 @@ from repro_torch.train import optimizer as opt
 from repro_torch.train.step import init_train_state, make_train_step
 
 torch.set_num_threads(2)
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
 
 B, S, STEPS = 4, 12, 3
 TOL = 1e-5
@@ -472,3 +490,92 @@ def test_launch_train_two_d_runs_in_a_world_of_4(tmp_path):
         for k in one.files:
             np.testing.assert_allclose(four[k], one[k], atol=1e-5, rtol=0,
                                        err_msg=k)
+
+
+# phase 4i's run (a) at reduced width, and the leaf whose 2-D gradient the
+# planted fault leaves undivided by d
+HALVES_OVER = dict(arch=MOE, **cs.TWO_D_OVER)
+PLANTED = "layers.0.attn.wk.w"
+
+
+@pytest.fixture(scope="module")
+def halves(tmp_path_factory):
+    """The world's records (each rank: the honest run, then the planted
+    one), the averaged halves' gradient of every leaf and the one-rank
+    run's step-0 gradient norm on the whole batch (the phase's
+    ``train_d1``)."""
+    over = {k: v for k, v in HALVES_OVER.items() if k != "arch"}
+    cfg = reduced(get_config(MOE), **over)
+    rng = np.random.default_rng(0)
+    t = rng.integers(0, cfg.vocab_size, (2, S + 1)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(t[:, :-1]),
+             "targets": torch.from_numpy(t[:, 1:])}
+    res = run_world(two_d_grads_job, 4, tmp_path_factory.mktemp("halves"),
+                    HALVES_OVER, batch, PLANTED)
+    shards = [{k: v[h:h + 1] for k, v in batch.items()} for h in range(2)]
+    want, differed = cs.two_d_halves_grad(
+        "cpu", cfg, shards, lambda k: True,
+        [res[2 * h][0]["routes"] for h in range(2)])
+    assert differed == [0, 0]   # float32: the ranks' routings are its own
+    own, none = cs.two_d_halves_grad("cpu", cfg, shards, lambda k: True)
+    assert none == [0, 0] and all(torch.equal(own[k], want[k]) for k in own)
+    d1 = cs.train_one_rank("cpu", cfg, [batch], 1)[0]["grad_norm"]
+    return res, want, d1
+
+
+def test_replaying_a_runs_own_routings_changes_no_bit(halves):
+    """``moe_choices``: a d = 1 step's routings recorded, then replayed
+    through ``moe.assign``, give the same gradients bit for bit, and a
+    replay of other choices moves the experts' gradients."""
+    res, _, _ = halves
+    over = {k: v for k, v in HALVES_OVER.items() if k != "arch"}
+    cfg = reduced(get_config(MOE), **over)
+    rng = np.random.default_rng(1)
+    t = rng.integers(0, cfg.vocab_size, (1, S + 1)).astype(np.int32)
+    rows = {"tokens": torch.from_numpy(t[:, :-1]),
+            "targets": torch.from_numpy(t[:, 1:])}
+
+    def grads(replay):
+        model = Transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+        with cs.moe_choices(replay) as seen:
+            loss, _ = model.loss_fn(rows)
+            loss.backward()
+        return {k: p.grad for k, p in model.named_parameters()}, seen
+
+    base, chosen = grads(None)
+    again, differed = grads(chosen)
+    assert sum(differed) == 0 and all(torch.equal(base[k], again[k])
+                                      for k in base)
+    other = [(c + 1) % cfg.n_experts for c in chosen]   # the next expert
+    moved, differed = grads(other)
+    assert differed[0] == chosen[0].numel()     # layer 0's every choice
+    assert not torch.equal(moved["layers.0.moe.wi"], base["layers.0.moe.wi"])
+
+
+def test_two_d_blocks_match_the_averaged_halves_per_leaf(halves):
+    res, want, d1 = halves
+    gaps = [cs.leaf_grad_gaps(r[0]["grads"], want) for r in res]
+    assert all(PLANTED in g and len(g) > 10 for g in gaps)
+    assert max(max(g.values()) for g in gaps) <= 1e-2, gaps   # bf16 copies
+    cs.leaf_grad_check("honest", gaps, cs.TWO_D_NORM_TOL)
+    for r in res:
+        norm = r[0]["metrics"]["grad_norm"]
+        assert abs(norm - d1) <= cs.TWO_D_NORM_TOL * d1
+
+
+def test_the_per_leaf_check_refuses_a_2d_gradient_left_undivided(halves):
+    """The planted leaf reads a gap of 1 (its gradient doubled at d = 2)
+    on every rank, every other leaf as before; the phase's norm check on
+    step 0 passes it, the per-leaf check refuses it."""
+    res, want, d1 = halves
+    gaps = [cs.leaf_grad_gaps(r[1]["grads"], want) for r in res]
+    for g in gaps:
+        assert abs(g.pop(PLANTED) - 1.0) <= 1e-2, g
+        assert max(g.values()) <= 1e-2
+    gaps = [cs.leaf_grad_gaps(r[1]["grads"], want) for r in res]
+    for r in res:
+        norm = r[1]["metrics"]["grad_norm"]
+        assert abs(norm - d1) <= cs.TWO_D_NORM_TOL * d1, (norm, d1)
+    with pytest.raises(RuntimeError, match="gradient per leaf"):
+        cs.leaf_grad_check("planted", gaps, cs.TWO_D_NORM_TOL)
